@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke run of cnc_torch's serving path on one NVIDIA GPU.
+"""Smoke run of cnc_torch's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (name, power limit), torch and CUDA versions;
   2. build the kernels from cnc_torch/csrc (nvcc, sm_90a);
-  3. hold each kernel against its plain PyTorch twin on the card, at the
-     shapes the main path gives it, and time both with CUDA events;
-  4. the main path: render one 800x800 view of a full-width field
+  3. hold each serving kernel (K1, K3, K4, K5) against its plain PyTorch twin
+     on the card, at the shapes the serving path gives it, and time both with
+     CUDA events;
+  4. the serving path: render one 800x800 view of a full-width field
      (ModelConfig(), RenderConfig(), random weights from seed 0) through
      `render_image`, over the procedural `blocks` scene's 128^3 occupancy,
      with every kernel's launch count read just after; then render it once
@@ -16,7 +17,22 @@ Phases (any failure raises and the script exits non-zero):
      operator (also written to chiprun_out/profile.txt);
   5. render a 64x64 crop of the view on the card and with device="cpu" (the
      plain twins) and require them to agree;
-  6. print the kernels line, the card line and the final JSON line.
+  6. [probe] the scatter-add and lane-gather kernels at the TPU probe's
+     shapes (table [8, 2^18], 2^23 indices from a numpy seed), driven once
+     through their public wrappers with the counts read just after, held
+     against their twins and timed;
+  7. [train] the training path at full width: `Trainer(CNCConfig() with
+     lmbda=0, ProceduralDataset("blocks")).fit`.  After the first 16 steps
+     the training kernels are held against their twins at one real training
+     march's buffer: K4 with jitter (exact), [K2] the encode backward on the
+     xyz table and one plane, [K5b] the composite backward at the full and
+     at a half-padded buffer.  Then the counts are set to 0, `fit` runs on
+     to TRAIN_STEPS, and the counts are read: every training kernel must
+     have launched, the loss must have fallen, and the test views' PSNR must
+     exceed TRAIN_PSNR_MIN.  One more step runs under torch.profiler
+     (chiprun_out/profile_train.txt);
+  8. render the 800x800 view once more with the trained field and grid;
+  9. print the kernels line, the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
 run outside the repository (cnc_torch missing).
@@ -26,6 +42,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -36,6 +53,17 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 VIEW = 800
 CROP = 64
 CROP_RGB_TOL = 1e-3
+PROBE_LOG2_TABLE, PROBE_N = 18, 1 << 23   # tools/pallas_probe.py's default shapes
+TRAIN_WARM_STEPS = 16       # steps before the training kernels are checked
+# total steps, the whole lr warm-up; the driven run is TRAIN_STEPS - TRAIN_WARM_STEPS
+TRAIN_STEPS = 1000
+K2_REL_TOL = 1e-4           # max |kernel - twin| over max |d_table| (float atomics)
+K5B_REL_TOL = 1e-5          # the same for d_sigmas and d_rgbs (serial sums, other order)
+SCATTER_REL_TOL = 1e-5      # scatter_add against index_add_, over max |out|
+# the first H100 run of this phase reached 37.36 dB on the two test views after
+# 1,000 steps (35.87 dB after 400); the floor leaves 5.36 dB for run-to-run
+# spread (the draws are seeded, but K2's float atomics make no two runs bit-equal)
+TRAIN_PSNR_MIN = 32.0
 
 
 def log(msg: str) -> None:
@@ -160,8 +188,193 @@ def march_work(torch, marching, scatter_ops, o, d, binaries, aabb, rcfg, capacit
     return n_coarse, n_mip, int(need.sum()), torch.unique(flat[need & inside]).numel()
 
 
-def profile_view(torch, render) -> None:
-    """Device busy share and time by operator over one render of the view."""
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def check_probe(torch, kernels, scatter_ops, dev):
+    """The two probe kernels at the probe's shapes and data (numpy seed 0, as
+    tools/pallas_probe.py draws them).  Each is driven once through its public
+    wrapper with the counts at 0, and that output is held against the twin's.
+    Returns (records, launch counts of the drive)."""
+    import numpy as np
+    t, n = 1 << PROBE_LOG2_TABLE, PROBE_N
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(rng.integers(0, t, n, dtype=np.int32)).to(dev)
+    tbl_t = torch.from_numpy(np.ascontiguousarray(
+        rng.standard_normal((t, 8), np.float32).T)).to(dev)            # [8, T]
+    vals = torch.from_numpy(np.ascontiguousarray(
+        rng.standard_normal((8, n), np.float32).T)).to(dev)            # [N, 8]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    gathered = scatter_ops.lane_gather(tbl_t, idx)
+    summed = scatter_ops.scatter_add(vals, idx, t)
+    torch.cuda.synchronize()
+    counts = {k: kernels.launches[k] for k in ("lane_gather", "scatter_add")}
+
+    want = scatter_ops._lane_gather_plain(tbl_t, idx)
+    if not torch.equal(gathered, want):
+        raise AssertionError("[probe] lane_gather differs from its twin")
+    rows = torch.unique(idx).numel()
+    b, by = bound_ms(n * 4 + 8 * n * 4 + rows * 8 * 4, 0)
+    recs = {"lane_gather": dict(
+        max_abs_err=0.0, ms=time_ms(lambda: scatter_ops._lane_gather_cuda(tbl_t, idx), iters=10),
+        plain_ms=time_ms(lambda: scatter_ops._lane_gather_plain(tbl_t, idx), iters=10),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: torch.index_select(tbl_t, 1, idx), iters=10))}
+    del gathered, want
+
+    want = scatter_ops._scatter_add_plain(vals, idx, t)
+    err = rel_err(summed, want)
+    if not err <= SCATTER_REL_TOL:
+        raise AssertionError(f"[probe] scatter_add: rel err {err} > {SCATTER_REL_TOL}")
+    # every update adds 8 floats; the table is written once
+    b, by = bound_ms(n * 4 + 8 * n * 4 + t * 8 * 4, 8 * n)
+    idx64 = idx.long()
+    recs["scatter_add"] = dict(
+        max_abs_err=float((summed - want).abs().max()),
+        ms=time_ms(lambda: scatter_ops._scatter_add_cuda(vals, idx, t), iters=10),
+        plain_ms=time_ms(lambda: scatter_ops._scatter_add_plain(vals, idx, t), iters=10),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: torch.zeros(t, 8, device=dev).index_add_(0, idx64, vals),
+                           iters=10))
+    for name, r in recs.items():
+        log(f"[probe {name}] table [8, {t}] idx {n} distinct {rows} launches {counts[name]}"
+            f" max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+            f" library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+    return recs, counts
+
+
+def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label):
+    """K2 against its twin (autograd of `_encode_plain`) on one table at a
+    training march's sample points; returns the kernel record fields."""
+    n, f, rows = pts.shape[0], table.shape[1], table.shape[0]
+    res, offs = spec.resolutions, spec.offsets
+    cot = torch.randn(n, spec.n_levels * f, generator=gen, device=pts.device)
+    got = enc._encode_backward_cuda(pts, cot, rows, res, offs)
+    leaf = table.detach().clone().requires_grad_()
+    out = enc._encode_plain(pts, leaf, res, offs)
+    twin = lambda: torch.autograd.grad(out, leaf, cot, retain_graph=True)[0]
+    want = twin()
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not (got.isfinite().all() and err <= K2_REL_TOL * scale):
+        raise AssertionError(f"[K2] {label}: max abs err {err} > {K2_REL_TOL} * {scale}")
+    # the updates the function makes: (row, g*w/wn) per surviving corner, as
+    # one index_add_ would take them (the library yardstick), and the
+    # distinct rows they touch (read-modify-write in the bound)
+    gs, vs = [], []
+    oob = ((pts < 0.0) | (pts > 1.0)).any(dim=-1)
+    for li, r in enumerate(res):
+        frac, pg = enc._level_setup(pts, r)
+        gi, wi = enc._corner_setup(frac, pg, offs[li], offs[li + 1] - offs[li], int(r))
+        wn = wi.sum(dim=-1, keepdim=True)
+        wi = torch.where(oob[:, None], 0.0, wi / torch.where(wn == 0.0, 1e-9, wn))
+        gs.append(gi)
+        vs.append(wi[..., None] * cot[:, None, li * f:(li + 1) * f])
+    gidx = torch.cat(gs, dim=1).reshape(-1)
+    vals = torch.cat(vs, dim=1).reshape(-1, f)
+    live = torch.cat([(v != 0).any(dim=-1) for v in vs], dim=1).reshape(-1)
+    n_updates = int(live.sum())
+    n_rows = torch.unique(gidx[live]).numel()
+    library = lambda: torch.zeros(rows, f, device=pts.device).index_add_(0, gidx, vals)
+    lib_err = rel_err(library(), want)
+    n_bytes = pts.numel() * 4 + cot.numel() * 4 + 2 * n_rows * f * 4
+    n_flops = n * spec.n_levels * (2 ** spec.num_dim) * (spec.num_dim + 2 * f + 1)
+    b, by = bound_ms(n_bytes, n_flops)
+    rec = dict(max_abs_err=err, rel_err=err / scale,
+               ms=time_ms(lambda: enc._encode_backward_cuda(pts, cot, rows, res, offs), iters=10),
+               plain_ms=time_ms(twin, iters=5, warmup=1), bound_ms=b, bound_by=by,
+               library_ms=time_ms(library, iters=5, warmup=1))
+    log(f"[K2 grid_encode_bwd {label}] N={n} L={spec.n_levels} D={spec.num_dim} rows={rows}"
+        f" updates={n_updates} distinct_rows={n_rows} rel_err={err / scale:.3g}"
+        f" (limit {K2_REL_TOL}; index_add_ against the twin {lib_err:.3g}) ms={rec['ms']:.4f}"
+        f" plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} bound_ms={b:.4f}")
+    return rec
+
+
+def check_volrend_bwd(torch, volrend, smp, n_rays, rcfg, gen, label):
+    """K5b against its twin (autograd of `_composite_plain`) on one sample
+    buffer; returns the kernel record fields."""
+    dev = smp.ray_id.device
+    n = smp.ray_id.shape[0]
+    sig = torch.empty(n, device=dev).exponential_(1 / 40.0, generator=gen)
+    rgb = torch.rand(n, 3, generator=gen, device=dev)
+    cots = (torch.randn(n_rays, 3, generator=gen, device=dev),
+            torch.randn(n_rays, generator=gen, device=dev),
+            torch.randn(n_rays, generator=gen, device=dev))
+    args = (smp, n_rays, rcfg.early_stop_eps, None, rcfg.alpha_thre)
+    kernel = lambda: volrend._composite_backward_cuda(rgb, sig, *args, *cots)
+    r_leaf, s_leaf = rgb.clone().requires_grad_(), sig.clone().requires_grad_()
+    outs = volrend._composite_plain(r_leaf, s_leaf, *args)[:3]
+    twin = lambda: torch.autograd.grad(outs, (r_leaf, s_leaf), cots, retain_graph=True)
+    got, want = kernel(), twin()
+    torch.cuda.synchronize()
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    if not max(errs) <= K5B_REL_TOL:
+        raise AssertionError(f"[K5b] {label}: rel err {errs} > {K5B_REL_TOL}")
+    n_valid = int(smp.valid.sum())
+    # bytes: each valid sample read once, its gradients written once; each
+    # ray's output gradients read once
+    n_bytes = n_valid * (4 + 12 + 4 + 1 + 4 + 16) + n_rays * 20
+    b, by = bound_ms(n_bytes, n_valid * 40)
+    rec = dict(max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+               ms=time_ms(kernel), plain_ms=time_ms(twin, iters=10), bound_ms=b, bound_by=by,
+               library_ms=None)
+    log(f"[K5b volrend_bwd {label}] slots={n} valid={n_valid} rays={n_rays}"
+        f" rel_err d_rgbs={errs[0]:.3g} d_sigmas={errs[1]:.3g} (limit {K5B_REL_TOL})"
+        f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={b:.5f}")
+    return rec
+
+
+def check_training_kernels(torch, tr, enc, marching, volrend, rf, gen):
+    """K4 with jitter, K2 and K5b against their twins at one real training
+    march: the trainer's current ray bucket, occupancy grid and tables."""
+    from cnc_torch.train.trainer import _next_bucket
+    cfg, dev = tr.cfg, tr.device
+    bucket = _next_bucket(tr.num_rays, cfg.train.min_ray_bucket, cfg.train.max_ray_bucket)
+    rays, _ = tr.dataset.fetch_rays(gen, bucket)
+    o, d = rays.origins.contiguous(), rays.viewdirs.contiguous()
+    binaries, cap = tr.occ_state.binaries, cfg.render.sample_capacity
+    mip = marching.build_march_mip(binaries)
+    u = torch.rand(bucket, generator=gen, device=dev)
+    half = torch.rand(bucket, generator=gen, device=dev) < 0.5
+    records = {}
+    with torch.no_grad():
+        got = marching._march_cuda(o, d, binaries, tr.aabb, cfg.render, cap, None, None, None,
+                                   mip, u)
+        want = marching._march_plain(o, d, binaries, tr.aabb, cfg.render, cap, None, None, None,
+                                     mip, u)
+        padded = marching._march_cuda(o, d, binaries, tr.aabb, cfg.render, cap, half, None, None,
+                                      mip, u)
+        torch.cuda.synchronize()
+        for name in ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples"):
+            a, b = getattr(got, name), getattr(want, name)
+            if not torch.equal(a.to(b.dtype), b):
+                raise AssertionError(f"K4 with jitter: {name} differs between kernel and twin")
+        n_valid = int(got.valid.sum())
+        log(f"[K4 march, jittered] rays={bucket} capacity={cap} samples={n_valid}"
+            f" truncated={bool(got.truncated)} exact against the twin")
+        if n_valid < cap // 2:
+            raise AssertionError(f"[train] the march filled only {n_valid} of {cap} slots")
+        pos, _ = marching.sample_positions(got, o, d)
+        x01 = ((pos - tr.aabb[:3]) / (tr.aabb[3:] - tr.aabb[:3])).contiguous()
+        tables = rf.quantized_tables(tr.field, cfg.model)
+    k2_xyz = check_grid_encode_bwd(torch, enc, cfg.model.grid_3d, tables["xyz"], x01, gen, "xyz")
+    k2_xy = check_grid_encode_bwd(torch, enc, cfg.model.grid_2d, tables["xy"],
+                                  x01[:, [0, 1]].contiguous(), gen, "xy")
+    records["grid_encode_bwd"] = dict(k2_xyz, max_abs_err=max(k2_xyz["max_abs_err"],
+                                                               k2_xy["max_abs_err"]))
+    k5b = {label: check_volrend_bwd(torch, volrend, smp, bucket, cfg.render, gen, label)
+           for label, smp in (("full", got), ("padded", padded))}
+    records["volrend_bwd"] = dict(k5b["full"], max_abs_err=max(v["max_abs_err"]
+                                                               for v in k5b.values()))
+    return records
+
+
+def profile_view(torch, render, name: str = "profile") -> None:
+    """Device busy share and time by operator over one call of `render`."""
     from pathlib import Path
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -176,12 +389,12 @@ def profile_view(torch, render) -> None:
                  if e.device_type == DeviceType.CUDA) / 1e3
     table = events.table(sort_by="self_device_time_total", row_limit=25)
     host = events.table(sort_by="self_cpu_time_total", row_limit=15)
-    log(f"[profile] wall {wall_ms:.1f} ms under the profiler, device busy {dev_ms:.1f} ms"
+    log(f"[{name}] wall {wall_ms:.1f} ms under the profiler, device busy {dev_ms:.1f} ms"
         f" ({100 * dev_ms / wall_ms:.1f}%)")
     log(table)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "profile.txt").write_text(f"wall_ms {wall_ms}\ndevice_ms {dev_ms}\n{table}\n{host}\n")
+    (out / f"{name}.txt").write_text(f"wall_ms {wall_ms}\ndevice_ms {dev_ms}\n{table}\n{host}\n")
 
 
 def main() -> int:
@@ -194,12 +407,14 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
-    from cnc_torch.config import ModelConfig, RenderConfig
+    import dataclasses
+    from cnc_torch.config import CNCConfig, ModelConfig, RenderConfig, TrainConfig
     from cnc_torch.data import cameras, scenes
     from cnc_torch.models import radiance_field as rf
     from cnc_torch.ops import encoding as enc
     from cnc_torch.ops import scatter_ops
     from cnc_torch.render import marching, renderer, volrend
+    from cnc_torch.train.trainer import Trainer
     from cnc_torch.utils import metrics
 
     t_start = time.time()
@@ -337,9 +552,10 @@ def main() -> int:
 
     # ---- 4. the main path: one full 800x800 view through render_image,
     # timed on its second render (the first warms cuBLAS and the allocator)
-    render_view = lambda **kw: renderer.render_image(field, mcfg, rcfg, aabb, binaries,
-                                                     rays.origins, rays.viewdirs, bkgd,
-                                                     device=dev, **kw)
+    serving = ("grid_encode", "compact", "march", "volrend")
+    render_with = lambda fld, grid, **kw: renderer.render_image(
+        fld, mcfg, rcfg, aabb, grid, rays.origins, rays.viewdirs, bkgd, device=dev, **kw)
+    render_view = lambda **kw: render_with(field, binaries, **kw)
     t0 = time.time()
     render_view()
     torch.cuda.synchronize()
@@ -355,7 +571,7 @@ def main() -> int:
     if rgb.shape != (VIEW, VIEW, 3) or not all(bool(x.isfinite().all()) for x in
                                                (rgb, opacity, depth)):
         raise AssertionError("main path: output has the wrong shape or is not finite")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in serving):
         raise AssertionError(f"main path: a kernel was not launched: {launches}")
     with torch.no_grad():
         gt = torch.cat([scenes.render_gt_rays(scene, oo, dd, 512)[0] for oo, dd in zip(
@@ -389,18 +605,108 @@ def main() -> int:
     if not max(errs) <= CROP_RGB_TOL:
         raise AssertionError("crop: the card and the plain CPU path disagree")
 
-    # ---- 6. report
+    # ---- 6. the probe kernels, driven once at the probe's shapes
+    probe_records, probe_launches = check_probe(torch, kernels, scatter_ops, dev)
+    records.update(probe_records)
+    if not all(v > 0 for v in probe_launches.values()):
+        raise AssertionError(f"[probe] a kernel was not launched: {probe_launches}")
+
+    # ---- 7. the training path at full width
+    cfg = CNCConfig(train=dataclasses.replace(TrainConfig(), lmbda=0.0))
+    t0 = time.time()
+    train_set = scenes.ProceduralDataset("blocks", device=dev)
+    test_set = scenes.ProceduralDataset("blocks", n_images=2, split="test", device=dev)
+    tr = Trainer(cfg, train_set)
+    torch.cuda.synchronize()
+    log(f"[train] datasets and trainer ready in {time.time() - t0:.1f} s: {len(train_set)} views"
+        f" of {train_set.WIDTH}x{train_set.HEIGHT}, sample buffer {cfg.render.sample_capacity},"
+        f" target {cfg.train.target_sample_batch_size} samples per step")
+    history = []      # (host seconds at the step's end, mse, visible, marched, rays)
+
+    def on_step(step, aux):
+        history.append((time.time(), float(aux["mse"]), aux["n_samples"], aux["n_marched"],
+                        aux["num_rays"]))
+
+    tr.fit(TRAIN_WARM_STEPS - 1, log_every=0, step_callback=on_step)
+    records.update(check_training_kernels(torch, tr, enc, marching, volrend, rf, gen))
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    tr.fit(TRAIN_STEPS - 1, log_every=100, log_fn=lambda m: log("[train] " + m),
+           step_callback=on_step)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    train_launches = dict(kernels.launches)
+    n_run = TRAIN_STEPS - TRAIN_WARM_STEPS
+    training = ("grid_encode", "grid_encode_bwd", "compact", "march", "volrend", "volrend_bwd")
+    if tr.step != TRAIN_STEPS or len(history) != TRAIN_STEPS:
+        raise AssertionError(f"[train] ran {tr.step} steps, not {TRAIN_STEPS}")
+    if not all(train_launches[k] >= n_run for k in training):
+        raise AssertionError(f"[train] a kernel was not launched every step: {train_launches}")
+    loss_start = statistics.mean(h[1] for h in history[:10])
+    loss_end = statistics.mean(h[1] for h in history[-10:])
+    last = history[-101:]
+    ms_step = (last[-1][0] - last[0][0]) / 100 * 1e3
+    marched = statistics.mean(h[3] for h in last[1:])
+    if not (loss_end < loss_start and all(math.isfinite(h[1]) for h in history)):
+        raise AssertionError(f"[train] the loss did not fall: {loss_start} -> {loss_end}")
+    if not marched >= 0.8 * cfg.train.target_sample_batch_size:
+        raise AssertionError(f"[train] the ray controller did not reach its target: {marched}"
+                             f" samples marched per step")
+    scores = tr.evaluate(test_set)
+    log(f"[train] {n_run} steps in {run_s:.2f} s ({n_run / run_s:.2f} steps/s over the whole"
+        f" run, occupancy updates included); last 100 steps {ms_step:.2f} ms per step,"
+        f" {marched:.0f} samples marched, {statistics.mean(h[2] for h in last[1:]):.0f} visible"
+        f" and {statistics.mean(h[4] for h in last[1:]):.0f} rays per step;"
+        f" loss {loss_start:.5f} -> {loss_end:.5f}; test views psnr {scores['psnr']:.3f}"
+        f" ssim {scores['ssim']:.4f} (floor {TRAIN_PSNR_MIN});"
+        f" occupancy {int(tr.occ_state.binaries.sum())} cells;"
+        f" launches over the run {json.dumps(train_launches)}")
+    if not scores["psnr"] > TRAIN_PSNR_MIN:
+        raise AssertionError(f"[train] test psnr {scores['psnr']} <= {TRAIN_PSNR_MIN}")
+
+    def one_step():
+        batch, pixels = train_set.fetch_rays(tr.generator, last[-1][4])
+        tr._train_step(batch.origins, batch.viewdirs, pixels, bkgd)
+
+    one_step()
+    profile_view(torch, one_step, "profile_train")
+
+    # ---- 8. the view again, with the trained field and its occupancy grid
+    trained_view = lambda **kw: render_with(tr.field, tr.occ_state.binaries, **kw)
+    trained_view()
+    torch.cuda.synchronize()
+    stats_t = {}
+    t0 = time.time()
+    rgb_t = trained_view(stats=stats_t)[0]
+    torch.cuda.synchronize()
+    view_t = time.time() - t0
+    log(f"[trained view] {VIEW}x{VIEW}: {view_t * 1e3:.1f} ms, {stats_t['rounds']} rounds,"
+        f" {int(stats_t['samples'])} samples marched, psnr {float(metrics.psnr(rgb_t, gt)):.3f}"
+        f" ssim {float(metrics.ssim(rgb_t, gt)):.4f}; the random-weights view above:"
+        f" {view_s * 1e3:.1f} ms, {stats['rounds']} rounds, {n_samples} samples")
+
+    # ---- 9. report: `launches` is the count over the path named beside it
+    # (one view, the training run of `steps` steps, or the probe's one drive)
     meta = {
-        "grid_encode": ("cnc_torch/csrc/grid_encode.cu", "cnc_tpu/ops/encoding.py:104"),
-        "compact": ("cnc_torch/csrc/compact.cu", "cnc_tpu/ops/scatter_ops.py:146"),
-        "march": ("cnc_torch/csrc/march.cu", "cnc_tpu/render/marching.py:112"),
-        "volrend": ("cnc_torch/csrc/volrend.cu", "cnc_tpu/render/volrend.py:71"),
+        "grid_encode": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:104", "view"),
+        "grid_encode_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "train"),
+        "compact": ("compact.cu", "cnc_tpu/ops/scatter_ops.py:146", "view"),
+        "march": ("march.cu", "cnc_tpu/render/marching.py:112", "view"),
+        "volrend": ("volrend.cu", "cnc_tpu/render/volrend.py:71", "view"),
+        "volrend_bwd": ("volrend.cu", "cnc_tpu/render/volrend.py:43", "train"),
+        "scatter_add": ("scatter_add.cu", "tools/pallas_probe.py:113", "probe"),
+        "lane_gather": ("probe.cu", "tools/pallas_probe.py:79", "probe"),
     }
+    counted = {"view": launches, "train": train_launches, "probe": probe_launches}
     out = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, path) in meta.items():
         r = records[name]
-        out.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                        launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+        out.append(dict(name=name, route="cuda", source="cnc_torch/csrc/" + source,
+                        replaces=replaces, launches=counted[path][name], path=path,
+                        train_launches=train_launches[name], train_steps=n_run,
+                        max_abs_err=r["max_abs_err"], ms=r["ms"],
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"]))
     log(f"[done] {time.time() - t_start:.1f} s")

@@ -1,4 +1,4 @@
-// K1: multiresolution hash-grid encode, forward.
+// K1 and K2: multiresolution hash-grid encode, forward and backward.
 //
 // Replaces (cnc_tpu, the XLA composition of one encode call):
 //   ops/encoding.py  _level_setup (145-152), _corner_setup (52-101, without
@@ -25,6 +25,28 @@
 // F is built).  The position is rounded with __fmul_rn/__fadd_rn so the
 // lattice cell matches the twin exactly; the weights may contract to FMA (the
 // interpolation is continuous across cells, so the tolerance covers it).
+//
+// K2, the backward (d_table only), replaces cnc_tpu's
+//   ops/scatter_ops.py _ggi_bwd (104-122): per-feature column scatter-adds of
+//                    g*w into the table, composed with the autodiff of
+//   ops/encoding.py  _gather_levels' renormalisation and out-of-range zeroing
+// and is the function of the serial scatter-add probe
+// tools/pallas_probe.py pallas_scatter (113, kernel 96-108).
+// Plain twin: autograd of cnc_torch/ops/encoding.py `_encode_plain`.
+//
+// Same thread mapping as K1.  Each (point, level) recomputes its corners with
+// the same device functions K1 uses (so the cells, borders and hashes agree),
+// sums the surviving weight in a first pass over the corners, and in a second
+// adds (g / wn) * w_c to row gidx_c of d_table with one vector atomicAdd per
+// row (float4 at F=4, float2 at F=2: sm_90 adds each element atomically).
+// Points outside [0,1] add nothing.  The wrapper zeroes d_table.
+//
+// Bound on the H100: bytes, and in practice atomics.  It reads the points and
+// the gradient once and read-modify-writes each distinct row touched; the
+// 2^D * L row updates per point (96 at D=3, L=12) land at random rows, and on
+// the coarse dense levels hundreds of thousands of updates fall into a few
+// thousand rows, which the L2 serialises.  The sum order varies from run to
+// run, so the kernel is compared with its twin by a tolerance.
 
 #include "common.cuh"
 
@@ -73,6 +95,69 @@ __device__ __forceinline__ void load_row(const float* __restrict__ table, long l
   }
 }
 
+// One (point, level): the lattice cell, its fractional position and the
+// level's table block.
+template <int D>
+struct LevelCell {
+  int pg[D];
+  float frac[D];
+  int res;
+  uint32_t size;
+  long long offset;
+  bool dense;
+};
+
+// Loads point p; false when it lies outside [0,1]^D (NaN counts as outside).
+template <int D>
+__device__ __forceinline__ bool load_point(const float* __restrict__ points, int p, float* x) {
+  bool inside = true;
+  for (int ax = 0; ax < D; ++ax) {
+    x[ax] = points[static_cast<long long>(p) * D + ax];
+    inside &= x[ax] >= 0.f && x[ax] <= 1.f;
+  }
+  return inside;
+}
+
+template <int D>
+__device__ __forceinline__ LevelCell<D> level_cell(const float* x, const Levels& lv, int l) {
+  LevelCell<D> c;
+  c.res = lv.res[l];
+  c.size = static_cast<uint32_t>(lv.size[l]);
+  c.offset = lv.offset[l];
+  long long rd = 1;  // R^D <= size, in 64 bits (1026^2, 514^3 fit)
+  for (int ax = 0; ax < D; ++ax) rd *= c.res;
+  c.dense = rd <= static_cast<long long>(c.size);
+  const float scale = static_cast<float>(c.res - 2);
+  for (int ax = 0; ax < D; ++ax) {
+    const float pos = __fadd_rn(__fmul_rn(x[ax], scale), 0.5f);
+    const float fl = floorf(pos);
+    c.pg[ax] = static_cast<int>(fl);
+    c.frac[ax] = __fsub_rn(pos, fl);
+  }
+  return c;
+}
+
+// Corner k of the cell: its D-linear weight and global table row; false when
+// the corner lies on the border (coordinate 0 or R-1) and is dropped.
+template <int D>
+__device__ __forceinline__ bool cell_corner(const LevelCell<D>& c, int k, float* w,
+                                            long long* row) {
+  uint32_t cc[D];
+  float wk = 1.f;
+  bool valid = true;
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) {
+    const bool up = (k >> ax) & 1;
+    const int v = up ? min(c.pg[ax] + 1, c.res - 1) : c.pg[ax];
+    wk = __fmul_rn(wk, up ? c.frac[ax] : __fsub_rn(1.f, c.frac[ax]));
+    valid &= (v != 0) && (v != c.res - 1);
+    cc[ax] = static_cast<uint32_t>(v);
+  }
+  *w = wk;
+  if (valid) *row = c.offset + grid_index<D>(cc, static_cast<uint32_t>(c.res), c.size, c.dense);
+  return valid;
+}
+
 template <int D, int F>
 __global__ void grid_encode_forward_kernel(const float* __restrict__ points,
                                            const float* __restrict__ table,
@@ -85,60 +170,101 @@ __global__ void grid_encode_forward_kernel(const float* __restrict__ points,
   float* o = out + (static_cast<long long>(p) * n_levels + l) * F;
 
   float x[D];
-  bool oob = false;
-  for (int ax = 0; ax < D; ++ax) {
-    x[ax] = points[static_cast<long long>(p) * D + ax];
-    oob |= !(x[ax] >= 0.f && x[ax] <= 1.f);  // NaN counts as outside
-  }
-  if (oob) {
+  if (!load_point<D>(points, p, x)) {
     for (int f = 0; f < F; ++f) o[f] = 0.f;
     return;
   }
-
-  const int res = lv.res[l];
-  const uint32_t size = static_cast<uint32_t>(lv.size[l]);
-  const long long offset = lv.offset[l];
-  bool dense = true;  // R^D <= size, in 64 bits (1026^2, 514^3 fit)
-  {
-    long long rd = 1;
-    for (int ax = 0; ax < D; ++ax) rd *= res;
-    dense = rd <= static_cast<long long>(size);
-  }
-  const float scale = static_cast<float>(res - 2);
-  int pg[D];
-  float frac[D];
-  for (int ax = 0; ax < D; ++ax) {
-    const float pos = __fadd_rn(__fmul_rn(x[ax], scale), 0.5f);
-    const float fl = floorf(pos);
-    pg[ax] = static_cast<int>(fl);
-    frac[ax] = __fsub_rn(pos, fl);
-  }
+  const LevelCell<D> cell = level_cell<D>(x, lv, l);
 
   float acc[F];
   for (int f = 0; f < F; ++f) acc[f] = 0.f;
   float wsum = 0.f;
 #pragma unroll
   for (int c = 0; c < (1 << D); ++c) {
-    uint32_t cc[D];
-    float w = 1.f;
-    bool valid = true;
-#pragma unroll
-    for (int ax = 0; ax < D; ++ax) {
-      const bool up = (c >> ax) & 1;
-      const int v = up ? min(pg[ax] + 1, res - 1) : pg[ax];
-      w = __fmul_rn(w, up ? frac[ax] : __fsub_rn(1.f, frac[ax]));
-      valid &= (v != 0) && (v != res - 1);
-      cc[ax] = static_cast<uint32_t>(v);
-    }
-    if (!valid) continue;
-    const uint32_t idx = grid_index<D>(cc, static_cast<uint32_t>(res), size, dense);
+    float w;
+    long long idx;
+    if (!cell_corner<D>(cell, c, &w, &idx)) continue;
     float row[F];
-    load_row<F>(table, offset + idx, row);
+    load_row<F>(table, idx, row);
     for (int f = 0; f < F; ++f) acc[f] += w * row[f];
     wsum += w;
   }
   const float wn = wsum == 0.f ? 1e-9f : wsum;
   for (int f = 0; f < F; ++f) o[f] = acc[f] / wn;
+}
+
+// One table row of d_table += v, as one vector atomic (each element is added
+// atomically; the row as a whole need not be).
+template <int F>
+__device__ __forceinline__ void atomic_add_row(float* __restrict__ table, long long row,
+                                               const float* v) {
+  static_assert(F == 2 || F == 4, "K2 takes F = 2 or 4");
+  if constexpr (F == 4) {
+    atomicAdd(reinterpret_cast<float4*>(table) + row, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    atomicAdd(reinterpret_cast<float2*>(table) + row, make_float2(v[0], v[1]));
+  }
+}
+
+template <int D, int F>
+__global__ void grid_encode_backward_kernel(const float* __restrict__ points,
+                                            const float* __restrict__ grad,
+                                            float* __restrict__ d_table, int n, int n_levels,
+                                            Levels lv) {
+  long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(n) * n_levels) return;
+  const int p = static_cast<int>(t / n_levels);
+  const int l = static_cast<int>(t % n_levels);
+
+  float x[D];
+  if (!load_point<D>(points, p, x)) return;
+  const LevelCell<D> cell = level_cell<D>(x, lv, l);
+
+  float wsum = 0.f;
+#pragma unroll
+  for (int c = 0; c < (1 << D); ++c) {
+    float w;
+    long long idx;
+    if (cell_corner<D>(cell, c, &w, &idx)) wsum += w;
+  }
+  if (wsum == 0.f) return;  // no corner survived, or all weights are zero
+
+  const float* g = grad + (static_cast<long long>(p) * n_levels + l) * F;
+  float gs[F];
+  for (int f = 0; f < F; ++f) gs[f] = g[f] / wsum;
+#pragma unroll
+  for (int c = 0; c < (1 << D); ++c) {
+    float w;
+    long long idx;
+    if (!cell_corner<D>(cell, c, &w, &idx)) continue;
+    float v[F];
+    for (int f = 0; f < F; ++f) v[f] = gs[f] * w;
+    atomic_add_row<F>(d_table, idx, v);
+  }
+}
+
+template <int D>
+int launch_b(const float* points, const float* grad, float* d_table, int n, int f,
+             int n_levels, const Levels& lv, cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned blocks = cnc_blocks(static_cast<long long>(n) * n_levels, threads);
+  switch (f) {
+    case 2: grid_encode_backward_kernel<D, 2><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_levels, lv); break;
+    case 4: grid_encode_backward_kernel<D, 4><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_levels, lv); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return cnc_last_error();
+}
+
+bool fill_levels(Levels* lv, int n_levels, const int* res, const int* offsets,
+                 const int* sizes) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return false;
+  for (int l = 0; l < n_levels; ++l) {
+    lv->res[l] = res[l];
+    lv->offset[l] = offsets[l];
+    lv->size[l] = sizes[l];
+  }
+  return true;
 }
 
 template <int D>
@@ -162,16 +288,28 @@ int launch_f(const float* points, const float* table, float* out, int n, int f,
 CNC_EXPORT int cnc_grid_encode_forward(const float* points, const float* table, float* out,
                                        int n, int d, int f, int n_levels, const int* res,
                                        const int* offsets, const int* sizes, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
   Levels lv;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.res[l] = res[l];
-    lv.offset[l] = offsets[l];
-    lv.size[l] = sizes[l];
-  }
+  if (!fill_levels(&lv, n_levels, res, offsets, sizes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 2) return launch_f<2>(points, table, out, n, f, n_levels, lv, s);
   if (d == 3) return launch_f<3>(points, table, out, n, f, n_levels, lv, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2.  points [n, d] f32, grad [n, n_levels*f] f32, d_table [rows, f] f32
+// zeroed by the caller and 4*f-byte aligned; levels as in the forward.  Adds
+// every point's share of grad into d_table.
+CNC_EXPORT int cnc_grid_encode_backward(const float* points, const float* grad, float* d_table,
+                                        int n, int d, int f, int n_levels, const int* res,
+                                        const int* offsets, const int* sizes, void* stream) {
+  Levels lv;
+  if (!fill_levels(&lv, n_levels, res, offsets, sizes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 2) return launch_b<2>(points, grad, d_table, n, f, n_levels, lv, s);
+  if (d == 3) return launch_b<3>(points, grad, d_table, n, f, n_levels, lv, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

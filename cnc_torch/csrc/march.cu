@@ -47,10 +47,13 @@ __device__ __forceinline__ Box load_box(const float* __restrict__ aabb) {
   return b;
 }
 
-// marching.ray_aabb_intersect + near/far/t_start clamps.
+// marching.ray_aabb_intersect + near/far/t_start clamps, then the training
+// march's stratified near jitter tmin += u*dt (marching.py:143-144; u = 0 and
+// has_jitter = false for the deterministic eval march).
 __device__ __forceinline__ void ray_span(const float* __restrict__ o, const float* __restrict__ d,
                                          const Box& box, float near, float far, float t_start,
-                                         bool has_start, float* tmin, float* tmax) {
+                                         bool has_start, float jitter, bool has_jitter, float dt,
+                                         float* tmin, float* tmax) {
   float lo_t = 0.f, hi_t = 0.f;
   for (int a = 0; a < 3; ++a) {
     float da = d[a];
@@ -65,6 +68,7 @@ __device__ __forceinline__ void ray_span(const float* __restrict__ o, const floa
   lo_t = fmaxf(lo_t, near);
   hi_t = fminf(hi_t, far);
   if (has_start) lo_t = fmaxf(lo_t, t_start);
+  if (has_jitter) lo_t = lo_t + jitter * dt;
   *tmin = lo_t;
   *tmax = hi_t;
 }
@@ -72,8 +76,9 @@ __device__ __forceinline__ void ray_span(const float* __restrict__ o, const floa
 __global__ void coarse_kernel(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                               const float* __restrict__ aabb, const float* __restrict__ t_start,
                               const unsigned char* __restrict__ ray_mask,
+                              const float* __restrict__ jitter,
                               const unsigned char* __restrict__ mip, int mres, int n_rays,
-                              int nb, float bdt, float near, float far, float clip_hi,
+                              int nb, float bdt, float dt, float near, float far, float clip_hi,
                               float* __restrict__ tmin_out, float* __restrict__ tmax_out,
                               unsigned char* __restrict__ cand) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -84,7 +89,8 @@ __global__ void coarse_kernel(const float* __restrict__ rays_o, const float* __r
   const float* o = rays_o + 3ll * r;
   const float* d = rays_d + 3ll * r;
   float tmin, tmax;
-  ray_span(o, d, box, near, far, t_start ? t_start[r] : 0.f, t_start != nullptr, &tmin, &tmax);
+  ray_span(o, d, box, near, far, t_start ? t_start[r] : 0.f, t_start != nullptr,
+           jitter ? jitter[r] : 0.f, jitter != nullptr, dt, &tmin, &tmax);
   if (blk == 0) {
     tmin_out[r] = tmin;
     tmax_out[r] = tmax;
@@ -182,19 +188,21 @@ __global__ void finish_kernel(const float* __restrict__ tmin_in, const int* __re
 }  // namespace
 
 // Coarse pass.  rays_o/rays_d [n_rays, 3] f32, aabb [6] f32, t_start [n_rays]
-// f32 or null, ray_mask [n_rays] uint8 or null, mip [mres^3] uint8; writes
-// tmin/tmax [n_rays] f32 and cand [n_rays * nb] uint8.
+// f32 or null, ray_mask [n_rays] uint8 or null, jitter [n_rays] f32 uniforms
+// or null, mip [mres^3] uint8; writes tmin/tmax [n_rays] f32 and cand
+// [n_rays * nb] uint8.
 CNC_EXPORT int cnc_march_coarse(const float* rays_o, const float* rays_d, const float* aabb,
                                 const float* t_start, const unsigned char* ray_mask,
-                                const unsigned char* mip, int mres, int n_rays, int nb,
-                                float bdt, float near, float far, float clip_hi, float* tmin,
-                                float* tmax, unsigned char* cand, void* stream) {
+                                const float* jitter, const unsigned char* mip, int mres,
+                                int n_rays, int nb, float bdt, float dt, float near, float far,
+                                float clip_hi, float* tmin, float* tmax, unsigned char* cand,
+                                void* stream) {
   if (n_rays == 0) return 0;
   const int threads = 256;
   coarse_kernel<<<cnc_blocks(static_cast<long long>(n_rays) * nb, threads), threads, 0,
                   static_cast<cudaStream_t>(stream)>>>(rays_o, rays_d, aabb, t_start, ray_mask,
-                                                       mip, mres, n_rays, nb, bdt, near, far,
-                                                       clip_hi, tmin, tmax, cand);
+                                                       jitter, mip, mres, n_rays, nb, bdt, dt,
+                                                       near, far, clip_hi, tmin, tmax, cand);
   return cnc_last_error();
 }
 

@@ -1,4 +1,5 @@
-// K5: volume rendering forward over a compacted, ray-sorted sample buffer.
+// K5 and K5b: volume rendering, forward and backward, over a compacted,
+// ray-sorted sample buffer.
 //
 // Replaces: cnc_tpu/ops/scan.py segment_exclusive_sum (47-54, a segmented
 // associative scan in XLA) and cnc_tpu/render/volrend.py render_weights and
@@ -31,6 +32,22 @@
 // the late rounds of a view, 3.3 ms per launch), which made this kernel 72%
 // of the device time of an 800x800 view.  Invalid samples add sdt = 0 and
 // w = 0, so stopping there changes no sum.
+//
+// K5b, the backward, replaces the autodiff of the same cnc_tpu functions
+// (render/volrend.py 43-91; reference scan.cu:206-214).  Plain twin: autograd
+// of `_composite_plain`.  With G_i = d_rgb . rgb_i + d_opacity + d_depth * t_i
+// over the ray's visible samples,
+//   d_rgb_i   = w_i * d_rgb[ray]
+//   d_sigma_i = dt * (vis_i * G_i * T_i * (1 - alpha_i) - sum_{k>i} G_k * w_k),
+// and a sample cut by alpha_thre gets no gradient and contributes none.
+// `visible` and prefix_trans carry no gradient.  One thread per ray, as the
+// forward: it finds its valid samples by the same searches, walks them once
+// to total S = sum_k G_k * w_k, and once more, rebuilding T_i, alpha_i and w_i
+// with the forward's very operations, to write the gradients with the suffix
+// sum as S minus the running sum.  Samples it does not walk (padding, invalid)
+// keep the zeros the wrapper allocated.  Bound: bytes, each valid sample read
+// once (25 B) and its 16 B of gradient written once; the second walk re-reads
+// from L2.
 
 #include "common.cuh"
 
@@ -44,6 +61,32 @@ __device__ __forceinline__ int partition_point(int lo, int hi, Pred pred) {
     if (pred(mid)) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// One sample of a ray's walk, as the forward computes it: advances the running
+// sum of sigma*dt and returns whether the sample is visible, with its
+// transmittance T and alpha; `cut` tells an alpha_thre cull.
+struct Step {
+  float trans, alpha;
+  bool visible, cut;
+};
+
+__device__ __forceinline__ Step walk_step(float sigma, float dt, float alpha_thre, float pt,
+                                          float early_stop_eps, float* run) {
+  Step s;
+  float sdt = sigma * dt;
+  s.alpha = 1.f - expf(-sdt);
+  s.cut = alpha_thre > 0.f && !(s.alpha >= alpha_thre);
+  if (s.cut) {
+    sdt = 0.f;
+    s.alpha = 0.f;
+  }
+  const float incl = *run + sdt;
+  const float prefix = incl - sdt;
+  *run = incl;
+  s.trans = expf(-prefix) * pt;
+  s.visible = s.trans >= early_stop_eps;
+  return s;
 }
 
 __global__ void volrend_forward_kernel(const float* __restrict__ sigmas,
@@ -65,18 +108,9 @@ __global__ void volrend_forward_kernel(const float* __restrict__ sigmas,
   const int end = partition_point(start, n_samples, [&](int i) { return ray_id[i] == r; });
   const int vend = partition_point(start, end, [&](int i) { return valid[i] != 0; });
   for (int i = start; i < vend; ++i) {
-    float sdt = sigmas[i] * dt;
-    float alpha = 1.f - expf(-sdt);
-    if (alpha_thre > 0.f && !(alpha >= alpha_thre)) {
-      sdt = 0.f;
-      alpha = 0.f;
-    }
-    const float incl = run + sdt;
-    const float prefix = incl - sdt;
-    run = incl;
-    const float trans = expf(-prefix) * pt;
-    if (trans >= early_stop_eps) {
-      const float w = trans * alpha;
+    const Step s = walk_step(sigmas[i], dt, alpha_thre, pt, early_stop_eps, &run);
+    if (s.visible) {
+      const float w = s.trans * s.alpha;
       cr += w * rgbs[3ll * i];
       cg += w * rgbs[3ll * i + 1];
       cb += w * rgbs[3ll * i + 2];
@@ -91,6 +125,53 @@ __global__ void volrend_forward_kernel(const float* __restrict__ sigmas,
   opacity_out[r] = op;
   depth_out[r] = dep;
   if (vis_count) atomicAdd(n_visible, vis_count);
+}
+
+__global__ void volrend_backward_kernel(const float* __restrict__ sigmas,
+                                        const float* __restrict__ rgbs,
+                                        const float* __restrict__ t_mid,
+                                        const unsigned char* __restrict__ valid,
+                                        const int* __restrict__ ray_id,
+                                        const float* __restrict__ prefix_trans,
+                                        const float* __restrict__ d_rgb,
+                                        const float* __restrict__ d_opacity,
+                                        const float* __restrict__ d_depth, int n_samples,
+                                        int n_rays, float dt, float early_stop_eps,
+                                        float alpha_thre, float* __restrict__ d_sigmas,
+                                        float* __restrict__ d_rgbs) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const float pt = prefix_trans ? prefix_trans[r] : 1.f;
+  const float gr = d_rgb[3ll * r], gg = d_rgb[3ll * r + 1], gb = d_rgb[3ll * r + 2];
+  const float go = d_opacity[r], gd = d_depth[r];
+  const int start = partition_point(0, n_samples, [&](int i) { return ray_id[i] < r; });
+  const int end = partition_point(start, n_samples, [&](int i) { return ray_id[i] == r; });
+  const int vend = partition_point(start, end, [&](int i) { return valid[i] != 0; });
+  auto grad_of = [&](int i) {
+    return gr * rgbs[3ll * i] + gg * rgbs[3ll * i + 1] + gb * rgbs[3ll * i + 2] + go +
+           gd * t_mid[i];
+  };
+  float run = 0.f, total = 0.f;
+  for (int i = start; i < vend; ++i) {
+    const Step s = walk_step(sigmas[i], dt, alpha_thre, pt, early_stop_eps, &run);
+    if (s.visible) total += grad_of(i) * (s.trans * s.alpha);
+  }
+  run = 0.f;
+  float acc = 0.f;
+  for (int i = start; i < vend; ++i) {
+    const Step s = walk_step(sigmas[i], dt, alpha_thre, pt, early_stop_eps, &run);
+    float own = 0.f;
+    if (s.visible) {
+      const float w = s.trans * s.alpha;
+      const float g = grad_of(i);
+      acc += g * w;
+      own = g * s.trans * (1.f - s.alpha);
+      d_rgbs[3ll * i] = w * gr;
+      d_rgbs[3ll * i + 1] = w * gg;
+      d_rgbs[3ll * i + 2] = w * gb;
+    }
+    if (!s.cut) d_sigmas[i] = dt * (own - (total - acc));
+  }
 }
 
 }  // namespace
@@ -111,5 +192,24 @@ CNC_EXPORT int cnc_volrend_forward(const float* sigmas, const float* rgbs, const
   volrend_forward_kernel<<<cnc_blocks(n_rays, threads), threads, 0, s>>>(
       sigmas, rgbs, t_mid, valid, ray_id, prefix_trans, n_samples, n_rays, dt, early_stop_eps,
       alpha_thre, rgb_out, opacity_out, depth_out, n_visible);
+  return cnc_last_error();
+}
+
+// K5b.  The forward's inputs plus the output gradients d_rgb [R,3], d_opacity
+// [R], d_depth [R] f32; adds nothing, writes d_sigmas [S] and d_rgbs [S,3] f32
+// at the walked samples (the caller zero-fills both).
+CNC_EXPORT int cnc_volrend_backward(const float* sigmas, const float* rgbs, const float* t_mid,
+                                    const unsigned char* valid, const int* ray_id,
+                                    const float* prefix_trans, const float* d_rgb,
+                                    const float* d_opacity, const float* d_depth,
+                                    int n_samples, int n_rays, float dt, float early_stop_eps,
+                                    float alpha_thre, float* d_sigmas, float* d_rgbs,
+                                    void* stream) {
+  if (n_rays == 0) return 0;
+  const int threads = 128;
+  volrend_backward_kernel<<<cnc_blocks(n_rays, threads), threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      sigmas, rgbs, t_mid, valid, ray_id, prefix_trans, d_rgb, d_opacity, d_depth, n_samples,
+      n_rays, dt, early_stop_eps, alpha_thre, d_sigmas, d_rgbs);
   return cnc_last_error();
 }

@@ -32,22 +32,28 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # march.cu must round every float op as the plain twin does (see its header)
 SOURCE_FLAGS = {"march.cu": ("-fmad=false",)}
 
-launches = {"grid_encode": 0, "compact": 0, "march": 0, "volrend": 0}
+launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
+            "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # host int arrays
 _SIGNATURES = {
     "cnc_cuda_error_string": ((_I,), ctypes.c_char_p),
     "cnc_grid_encode_forward": ((_P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _P), _I),
+    "cnc_grid_encode_backward": ((_P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _P), _I),
     "cnc_compact_scratch": ((_LL,), _I),
     "cnc_compact_mask": ((_P, _LL, _I, _P, _P, _P, _P), _I),
-    "cnc_march_coarse": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P,
-                          _P), _I),
+    "cnc_march_coarse": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P,
+                          _P, _P), _I),
     "cnc_march_fine": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P, _P), _I),
     "cnc_march_finish": ((_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P),
                          _I),
     "cnc_volrend_forward": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
                             _I),
+    "cnc_volrend_backward": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
+                              _P), _I),
+    "cnc_scatter_add": ((_P, _P, _P, _LL, _I, _I, _P), _I),
+    "cnc_lane_gather": ((_P, _P, _P, _I, _I, _LL, _P), _I),
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid encode (K1), forward.
+"""Multiresolution hash-grid encode: K1 forward, K2 backward.
 
 Port of `cnc_tpu/ops/encoding.py` (reference gridencoder.cu:45-396):
 
@@ -10,10 +10,13 @@ Port of `cnc_tpu/ops/encoding.py` (reference gridencoder.cu:45-396):
   * hashing matches `fast_hash`/`get_grid_index` bit for bit (ops/hash_ops).
 
 `encode_explicit` dispatches on the device of `points`: a CPU tensor takes
-the plain twin (`_encode_plain`), a CUDA tensor the hand-written kernel
-(csrc/grid_encode.cu).  The occupancy-masked variants and
-`grid_encode_diff_levels` / `grid_encode_given_table` serve the rate
-estimate and come with it; the backward (K2) comes with training.
+the plain twin (`_encode_plain`, differentiated by autograd as it stands), a
+CUDA tensor an `autograd.Function` whose forward is the K1 kernel and whose
+backward is the K2 kernel (csrc/grid_encode.cu).  Only the table gets a
+gradient: cnc_tpu never differentiates with respect to sample positions
+(`need_dw=False` in every hot call), so neither path returns one for
+`points`.  The occupancy-masked variants and `grid_encode_diff_levels` /
+`grid_encode_given_table` serve the rate estimate and come with it.
 """
 
 from __future__ import annotations
@@ -87,29 +90,71 @@ def _encode_plain(points, table, resolutions, offsets):
     return _gather_levels(table, gs, ws, points)
 
 
-def _encode_cuda(points, table, resolutions, offsets):
-    kernels.require_cuda("grid_encode", points, table)
-    if points.dtype != torch.float32 or table.dtype != torch.float32:
-        raise ValueError("grid_encode: points and table must be float32")
-    n, d = points.shape
-    f = table.shape[1]
+def _check_cuda_args(name, points, other, f, resolutions, offsets, rows):
+    """What K1 and K2 take; returns the ctypes level arrays."""
+    kernels.require_cuda(name, points, other)
+    if points.dtype != torch.float32 or other.dtype != torch.float32:
+        raise ValueError(f"{name}: points, table and gradient must be float32")
+    d = points.shape[1]
     n_levels = len(resolutions)
     if d not in (2, 3) or f not in (2, 4) or not 1 <= n_levels <= 32:
-        raise ValueError(f"grid_encode: the kernel takes D in (2, 3), F in (2, 4) and "
+        raise ValueError(f"{name}: the kernel takes D in (2, 3), F in (2, 4) and "
                          f"1..32 levels, got D={d}, F={f}, {n_levels} levels")
+    if offsets[n_levels] > rows:
+        raise ValueError(f"{name}: level offsets run past the table")
     sizes = [offsets[i + 1] - offsets[i] for i in range(n_levels)]
-    if offsets[n_levels] > table.shape[0]:
-        raise ValueError("grid_encode: level offsets run past the table")
+    arr = ctypes.c_int * n_levels
+    return (arr(*map(int, resolutions)), arr(*map(int, offsets[:n_levels])),
+            arr(*map(int, sizes)))
+
+
+def _encode_cuda(points, table, resolutions, offsets):
+    n, d = points.shape
+    f = table.shape[1]
+    levels = _check_cuda_args("grid_encode", points, table, f, resolutions, offsets,
+                              table.shape[0])
     if table.data_ptr() % (4 * f):
         # the kernel reads a row as one float2/float4
         raise ValueError(f"grid_encode: table rows must be {4 * f}-byte aligned")
-    out = torch.empty(n, n_levels * f, dtype=torch.float32, device=points.device)
-    arr = ctypes.c_int * n_levels
+    out = torch.empty(n, len(resolutions) * f, dtype=torch.float32, device=points.device)
     kernels.call("cnc_grid_encode_forward", kernels.ptr(points), kernels.ptr(table),
-                 kernels.ptr(out), n, d, f, n_levels, arr(*map(int, resolutions)),
-                 arr(*map(int, offsets[:n_levels])), arr(*map(int, sizes)))
+                 kernels.ptr(out), n, d, f, len(resolutions), *levels)
     kernels.launches["grid_encode"] += 1
     return out
+
+
+def _encode_backward_cuda(points, grad, rows, resolutions, offsets):
+    """K2: d_table [rows, F] of `_encode_cuda` for the output gradient `grad`
+    [N, L*F].  The sum runs through float atomics, so its order, and the last
+    bits of the result, vary from run to run."""
+    n, d = points.shape
+    n_levels = len(resolutions)
+    if grad.dim() != 2 or grad.shape[0] != n or grad.shape[1] % n_levels:
+        raise ValueError("grid_encode_bwd: grad must be [N, L*F]")
+    f = grad.shape[1] // n_levels
+    levels = _check_cuda_args("grid_encode_bwd", points, grad, f, resolutions, offsets, rows)
+    d_table = torch.zeros(rows, f, dtype=torch.float32, device=points.device)
+    kernels.call("cnc_grid_encode_backward", kernels.ptr(points), kernels.ptr(grad),
+                 kernels.ptr(d_table), n, d, f, n_levels, *levels)
+    kernels.launches["grid_encode_bwd"] += 1
+    return d_table
+
+
+class _GridEncodeCuda(torch.autograd.Function):
+    """K1 forward, K2 backward; a gradient for the table only."""
+
+    @staticmethod
+    def forward(ctx, points, table, resolutions, offsets):
+        ctx.save_for_backward(points)
+        ctx.levels = (table.shape[0], resolutions, offsets)
+        return _encode_cuda(points, table, resolutions, offsets)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (points,) = ctx.saved_tensors
+        rows, resolutions, offsets = ctx.levels
+        d_table = _encode_backward_cuda(points, grad.contiguous(), rows, resolutions, offsets)
+        return None, d_table, None, None
 
 
 def encode_explicit(points: torch.Tensor, table: torch.Tensor,
@@ -118,11 +163,13 @@ def encode_explicit(points: torch.Tensor, table: torch.Tensor,
 
     offsets has len(resolutions)+1 entries; a level's table size is the
     difference.  Returns [N, L*F] float32, level-major.  CPU tensors take the
-    plain twin, CUDA tensors the K1 kernel.
+    plain twin, CUDA tensors the K1 kernel (and K2 in the backward).  Only
+    `table` gets a gradient.
     """
     if points.is_cuda:
-        return _encode_cuda(points.contiguous(), table.contiguous(), resolutions, offsets)
-    return _encode_plain(points, table, resolutions, offsets)
+        return _GridEncodeCuda.apply(points.detach().contiguous(), table.contiguous(),
+                                     tuple(resolutions), tuple(offsets))
+    return _encode_plain(points.detach(), table, resolutions, offsets)
 
 
 def grid_encode(points: torch.Tensor, table: torch.Tensor, spec: GridSpec,

@@ -1,8 +1,10 @@
-"""Stream compaction (K3) and the grouped gather-interpolate twin of K1.
+"""Table scatter-add, stream compaction (K3) and the grouped gather-interpolate
+twin of K1/K2.
 
-Port of the forward half of `cnc_tpu/ops/scatter_ops.py`.  The table
-scatter-adds (`scatter_add*`) and the encode backward (`_ggi_bwd`, K2) come
-with training.
+Port of `cnc_tpu/ops/scatter_ops.py`.  `scatter_add` and `lane_gather` are
+also the counterparts of the two TPU probe kernels (tools/pallas_probe.py:
+the serial scatter-add and the lane gather).  Each dispatches on the device
+of its input: a CPU tensor takes the plain twin, a CUDA tensor the kernel.
 """
 
 from __future__ import annotations
@@ -12,18 +14,119 @@ import torch
 from .. import kernels
 
 
+def _scatter_add_plain(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
+    # row `size` is a drop slot (cnc_tpu scatters with mode="drop")
+    idx = idx.long()
+    idx = torch.where((idx >= 0) & (idx < size), idx, size)
+    out = torch.zeros(size + 1, vals.shape[1], dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, idx, vals)[:size]
+
+
+def _scatter_add_cuda(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
+    kernels.require_cuda("scatter_add", vals, idx)
+    if vals.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise ValueError("scatter_add: the kernel takes float32 values and int32 indices")
+    n, f = vals.shape
+    out = torch.zeros(size, f, dtype=torch.float32, device=vals.device)
+    kernels.call("cnc_scatter_add", kernels.ptr(vals), kernels.ptr(idx), kernels.ptr(out), n, f,
+                 size)
+    kernels.launches["scatter_add"] += 1
+    return out
+
+
+def scatter_add(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
+    """zeros([size, F]).index_add(idx, vals) with out-of-range rows dropped.
+
+    vals [N, F] float32; idx [N] integers, rows with idx outside [0, size)
+    are dropped, not clamped (cnc_tpu's `mode="drop"`).  CPU tensors take the
+    plain twin, CUDA tensors the kernel of csrc/scatter_add.cu (whose sum
+    order, being atomic, varies from run to run).
+    """
+    if vals.dim() != 2 or idx.shape != vals.shape[:1] or idx.dtype.is_floating_point:
+        raise ValueError("scatter_add expects vals [N, F] and integer idx [N]")
+    if vals.is_cuda:
+        if idx.dtype != torch.int32:
+            idx = idx.clamp(-1, size).to(torch.int32)   # out-of-range stays out of range
+        return _scatter_add_cuda(vals.contiguous(), idx.contiguous(), size)
+    return _scatter_add_plain(vals, idx, size)
+
+
+def scatter_add_cols(cols, idx: torch.Tensor, size: int):
+    """Per-column form of `scatter_add`: a sequence of [N] columns sharing idx
+    in, a tuple of [size] accumulations out."""
+    return scatter_add(torch.stack(tuple(cols), dim=-1), idx, size).unbind(dim=-1)
+
+
+def _lane_gather_plain(tbl_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return tbl_t[:, idx.long().clamp(0, tbl_t.shape[1] - 1)]
+
+
+def _lane_gather_cuda(tbl_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    kernels.require_cuda("lane_gather", tbl_t, idx)
+    if tbl_t.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise ValueError("lane_gather: the kernel takes a float32 table and int32 indices")
+    rows, t_cols = tbl_t.shape
+    n = idx.shape[0]
+    out = torch.empty(rows, n, dtype=torch.float32, device=tbl_t.device)
+    kernels.call("cnc_lane_gather", kernels.ptr(tbl_t), kernels.ptr(idx), kernels.ptr(out), rows,
+                 t_cols, n)
+    kernels.launches["lane_gather"] += 1
+    return out
+
+
+def lane_gather(tbl_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[:, j] = tbl_t[:, idx[j]] on a transposed [rows, T] table.
+
+    The function of the TPU lane-gather probe, in its layout; the port's
+    encode gathers rows of a [T, F] table instead (K1), so nothing else in
+    the package calls this.  Indices are clamped into the table.  CPU tensors
+    take the plain twin, CUDA tensors the kernel of csrc/probe.cu.
+    """
+    if tbl_t.dim() != 2 or idx.dim() != 1 or idx.dtype.is_floating_point:
+        raise ValueError("lane_gather expects a [rows, T] table and a 1-D integer idx")
+    if tbl_t.is_cuda:
+        return _lane_gather_cuda(tbl_t.contiguous(), idx.to(torch.int32).contiguous())
+    return _lane_gather_plain(tbl_t, idx)
+
+
+class _GroupedGatherInterp(torch.autograd.Function):
+    """`grouped_gather_interp` with cnc_tpu's custom backward (`_ggi_bwd` with
+    need_dw=False): d_table by a scatter-add of g*w, and no gradient for the
+    indices or the weights."""
+
+    @staticmethod
+    def forward(ctx, table, gidx2, w2, groups):
+        ctx.save_for_backward(gidx2, w2)
+        ctx.groups, ctx.rows = groups, table.shape[0]
+        n, k = gidx2.shape
+        feats = table[gidx2.clamp(0, table.shape[0] - 1)]          # [N, K, F]
+        out = (w2[..., None] * feats).reshape(n, groups, k // groups, -1).sum(dim=2)
+        return out.reshape(n, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        gidx2, w2 = ctx.saved_tensors
+        n, k = gidx2.shape
+        c = k // ctx.groups
+        f = g.shape[1] // ctx.groups
+        # [N, G, C, F]: each corner's weight times its group's output gradient
+        vals = w2.reshape(n, ctx.groups, c, 1) * g.reshape(n, ctx.groups, 1, f)
+        d_table = _scatter_add_plain(vals.reshape(n * k, f), gidx2.reshape(-1), ctx.rows)
+        return d_table, None, None, None
+
+
 def grouped_gather_interp(table: torch.Tensor, gidx2: torch.Tensor, w2: torch.Tensor,
                           groups: int) -> torch.Tensor:
     """out[n, g*F+f] = sum_c w2[n, g*C+c] * table[gidx2[n, g*C+c], f].
 
     table [T, F]; gidx2/w2 [N, G*C], corner-major within each group.  Indices
     are clamped into the table, as cnc_tpu's `mode="clip"` gather does.
-    Returns [N, G*F].  The plain half of K1 (`ops/encoding.py`).
+    Returns [N, G*F].  The plain half of K1 and K2 (`ops/encoding.py`): only
+    `table` gets a gradient.  Every hot call of cnc_tpu passes
+    need_dw=False (sample positions and lattice points are never optimized),
+    so the port returns none for the weights, nor for the points behind them.
     """
-    n, k = gidx2.shape
-    feats = table[gidx2.clamp(0, table.shape[0] - 1)]          # [N, K, F]
-    out = (w2[..., None] * feats).reshape(n, groups, k // groups, -1).sum(dim=2)
-    return out.reshape(n, -1)
+    return _GroupedGatherInterp.apply(table, gidx2, w2, groups)
 
 
 def _compact_plain(mask: torch.Tensor, cap: int):

@@ -11,8 +11,11 @@ sample sets are identical to cnc_tpu's, truncation included:
 
 Both compactions preserve (ray, t) order, so volume rendering is a plain
 contiguous segment scan.  Samples are midpoints of [t, t+dt] intervals.
-This is the deterministic (eval) march; the stratified near jitter of
-cnc_tpu's `key` argument comes with training.
+The training march shifts each ray's lattice by a stratified near jitter,
+`tmin += u*dt` with u uniform in [0, 1) per ray: cnc_tpu draws u from its
+`key` argument, here the caller passes the uniforms (`jitter`), so a test can
+hand both packages the same ones.  Without it the march is the deterministic
+eval march.
 
 `march_rays` dispatches on the device of `rays_o`: a CPU tensor takes the
 plain twin (`_march_plain`, with K3's plain twin between the passes), a CUDA
@@ -125,7 +128,7 @@ def _plan(cfg: RenderConfig, capacity: int, mres: int, max_steps: Optional[int])
 
 
 def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start, max_steps,
-                 mip) -> RaySamples:
+                 mip, jitter=None) -> RaySamples:
     r = rays_o.shape[0]
     dev = rays_o.device
     pl = _plan(cfg, capacity, mip.shape[0], max_steps)
@@ -135,6 +138,8 @@ def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_star
     tmax = torch.clamp(tmax, max=pl.far)
     if t_start is not None:
         tmin = torch.maximum(tmin, t_start)
+    if jitter is not None:
+        tmin = tmin + jitter * pl.dt
     hit = tmin < tmax
     if ray_mask is not None:
         hit = hit & ray_mask
@@ -190,13 +195,14 @@ def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_star
 
 
 def _march_cuda(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start, max_steps,
-                mip) -> RaySamples:
-    kernels.require_cuda("march_rays", rays_o, rays_d, aabb, binaries, mip, t_start, ray_mask)
-    f32s, bools = (rays_o, rays_d, aabb, t_start), (binaries, mip, ray_mask)
+                mip, jitter=None) -> RaySamples:
+    kernels.require_cuda("march_rays", rays_o, rays_d, aabb, binaries, mip, t_start, ray_mask,
+                         jitter)
+    f32s, bools = (rays_o, rays_d, aabb, t_start, jitter), (binaries, mip, ray_mask)
     if any(t is not None and t.dtype != torch.float32 for t in f32s) or any(
             t is not None and t.dtype != torch.bool for t in bools):
-        raise ValueError("march_rays: rays, aabb and t_start must be float32; binaries, mip "
-                         "and ray_mask bool")
+        raise ValueError("march_rays: rays, aabb, t_start and jitter must be float32; "
+                         "binaries, mip and ray_mask bool")
     r = rays_o.shape[0]
     dev = rays_o.device
     mres, res = mip.shape[0], binaries.shape[0]
@@ -208,8 +214,8 @@ def _march_cuda(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start
     tmin, tmax = torch.empty(r, **f32), torch.empty(r, **f32)
     cand = torch.empty(r * pl.nb, dtype=torch.bool, device=dev)
     kernels.call("cnc_march_coarse", p(rays_o), p(rays_d), p(aabb), p(t_start), p(ray_mask),
-                 p(mip), mres, r, pl.nb, pl.bdt, pl.near, pl.far, pl.clip_hi, p(tmin), p(tmax),
-                 p(cand))
+                 p(jitter), p(mip), mres, r, pl.nb, pl.bdt, pl.dt, pl.near, pl.far, pl.clip_hi,
+                 p(tmin), p(tmax), p(cand))
     kernels.launches["march"] += 1
     src_c, total_c = scatter_ops.compact_mask_indices(cand, pl.cap_c)
 
@@ -236,7 +242,8 @@ def march_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, binaries: torch.Tenso
                ray_mask: Optional[torch.Tensor] = None,
                t_start: Optional[torch.Tensor] = None,
                max_steps: Optional[int] = None,
-               mip: Optional[torch.Tensor] = None) -> RaySamples:
+               mip: Optional[torch.Tensor] = None,
+               jitter: Optional[torch.Tensor] = None) -> RaySamples:
     """March rays through the occupancy grid and compact the hits.
 
     Args:
@@ -247,6 +254,8 @@ def march_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, binaries: torch.Tenso
       t_start: optional [R] per-ray start distance (resuming eval marches).
       max_steps: steps per ray (default cfg.max_march_steps).
       mip: optional precomputed build_march_mip(binaries), for loops.
+      jitter: optional [R] float32 uniforms in [0, 1), the stratified near
+        jitter of the training march (None = deterministic eval march).
     Returns:
       RaySamples in (ray, t) order.
     """
@@ -255,9 +264,9 @@ def march_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, binaries: torch.Tenso
     if rays_o.is_cuda:
         c = lambda t: None if t is None else t.contiguous()
         return _march_cuda(c(rays_o), c(rays_d), c(binaries), c(aabb), cfg, capacity,
-                           c(ray_mask), c(t_start), max_steps, c(mip))
+                           c(ray_mask), c(t_start), max_steps, c(mip), c(jitter))
     return _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start,
-                        max_steps, mip)
+                        max_steps, mip, jitter)
 
 
 def sample_positions(samples: RaySamples, rays_o: torch.Tensor,

@@ -1,27 +1,100 @@
-"""The evaluation renderer: the serving path that re-renders a field.
+"""Training and evaluation renderers.
 
-Port of `cnc_tpu/render/renderer.py:render_rays_eval` (94-162) and
-`render_image` (165-207), the reference's iterative alive-ray test renderer
-(utils.py:316-489): repeatedly march from per-ray cursors with a bounded
-per-round sample budget, composite incrementally with carried transmittance
-(prefix_trans = 1 - opacity), stop rays at opacity > 1 - early_stop_eps.
+Port of `cnc_tpu/render/renderer.py`, the reference's two paths:
+  * training (`render_rays_train`, 27-91): one budgeted pass: march with the
+    stratified jitter, compact to a static sample budget, evaluate the field
+    once, composite (render_image_with_occgrid, examples/utils.py:83-216);
+  * evaluation (`render_rays_eval` 94-162, `render_image` 165-207): the
+    iterative alive-ray test renderer (utils.py:316-489): repeatedly march
+    from per-ray cursors with a bounded per-round sample budget, composite
+    incrementally with carried transmittance (prefix_trans = 1 - opacity),
+    stop rays at opacity > 1 - early_stop_eps.
 
-cnc_tpu runs the rounds inside one jitted `lax.while_loop`; here the loop is
-Python, and its test `alive.any()` costs one host sync per round (a CUDA
-graph can remove it later).  The training renderer comes with training.
+cnc_tpu runs the eval rounds inside one jitted `lax.while_loop`; here the
+loop is Python, and its test `alive.any()` costs one host sync per round (a
+CUDA graph can remove it later).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig, RenderConfig
 from ..models import radiance_field as rf
+from ..ops import scatter_ops
 from ..utils.device import resolve_device
 from . import marching, volrend
+
+
+def render_rays_train(field: rf.RadianceField, mcfg: ModelConfig, rcfg: RenderConfig,
+                      aabb: torch.Tensor, binaries: torch.Tensor,
+                      rays_o: torch.Tensor, rays_d: torch.Tensor,
+                      generator: Optional[torch.Generator], render_bkgd: torch.Tensor,
+                      capacity: Optional[int] = None, tables: Optional[Dict] = None,
+                      visible_capacity: Optional[int] = None,
+                      jitter: Optional[torch.Tensor] = None) -> volrend.RenderedRays:
+    """One differentiable training render pass over a ray batch, on the rays'
+    device.
+
+    The march's stratified near jitter is drawn from `generator` (on the
+    generator's device, then moved), unless `jitter`, an [R] tensor of
+    uniforms in [0, 1), is given.
+
+    With rcfg.visible_frac set (or an explicit visible_capacity), a
+    gradient-free density prefilter prunes invisible samples before the
+    differentiable field eval, the reference's structure: estimator.sampling
+    runs under no_grad and drops samples whose transmittance fell below
+    early_stop_eps (occ_grid.py:88-239, volrend.py:424-482), then `rendering`
+    re-evaluates the field on the survivors only.  Invisible samples carry
+    zero rendering weight and no gradient path, so pruning leaves the
+    gradients unchanged; the one divergence, an overflow of the pruned
+    buffer, is surfaced through `resume_ray` so the trainer can mask the
+    affected rays out of the loss.
+    """
+    n_rays = rays_o.shape[0]
+    dev = rays_o.device
+    cap = capacity or rcfg.sample_capacity
+    if visible_capacity is None and rcfg.visible_frac is not None:
+        visible_capacity = max(8, int(cap * rcfg.visible_frac)) // 8 * 8
+    if jitter is None:
+        jitter = torch.rand(n_rays, generator=generator, device=generator.device).to(dev)
+    samples = marching.march_rays(rays_o, rays_d, binaries, aabb, rcfg, cap, jitter=jitter)
+    pos, dirs = marching.sample_positions(samples, rays_o, rays_d)
+    if tables is None:
+        tables = rf.quantized_tables(field, mcfg)
+    resume_ray = n_visible = None
+    if visible_capacity is not None and visible_capacity < cap:
+        with torch.no_grad():
+            sig_pre = rf.query_density(field, mcfg, aabb, pos, tables=tables)
+            _, _, vis = volrend.render_weights(sig_pre, samples, rcfg.early_stop_eps,
+                                               alpha_thre=rcfg.alpha_thre)
+            n_visible = vis.sum()
+            src, total = scatter_ops.compact_mask_indices(vis, visible_capacity)
+            valid2 = (torch.arange(visible_capacity, device=dev)
+                      < torch.clamp(total, max=visible_capacity))
+            src = src.long()
+            ray_id2 = torch.where(valid2, samples.ray_id[src], n_rays - 1).to(torch.int32)
+            # overflow: the ray owning the last kept slot may have lost samples,
+            # and every later ray certainly did; march truncation composes in
+            resume_ray = torch.where(total > visible_capacity, ray_id2[visible_capacity - 1],
+                                     torch.full((), n_rays, dtype=torch.int32, device=dev))
+            if samples.resume_ray is not None:
+                resume_ray = torch.minimum(resume_ray, samples.resume_ray.to(torch.int32))
+            samples = marching.RaySamples(ray_id=ray_id2, t_mid=samples.t_mid[src],
+                                          dt=samples.dt, valid=valid2,
+                                          num_samples=samples.num_samples)
+            pos, dirs = marching.sample_positions(samples, rays_o, rays_d)
+    rgbs, sigmas = rf.forward(field, mcfg, aabb, pos, dirs, tables=tables)
+    out = volrend.composite(rgbs, sigmas, samples, n_rays, render_bkgd, rcfg.early_stop_eps,
+                            alpha_thre=rcfg.alpha_thre)
+    if n_visible is not None:
+        # report the prefilter's TRUE visible count (the pruned buffer's own
+        # count saturates at its capacity) and the overflow resume point
+        out = out._replace(n_rendering_samples=n_visible, resume_ray=resume_ray)
+    return out
 
 
 @torch.no_grad()
