@@ -29,10 +29,31 @@ Phases (any failure raises and the script exits non-zero):
      at a half-padded buffer.  Then the counts are set to 0, `fit` runs on
      to TRAIN_STEPS, and the counts are read: every training kernel must
      have launched, the loss must have fallen, and the test views' PSNR must
-     exceed TRAIN_PSNR_MIN.  One more step runs under torch.profiler
+     exceed TRAIN_PSNR_MIN (each phase reads the test views five times from
+     `fit`'s step callback; those renders' launches are taken out of the
+     counts).  One more step runs under torch.profiler
      (chiprun_out/profile_train.txt);
   8. render the 800x800 view once more with the trained field and grid;
-  9. print the kernels line, the card line and the final JSON line.
+  9. [rate] the rate path at full width, with the counts set to 0 just
+     before it: build `ContextModels(EntropyConfig(), grid_3d, grid_2d)`
+     ([K10]: seconds, peak memory, entries per level; the table kernels
+     against their twins), then `Trainer(CNCConfig(), ProceduralDataset(
+     "blocks"), entropy=...)` with the default lmbda = 2e-3.  After 16 steps
+     the rate kernels are held against their twins at that step's real
+     shapes ([K8] on the lambda = 0 run's trained occupancy grid; [K6], [K7],
+     [K1v], [K2v] on the arguments one rate estimate gives them); those
+     launches are taken out of the counts again.  `fit` then runs on to RATE_STEPS and
+     the counts are read: every rate kernel must have launched (the step's
+     kernels in every step), bits_per_param must be finite and lower than at
+     step 16, and the test views' PSNR must exceed RATE_PSNR_MIN.  At step 16
+     and at the end, one whole rate estimate's gradients (the four tables, the
+     context MLPs) through the kernels are held against the same estimate
+     through the twins on the card in float64, beside the float32 twins' own
+     distance from it (check_rate_gradient).  One more step runs under
+     torch.profiler (chiprun_out/profile_rate.txt).  A three-step run with
+     `pn_frac_grad=True` drives the sign histogram's backward kernel, which
+     the default configuration does not reach;
+ 10. print the kernels line, the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
 run outside the repository (cnc_torch missing).
@@ -40,6 +61,7 @@ run outside the repository (cnc_torch missing).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -47,6 +69,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
@@ -64,6 +87,42 @@ SCATTER_REL_TOL = 1e-5      # scatter_add against index_add_, over max |out|
 # 1,000 steps (35.87 dB after 400); the floor leaves 5.36 dB for run-to-run
 # spread (the draws are seeded, but K2's float atomics make no two runs bit-equal)
 TRAIN_PSNR_MIN = 32.0
+# A single reading of the test views can dip by 10 dB and more for some
+# dozens of steps: near the top of the lr warm-up the training loss jumps (in
+# one run's chiprun_out/train_history.json from 0.014 to 0.026 at step 957,
+# the visible samples from 190,000 to 290,000 within three steps) and takes
+# about a hundred steps to come back; the test views read 21.2, 31.8 and
+# 34.2 dB at steps 959, 979 and 999 of that run, 37 to 38 dB in runs without
+# a jump.  Seen with and without the rate term, and on the tree before it.  So
+# each training phase reads the test views at PSNR_READINGS steps, this far
+# apart, the last at its end, and holds the median to its floor.
+PSNR_READ_EVERY, PSNR_READINGS = 50, 5
+RATE_WARM_STEPS = 16        # rate steps before the rate kernels are checked
+RATE_STEPS = 1000           # total steps of the lambda > 0 run
+K6_REL_TOL = 1e-5           # pooling against the twin, over max |out| (f32 adds reordered)
+K7B_REL_TOL = 1e-5          # the histogram's backward against the float64 twin, over max |d_table|
+# K8's overlap over the level's largest overlap: against the twin with its sums
+# in float64, and against the twin as cnc_tpu rounds it (float32 cumulative
+# sums up to 10^3 differenced into values near 0.1: the twin's own rounding)
+K8_REL_TOL, K8_F32_TOL = 1e-5, 1e-4
+# the first H100 runs of the [rate] phase read medians of 35.8 to 37.8 dB after
+# 1,000 steps; the floor is the lambda = 0 phase's, 3.8 dB under the lowest
+RATE_PSNR_MIN = 32.0
+# the rate gradient (check_rate_gradient): the bands of p left out, the one
+# that is held, and how far the kernels' gradient may then lie from the float64
+# yardstick, as the norm of the difference over the gradient's norm:
+# RATE_GRAD_TOL more than twice the float32 twins' own distance.  With p within
+# 1e-3 of 0 and 1 left out, the first H100 runs (eight states between steps 16
+# and 1,000) put the float32 twins 3e-7 to 4e-4 from the yardstick, the kernels
+# at most 4e-5 further than the twins, and two kernel runs 3e-7 apart.  Single
+# entries move by
+# up to 1e-3 of the largest one on either float32 side (a value near the clamp,
+# or a ReLU of the context MLPs, switches with the last bit of its input), and
+# with nothing left out the values at the clamp decide (at step 16 of one run
+# the kernels' largest entry error was 1.9e-2, the float32 twins' 6.8e-3, on
+# one table and 5.3e-2 both on another): those figures are printed, not held.
+RATE_GRAD_BANDS = (0.0, 4e-6, 1e-3)
+RATE_GRAD_BAND, RATE_GRAD_TOL = 1e-3, 1e-4
 
 
 def log(msg: str) -> None:
@@ -99,39 +158,48 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_grid_encode(torch, enc, spec, table, pts, label):
-    """K1 against its twin on one table at the main path's points (128 of
-    them moved onto the border and partly outside [0,1]); returns the kernel
-    record fields."""
+def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K1", **kw):
+    """K1 against its twin on one table at the main path's points (with
+    `perturb`, 128 of them moved onto the border and partly outside [0,1]);
+    `kw` are the masked / mixed-level arguments of the variant (K1v), for
+    which `spec`'s levels are those of the call.  Returns the kernel record
+    fields."""
     n = pts.shape[0]
-    pts = pts.clone()
-    pts[:64] = torch.round(pts[:64])
-    pts[64:128] = pts[64:128] * 1.4 - 0.2
+    if perturb:
+        pts = pts.clone()
+        pts[:64] = torch.round(pts[:64])
+        pts[64:128] = pts[64:128] * 1.4 - 0.2
     res, offs = spec.resolutions, spec.offsets
-    got = enc._encode_cuda(pts, table, res, offs)
-    want = enc._encode_plain(pts, table, res, offs)
+    n_out = kw.get("n_levels_calc") or len(res)
+    got = enc._encode_cuda(pts, table, res, offs, **kw)
+    want = enc._encode_plain(pts, table, res, offs, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not (got.isfinite().all() and err <= 1e-5):
-        raise AssertionError(f"K1 {label}: max abs err {err} > 1e-5")
+        raise AssertionError(f"{name} {label}: max abs err {err} > 1e-5")
+    del want
     # bytes the function needs: points and output once, each distinct table
-    # row it reads once (data dependent: the rows these points touch)
-    rows = []
-    for li, r in enumerate(res):
-        frac, pg = enc._level_setup(pts, r)
-        gi, wi = enc._corner_setup(frac, pg, offs[li], offs[li + 1] - offs[li], int(r))
-        rows.append(gi[wi > 0])
-    n_rows = torch.unique(torch.cat(rows)).numel()
-    f = table.shape[1]
+    # row it reads once (data dependent: the rows these points touch), and
+    # for a variant its level ids and one mask byte per distinct corner read
+    gs, ws = enc._corner_sets(pts, res, offs, **kw)
+    live = torch.cat([g[w > 0] for g, w in zip(gs, ws)])
+    n_rows, n_corners = torch.unique(live).numel(), live.numel()
+    del gs, ws, live
+    f, d = table.shape[1], pts.shape[1]
     n_bytes = pts.numel() * 4 + got.numel() * 4 + n_rows * f * 4
-    n_flops = n * spec.n_levels * (2 ** spec.num_dim) * (spec.num_dim + 2 * f + 1)
+    if kw.get("min_level_ids") is not None:
+        n_bytes += n * 4
+    if kw.get("occ_mask") is not None:
+        n_bytes += n_rows        # at least one mask byte per distinct row read
+    n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
     b, by = bound_ms(n_bytes, n_flops)
-    rec = dict(max_abs_err=err, ms=time_ms(lambda: enc._encode_cuda(pts, table, res, offs)),
-               plain_ms=time_ms(lambda: enc._encode_plain(pts, table, res, offs), iters=20),
+    rec = dict(max_abs_err=err, ms=time_ms(lambda: enc._encode_cuda(pts, table, res, offs, **kw)),
+               plain_ms=time_ms(lambda: enc._encode_plain(pts, table, res, offs, **kw),
+                                iters=5 if kw else 20, warmup=1 if kw else 3),
                bound_ms=b, bound_by=by, library_ms=None)
-    log(f"[K1 grid_encode {label}] N={n} L={spec.n_levels} D={spec.num_dim} rows={table.shape[0]}"
-        f" distinct_rows={n_rows} err={err:.3g} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f}"
-        f" bound_ms={b:.4f}")
+    log(f"[{name} grid_encode {label}] N={n} L={n_out} D={d} rows={table.shape[0]}"
+        f" live_corners={n_corners} distinct_rows={n_rows} err={err:.3g} ms={rec['ms']:.4f}"
+        f" plain_ms={rec['plain_ms']:.4f} bound_ms={b:.4f}")
     return rec
 
 
@@ -246,49 +314,57 @@ def check_probe(torch, kernels, scatter_ops, dev):
     return recs, counts
 
 
-def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label):
+def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", **kw):
     """K2 against its twin (autograd of `_encode_plain`) on one table at a
-    training march's sample points; returns the kernel record fields."""
+    training march's sample points; `kw` are the masked / mixed-level
+    arguments of the variant (K2v).  Returns the kernel record fields."""
     n, f, rows = pts.shape[0], table.shape[1], table.shape[0]
     res, offs = spec.resolutions, spec.offsets
-    cot = torch.randn(n, spec.n_levels * f, generator=gen, device=pts.device)
-    got = enc._encode_backward_cuda(pts, cot, rows, res, offs)
+    n_out, d = kw.get("n_levels_calc") or len(res), pts.shape[1]
+    cot = torch.randn(n, n_out * f, generator=gen, device=pts.device)
+    got = enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw)
     leaf = table.detach().clone().requires_grad_()
-    out = enc._encode_plain(pts, leaf, res, offs)
+    out = enc._encode_plain(pts, leaf, res, offs, **kw)
     twin = lambda: torch.autograd.grad(out, leaf, cot, retain_graph=True)[0]
     want = twin()
     torch.cuda.synchronize()
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     if not (got.isfinite().all() and err <= K2_REL_TOL * scale):
-        raise AssertionError(f"[K2] {label}: max abs err {err} > {K2_REL_TOL} * {scale}")
+        raise AssertionError(f"[{name}] {label}: max abs err {err} > {K2_REL_TOL} * {scale}")
+    plain_ms = time_ms(twin, iters=5, warmup=1)
+    del out, leaf
     # the updates the function makes: (row, g*w/wn) per surviving corner, as
     # one index_add_ would take them (the library yardstick), and the
     # distinct rows they touch (read-modify-write in the bound)
-    gs, vs = [], []
+    gs, ws = enc._corner_sets(pts, res, offs, **kw)
+    vs = []
     oob = ((pts < 0.0) | (pts > 1.0)).any(dim=-1)
-    for li, r in enumerate(res):
-        frac, pg = enc._level_setup(pts, r)
-        gi, wi = enc._corner_setup(frac, pg, offs[li], offs[li + 1] - offs[li], int(r))
+    for li, wi in enumerate(ws):
         wn = wi.sum(dim=-1, keepdim=True)
         wi = torch.where(oob[:, None], 0.0, wi / torch.where(wn == 0.0, 1e-9, wn))
-        gs.append(gi)
         vs.append(wi[..., None] * cot[:, None, li * f:(li + 1) * f])
+    del ws
     gidx = torch.cat(gs, dim=1).reshape(-1)
     vals = torch.cat(vs, dim=1).reshape(-1, f)
-    live = torch.cat([(v != 0).any(dim=-1) for v in vs], dim=1).reshape(-1)
+    del gs, vs
+    live = (vals != 0).any(dim=-1)
     n_updates = int(live.sum())
-    n_rows = torch.unique(gidx[live]).numel()
+    touched, per_row = torch.unique(gidx[live], return_counts=True)
+    n_rows, worst = touched.numel(), int(per_row.max())
+    del live, touched, per_row
     library = lambda: torch.zeros(rows, f, device=pts.device).index_add_(0, gidx, vals)
     lib_err = rel_err(library(), want)
     n_bytes = pts.numel() * 4 + cot.numel() * 4 + 2 * n_rows * f * 4
-    n_flops = n * spec.n_levels * (2 ** spec.num_dim) * (spec.num_dim + 2 * f + 1)
+    n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
     b, by = bound_ms(n_bytes, n_flops)
     rec = dict(max_abs_err=err, rel_err=err / scale,
-               ms=time_ms(lambda: enc._encode_backward_cuda(pts, cot, rows, res, offs), iters=10),
-               plain_ms=time_ms(twin, iters=5, warmup=1), bound_ms=b, bound_by=by,
+               ms=time_ms(lambda: enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw),
+                          iters=10),
+               plain_ms=plain_ms, bound_ms=b, bound_by=by,
                library_ms=time_ms(library, iters=5, warmup=1))
-    log(f"[K2 grid_encode_bwd {label}] N={n} L={spec.n_levels} D={spec.num_dim} rows={rows}"
-        f" updates={n_updates} distinct_rows={n_rows} rel_err={err / scale:.3g}"
+    log(f"[{name} grid_encode_bwd {label}] N={n} L={n_out} D={d} rows={rows}"
+        f" updates={n_updates} distinct_rows={n_rows} most_updates_on_one_row={worst}"
+        f" rel_err={err / scale:.3g}"
         f" (limit {K2_REL_TOL}; index_add_ against the twin {lib_err:.3g}) ms={rec['ms']:.4f}"
         f" plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} bound_ms={b:.4f}")
     return rec
@@ -373,9 +449,467 @@ def check_training_kernels(torch, tr, enc, marching, volrend, rf, gen):
     return records
 
 
+def check_vertex_tables(torch, cops, entropy, dev):
+    """K10 against its twins, exactly, on the hashed 108^3 level and on one
+    2D level (keys, then the fill over the kernel's sorted keys), and on the
+    dense 80^3 level; then the kernels and the twins timed on the finest
+    level (514^3), the largest the build runs."""
+    plans = {(p["kind"], p["r"]): p for p in entropy._level_plans()}
+    p3, p2 = plans[("3d", 108)], [p for p in plans.values() if p["kind"] == "2d"][0]
+    import numpy as np
+    from cnc_torch.utils import threefry
+    for p in (p3, p2):
+        d, tile = (3, 0) if p["kind"] == "3d" else (2, p["tile"])
+        perm = inv = None
+        if d == 2:
+            perm_np = threefry.permutation(4321 + p["level"], p["tbl"])
+            inv_np = np.empty_like(perm_np)
+            inv_np[perm_np] = np.arange(p["tbl"])
+            perm, inv = (torch.from_numpy(a.astype(np.int32)) for a in (perm_np, inv_np))
+        on = lambda t: None if t is None else t.to(dev)
+        keys = cops.vertex_keys(p["v"], d, p["r"], p["tbl"], dev, tile, entropy.rb, on(perm))
+        want = cops._vertex_keys_plain(p["v"], d, p["r"], p["tbl"], tile, entropy.rb, on(perm), dev)
+        if not torch.equal(keys, want):
+            raise AssertionError(f"[K10] keys differ from the twin on {p['kind']} r={p['r']}")
+        skey, loc = torch.sort(keys, stable=True)
+        got = cops.entry_fill(skey, loc, p["e_max"], d, tile, entropy.rb, on(inv))
+        twin = cops._entry_fill_plain(skey, loc, p["e_max"], d, tile, entropy.rb, on(inv))
+        for k, v in twin.items():
+            if not torch.equal(got[k].reshape(-1), v.reshape(-1)):
+                raise AssertionError(f"[K10] {k} differs from the twin on {p['kind']} r={p['r']}")
+        log(f"[K10] {p['kind']} level {p['level']} (r={p['r']}, {p['v']} vertices,"
+            f" {int(got['n_entries'])} entries): keys and tables exact against the twins")
+    pd = plans[("3d", 80)]
+    perm = torch.from_numpy(threefry.permutation(1234 + pd["level"], pd["v"]).astype(np.int32))
+    got, twin = cops.dense_level(perm.to(dev), pd["r"]), cops._dense_level_plain(perm, pd["r"])
+    for k, v in twin.items():
+        if not torch.equal(got[k].cpu(), v):
+            raise AssertionError(f"[K10] dense level: {k} differs from the twin")
+    del got, twin
+    # timing at the finest level: keys, and the fill over sorted keys
+    pf = plans[("3d", entropy.fine_res)]
+    v, r, tbl, e_max = pf["v"], pf["r"], pf["tbl"], pf["e_max"]
+    skey, loc = torch.sort(cops.vertex_keys(v, 3, r, tbl, dev), stable=True)
+    kernel = lambda: (cops.vertex_keys(v, 3, r, tbl, dev), cops.entry_fill(skey, loc, e_max, 3))
+    plain = lambda: (cops._vertex_keys_plain(v, 3, r, tbl, 0, 0, None, dev),
+                     cops._entry_fill_plain(skey, loc, e_max, 3, 0, 0, None))
+    sort_ms = time_ms(lambda: torch.sort(skey, stable=True), iters=2, warmup=1)
+    # bytes: keys written; sorted keys and indices read; ordinals, vertex
+    # ids and the two per-entry arrays written
+    b, by = bound_ms(4 * v + 12 * v + 8 * v + 8 * e_max, 20 * v)
+    rec = dict(max_abs_err=0.0, ms=time_ms(kernel, iters=3, warmup=1),
+               plain_ms=time_ms(plain, iters=2, warmup=1), bound_ms=b, bound_by=by,
+               library_ms=None)
+    log(f"[K10 vertex_tables] finest level r={r}, {v} vertices: keys + fill ms={rec['ms']:.3f}"
+        f" plain_ms={rec['plain_ms']:.3f} bound_ms={b:.3f}; the stable sort between them"
+        f" (torch.sort) {sort_ms:.3f} ms")
+    return rec
+
+
+def overlap_float64(torch, cops, occ, resolution):
+    """K8's overlap volume summed in float64: per axis a cumulative sum of the
+    occupancy, read at the corner's continuous bounds and differenced, as the
+    twin does it in float32.  The yardstick for how far float32 rounding
+    moves the twin and the kernel."""
+    bd = cops.footprint_bounds(resolution, occ.shape[0])
+    o = occ.double()
+    for _ in range(occ.dim()):
+        s = torch.cumsum(o, dim=0)
+        s = torch.cat([torch.zeros_like(s[:1]), s], dim=0)
+
+        def lerp(i0, fr):
+            i0 = torch.from_numpy(i0).long().to(occ.device)
+            fr = torch.from_numpy(fr).double().to(occ.device).reshape((-1,) + (1,) * (o.dim() - 1))
+            return s[i0] * (1.0 - fr) + s[i0 + 1] * fr
+
+        o = torch.movedim(lerp(bd.b_i, bd.b_fr) - lerp(bd.a_i, bd.a_fr), 0, -1)
+    return o.reshape(-1).float()
+
+
+def check_footprint(torch, cops, entropy, binaries):
+    """K8 against its twin: the mask exactly and the overlap within
+    K8_REL_TOL of the level's largest value against the twin summed in
+    float64 (K8_F32_TOL against the float32 twin, whose differences of
+    cumulative sums round more coarsely than the kernel's cell-by-cell sum),
+    on 3D levels 3 and 7, the finest 3D level and the 1026^2 plane level; the
+    finest level is the one timed."""
+    spec3, spec2 = entropy.spec3, entropy.spec2
+    worst = 0.0
+    for l in (3, 7, spec3.n_levels - 1):
+        r = spec3.resolutions[l]
+        mask, ovl = cops._footprint_cuda(binaries, r, True)
+        want_mask, want_ovl = cops._footprint_plain(binaries, r, True)
+        exact = overlap_float64(torch, cops, binaries, r)
+        torch.cuda.synchronize()
+        if not torch.equal(mask, want_mask):
+            raise AssertionError(f"[K8] level {l}: the mask differs from the twin")
+        err, err32, twin_err = rel_err(ovl, exact), rel_err(ovl, want_ovl), \
+            rel_err(want_ovl, exact)
+        worst = max(worst, float((ovl - want_ovl).abs().max()))
+        wgt = lambda o: torch.clamp(torch.floor(o * 1000.0), min=1.0)
+        share = float((wgt(ovl) != wgt(want_ovl))[want_mask].float().mean())
+        log(f"[K8 footprint] 3D level {l} (r={r}): mask exact ({int(mask.sum())} of {mask.numel()}"
+            f" corners set), ovl max {float(want_ovl.max()):.4f}; rel err against the twin in"
+            f" float64 {err:.3g} (limit {K8_REL_TOL}), against the twin in float32 {err32:.3g}"
+            f" (limit {K8_F32_TOL}; that twin against its float64 self {twin_err:.3g});"
+            f" floor(ovl*1000) differs from the float32 twin's on {100 * share:.4f}% of the"
+            f" masked corners")
+        if not (err <= K8_REL_TOL and err32 <= K8_F32_TOL):
+            raise AssertionError(f"[K8] level {l}: ovl rel err {err} > {K8_REL_TOL} or"
+                                 f" {err32} > {K8_F32_TOL}")
+        del mask, ovl, want_mask, want_ovl, exact
+    bin2d = binaries.any(dim=2)
+    r2 = spec2.resolutions[-1]
+    if not torch.equal(cops._footprint_cuda(bin2d, r2, False)[0],
+                       cops._footprint_plain(bin2d, r2, False)[0]):
+        raise AssertionError("[K8] the 2D mask differs from the twin")
+    log(f"[K8 footprint] 2D level r={r2}: mask exact against the twin")
+    r = spec3.resolutions[-1]
+    n = r ** 3
+    # bytes: the occupancy read once, one bool and one float written per
+    # corner; operations: per occupied cell of each corner's box one
+    # multiply-add per axis (counted from the overlap itself: about 10 per cell)
+    lo, hi = (torch.from_numpy(a).long() for a in cops.footprint_bounds(r, entropy.rb)[:2])
+    cells = float((hi - lo + 1).sum()) ** 3
+    b, by = bound_ms(binaries.numel() + 5 * n, 10 * cells)
+    rec = dict(max_abs_err=worst, ms=time_ms(lambda: cops._footprint_cuda(binaries, r, True),
+                                              iters=5, warmup=1),
+               plain_ms=time_ms(lambda: cops._footprint_plain(binaries, r, True), iters=3,
+                                warmup=1), bound_ms=b, bound_by=by, library_ms=None)
+    log(f"[K8 footprint] finest level r={r}: {n} corners, {cells:.0f} cells walked,"
+        f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={b:.4f} ({by})")
+    return rec
+
+
+def capture_rate_calls(torch, tr, rf, cops, enc):
+    """The arguments one real rate step gives the rate kernels: the wrappers
+    are swapped for recorders while one rate estimate runs on the trainer's
+    current tables, cache and freshly drawn windows."""
+    calls = {"segment_pool": [], "pn_hist": [], "encode": []}
+    originals = (cops.segment_pool, cops.pn_hist, enc._encode)
+
+    def recorder(key, fn):
+        def wrapped(*args, **kw):
+            calls[key].append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    cops.segment_pool = recorder("segment_pool", originals[0])
+    cops.pn_hist = recorder("pn_hist", originals[1])
+    enc._encode = recorder("encode", originals[2])
+    try:
+        with torch.no_grad():
+            tables = rf.quantized_tables(tr.field, tr.cfg.model)
+            starts = tr.entropy.draw_starts(tr.generator)
+            tr.entropy.rate_estimate(tr.ent_params, tables, starts, tr._last_ent_cache)
+    finally:
+        cops.segment_pool, cops.pn_hist, enc._encode = originals
+    return calls
+
+
+def check_rate_kernels(torch, tr, rf, cops, enc, gen):
+    """K6, K7, K1v and K2v against their twins at the shapes of one real
+    rate step of the trainer."""
+    import types
+    calls = capture_rate_calls(torch, tr, rf, cops, enc)
+    dev = tr.device
+    records = {}
+
+    # ---- K6: the 3D pooling of the context means ([cap, F] rows into the
+    # step's sampled entries) and of the weights ([cap])
+    rows2 = [c for c in calls["segment_pool"] if c[0][0].dim() == 2]
+    x, seg, valid, num = max(rows2, key=lambda c: c[0][0].shape[0])[0]
+    x, seg, valid = x.contiguous(), seg.to(torch.int32).contiguous(), valid.contiguous()
+    x1 = x[:, 0].contiguous()
+    errs = []
+    for xs in (x, x1):
+        got, want = cops._segment_pool_cuda(xs, seg, valid, num), \
+            cops._segment_pool_plain(xs, seg, valid, num)
+        errs.append(rel_err(got, want))
+    if not max(errs) <= K6_REL_TOL:
+        raise AssertionError(f"[K6] rel err {errs} > {K6_REL_TOL}")
+    abs_err = float((got - want).abs().max())
+    cot = torch.randn(num, x.shape[1], generator=gen, device=dev)
+    leaf = x.clone().requires_grad_()
+    (want_dx,) = torch.autograd.grad(cops._segment_pool_plain(leaf, seg, valid, num), leaf, cot)
+    got_dx = cops._segment_pool_backward_cuda(cot, seg, valid, x.shape)
+    if not torch.equal(got_dx, want_dx):
+        raise AssertionError("[K6] the backward kernel differs from the twin's gradient")
+    n, f = x.shape
+    n_valid = int(valid.sum())
+    seg_safe = torch.where(valid, seg.long(), num)
+    xm = torch.where(valid[:, None], x, 0.0)
+    library = lambda: torch.zeros(num + 1, f, device=dev).index_add_(0, seg_safe, xm)
+    b, by = bound_ms(n * (4 * f + 5) + num * f * 4, n_valid * f)
+    records["segment_pool"] = dict(
+        max_abs_err=abs_err, ms=time_ms(lambda: cops._segment_pool_cuda(x, seg, valid, num)),
+        plain_ms=time_ms(lambda: cops._segment_pool_plain(x, seg, valid, num)),
+        bound_ms=b, bound_by=by, library_ms=time_ms(library))
+    bb, bby = bound_ms(n * (4 * f + 5) + num * f * 4, 0)
+    records["segment_pool_bwd"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: cops._segment_pool_backward_cuda(cot, seg, valid, x.shape)),
+        plain_ms=time_ms(lambda: torch.where(valid[:, None], cot[seg_safe.clamp(max=num - 1)],
+                                             0.0)),
+        bound_ms=bb, bound_by=bby,
+        library_ms=time_ms(lambda: torch.index_select(cot, 0, seg_safe.clamp(max=num - 1))))
+    r = records["segment_pool"]
+    log(f"[K6 segment_pool] rows={n} valid={n_valid} F={f} segments={num}"
+        f" ({len(calls['segment_pool'])} calls in the step) rel_err [N,F] {errs[0]:.3g}"
+        f" [N] {errs[1]:.3g} (limit {K6_REL_TOL}) backward exact ms={r['ms']:.4f}"
+        f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms={b:.4f};"
+        f" backward ms={records['segment_pool_bwd']['ms']:.4f}")
+
+    # ---- K7: one plane's sign histogram
+    table, fine_offset, sel, row_valid, bnd = calls["pn_hist"][0][0]
+    table, sel = table.contiguous(), sel.to(torch.int32).contiguous()
+    bnd = bnd.to(torch.int32).contiguous()
+    got = cops._pn_hist_cuda(table, fine_offset, sel, row_valid, bnd)
+    want = cops._pn_hist_plain(table, fine_offset, sel, row_valid, bnd)
+    if not torch.equal(got, want):
+        raise AssertionError("[K7] the histogram differs from the twin")
+    f, bins, rows = table.shape[1], bnd.shape[0] - 1, sel.shape[0]
+    n_valid = int(row_valid.sum())
+    n_entries = torch.unique(sel[row_valid]).numel()
+    bin_of_row = (torch.searchsorted(bnd, torch.arange(rows, device=dev, dtype=torch.int32),
+                                     right=True) - 1).clamp(0, bins - 1).long()
+    ind = torch.where(row_valid[:, None], (table[fine_offset + sel.long()] > 0.9).float(), 0.0)
+    library = lambda: torch.zeros(bins, f, device=dev).index_add_(0, bin_of_row, ind)
+    if not torch.equal(library(), want):
+        raise AssertionError("[K7] index_add_ of the indicator rows differs from the twin")
+    b, by = bound_ms(rows * 5 + n_entries * 4 * f + (bins + 1) * 4 + bins * 4 * f, n_valid * f)
+    # the backward kernel (taken with pn_frac_grad) against the twin's
+    # autograd.  That differences reverse cumulative sums over all rows, which
+    # float32 rounds at 1e-3 of the result, so the kernel is held to the twin
+    # run in float64 and the float32 twin's own distance is printed
+    cot = torch.randn(bins, f, generator=gen, device=dev)
+    leaf = table.clone().requires_grad_()
+    (want_dt,) = torch.autograd.grad(cops._pn_hist_plain(leaf, fine_offset, sel, row_valid, bnd),
+                                     leaf, cot)
+    leaf64 = table.double().requires_grad_()
+    (exact_dt,) = torch.autograd.grad(
+        cops._pn_hist_plain(leaf64, fine_offset, sel, row_valid, bnd), leaf64, cot.double())
+    exact_dt = exact_dt.float()
+    got_dt = cops._pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd, cot)
+    bwd_err, twin_err = rel_err(got_dt, exact_dt), rel_err(want_dt, exact_dt)
+    if not bwd_err <= K7B_REL_TOL:
+        raise AssertionError(f"[K7] backward rel err {bwd_err} > {K7B_REL_TOL}")
+    del leaf64
+    records["pn_hist"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: cops._pn_hist_cuda(table, fine_offset, sel, row_valid, bnd)),
+        plain_ms=time_ms(lambda: cops._pn_hist_plain(table, fine_offset, sel, row_valid, bnd)),
+        bound_ms=b, bound_by=by, library_ms=time_ms(library))
+    grad_rows = ind.reshape(-1)
+    flat = ((fine_offset + sel.long())[:, None] * f
+            + torch.arange(f, device=dev)[None, :]).reshape(-1)
+    vals = (cot[bin_of_row] * ind).reshape(-1)
+    bb, bby = bound_ms(rows * 5 + 2 * n_entries * 4 * f + (bins + 1) * 4 + bins * 4 * f,
+                       int(grad_rows.sum()))
+    records["pn_hist_bwd"] = dict(
+        max_abs_err=float((got_dt - exact_dt).abs().max()),
+        ms=time_ms(lambda: cops._pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd,
+                                                       cot), iters=10),
+        plain_ms=time_ms(lambda: torch.autograd.grad(
+            cops._pn_hist_plain(leaf, fine_offset, sel, row_valid, bnd), leaf, cot), iters=5,
+            warmup=1),
+        bound_ms=bb, bound_by=bby,
+        library_ms=time_ms(lambda: torch.zeros(table.numel(), device=dev).index_add_(
+            0, flat, vals), iters=10))
+    r = records["pn_hist"]
+    log(f"[K7 pn_hist] rows={rows} valid={n_valid} bins={bins} distinct_entries={n_entries} F={f}"
+        f" ({len(calls['pn_hist'])} calls in the step) exact ms={r['ms']:.4f}"
+        f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms={b:.4f};"
+        f" backward rel_err {bwd_err:.3g} against the twin in float64 (limit {K7B_REL_TOL};"
+        f" the float32 twin against it {twin_err:.3g})"
+        f" ms={records['pn_hist_bwd']['ms']:.4f}")
+    del ind, vals, flat, bin_of_row, leaf
+
+    # ---- K1v / K2v: the mixed-level 3D context encode, one masked plane
+    # window and the frac-plane lookup
+    def variant(call):
+        pts, table, res, offs, mask, moffs = call[0][:6]
+        kw = dict(occ_mask=mask.contiguous(), mask_offsets=tuple(int(m) for m in moffs))
+        if len(call[0]) == 8:
+            kw.update(min_level_ids=call[0][6].to(torch.int32).contiguous(),
+                      n_levels_calc=call[0][7])
+        levels = types.SimpleNamespace(resolutions=tuple(res), offsets=tuple(offs))
+        return pts.detach().contiguous(), table.detach().contiguous(), levels, kw
+
+    def is_given(c):     # the frac-plane lookup: one dense level over a [pn_res^2, F] table
+        return len(c[0][2]) == 1 and c[0][1].shape[0] == tr.entropy.pn_res ** 2
+
+    diff = [c for c in calls["encode"] if len(c[0]) == 8]
+    given = [c for c in calls["encode"] if len(c[0]) == 6 and is_given(c)]
+    planes = [c for c in calls["encode"] if len(c[0]) == 6 and not is_given(c)]
+    k1v, k2v = {}, {}
+    for label, call in (("3D mixed levels", diff[0]),
+                        ("2D window", max(planes, key=lambda c: c[0][0].shape[0])),
+                        ("frac plane", max(given, key=lambda c: c[0][0].shape[0]))):
+        pts, table, levels, kw = variant(call)
+        k1v[label] = check_grid_encode(torch, enc, levels, table, pts, label, perturb=False,
+                                       name="K1v", **kw)
+        k2v[label] = check_grid_encode_bwd(torch, enc, levels, table, pts, gen, label,
+                                           name="K2v", **kw)
+    first = "3D mixed levels"
+    records["grid_encode_v"] = dict(k1v[first], max_abs_err=max(v["max_abs_err"]
+                                                                 for v in k1v.values()))
+    records["grid_encode_v_bwd"] = dict(k2v[first], max_abs_err=max(v["max_abs_err"]
+                                                                     for v in k2v.values()))
+    return records
+
+
+@contextlib.contextmanager
+def swapped(*swaps):
+    """Module attributes replaced for the length of a block: (module, name,
+    replacement) each."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, repl in swaps:
+        setattr(mod, name, repl)
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def check_rate_gradient(torch, tr, rf, cops, enc, ent_ops, label):
+    """One full-width rate estimate's gradients (the four tables, the context
+    MLPs) on the trainer's current state and one draw of the entry windows:
+    through the kernels, through their plain twins on the card in float32,
+    and through the twins with tables, MLPs and every sum in float64, the
+    yardstick.  The gradient sums terms far larger than itself (d bits / d p
+    of an entry is 1 / (p ln 2) inside the clamp [P_EPS, 1 - P_EPS] and 0
+    outside it), so float32 moves both the kernels' and the twins' result;
+    what is held is the norm of the kernels' distance from the yardstick
+    over the gradient's norm.  Printed beside it: the float32 twins' distance
+    from the yardstick, the kernels' from the float32 twins, a second kernel
+    run's from the first (float atomics), and for each the largest entry's
+    error over the largest entry.
+
+    The comparison is made once per band of RATE_GRAD_BANDS, with the bits of
+    the coded values whose p lies within the band of 0 or 1 left out of the
+    sum (the same values on every side, chosen from the kernels' p; band 0
+    leaves nothing out): a value at the clamp switches a gradient of 1.4e6
+    on or off with the last bit of p, in float32 and float64 alike, so only
+    RATE_GRAD_BAND is held.  Returns {band: the kernels' largest norm
+    distance from the yardstick}; raises where a gradient's at RATE_GRAD_BAND
+    exceeds twice the float32 twins' by more than RATE_GRAD_TOL."""
+    entropy, cfg = tr.entropy, tr.cfg
+    starts = entropy.draw_starts(tr.generator)
+    cache = tr._last_ent_cache
+    plain_bits = ent_ops.bernoulli_bits
+    field64, params64 = copy.deepcopy(tr.field).double(), copy.deepcopy(tr.ent_params).double()
+    n_tables = len(rf.TABLES)
+
+    def grads(field, ent_params, keep_of):
+        """Bits, gradients and the p of each bernoulli_bits call, with call
+        i's bits summed over keep_of(i, p)."""
+        seen = []
+        wrt = [field.tables[k] for k in rf.TABLES] + list(ent_params.parameters())
+
+        def bits_kept(x, p):
+            keep = keep_of(len(seen), p.detach())
+            seen.append(p.detach())
+            return torch.where(keep, plain_bits(x, p), 0.0)
+
+        with swapped((ent_ops, "bernoulli_bits", bits_kept)):
+            tables = rf.quantized_tables(field, cfg.model)
+            bits = (entropy.rate_bits_2d(ent_params, tables, starts["2d"], cache)
+                    + entropy.rate_bits_3d(ent_params, tables["xyz"], starts["3d"], cache))
+            got = torch.autograd.grad(bits, wrt, allow_unused=True)
+        return (float(bits.detach()),
+                [torch.zeros_like(w) if g is None else g for w, g in zip(wrt, got)], seen)
+
+    def dist(got, want):
+        """Per gradient (each table, the MLPs as one): [largest |got - want|
+        over largest |want|, norm of got - want over norm of want]."""
+        got, want = [g.double() for g in got], [w.double() for w in want]
+        groups = [(k, [i]) for i, k in enumerate(rf.TABLES)]
+        groups.append(("ctx_mlps", list(range(n_tables, len(want)))))
+        out = {}
+        for name, idx in groups:
+            diff2 = sum(float(((got[i] - want[i]) ** 2).sum()) for i in idx)
+            want2 = sum(float((want[i] ** 2).sum()) for i in idx)
+            out[name] = [max(rel_err(got[i], want[i]) for i in idx),
+                         math.sqrt(diff2 / max(want2, 1e-300))]
+        return out
+
+    twins = ((cops, "segment_pool", cops._segment_pool_plain),
+             (cops, "segment_gather", cops._segment_gather_plain),
+             (cops, "pn_hist", cops._pn_hist_plain),
+             (enc, "_encode", lambda pts, table, res, offs, mask, moffs, ids=None, n_calc=None:
+              enc._encode_plain(pts.detach(), table, res, offs, mask,
+                                None if mask is None else tuple(int(m) for m in moffs),
+                                ids, n_calc)))
+    keep_all = lambda i, p: torch.ones_like(p, dtype=torch.bool)
+    _, _, ps = grads(tr.field, tr.ent_params, keep_all)
+    p_all = torch.cat([p.reshape(-1) for p in ps])
+    at_clamp = float(((p_all <= ent_ops.P_EPS) | (p_all >= 1 - ent_ops.P_EPS)).float().mean())
+    out = {}
+    for band in RATE_GRAD_BANDS:
+        keeps = [(p > band) & (p < 1 - band) for p in ps]
+        keep_of = (lambda i, p: keeps[i]) if band else keep_all
+        left_out = 1.0 - float(torch.cat([k.reshape(-1) for k in keeps]).float().mean())
+        bits_k, g_k, _ = grads(tr.field, tr.ent_params, keep_of)
+        _, g_k2, _ = grads(tr.field, tr.ent_params, keep_of)
+        with swapped(*twins):
+            bits_t, g_t, _ = grads(tr.field, tr.ent_params, keep_of)
+            bits_64, g_64, _ = grads(field64, params64, keep_of)
+        errs = {"kernels against float64": dist(g_k, g_64),
+                "float32 twins against float64": dist(g_t, g_64),
+                "kernels against float32 twins": dist(g_k, g_t),
+                "kernels, second run against first": dist(g_k2, g_k)}
+        out[band] = max(e[1] for e in errs["kernels against float64"].values())
+        log(f"[rate gradient, {label}] band {band:g}: {100 * left_out * bool(band):.3f}% of"
+            f" {p_all.numel()} coded values left out ({100 * at_clamp:.3f}% at or beyond the"
+            f" clamp); bits {bits_k:.1f} through the kernels, {bits_t:.1f} through the twins,"
+            f" {bits_64:.1f} in float64; largest gradient entry"
+            f" {max(float(g.abs().max()) for g in g_64):.4g}; per gradient [max |a - b| over"
+            f" max |b|, norm of a - b over norm of b]: "
+            + json.dumps({k: {n: [float(f"{x:.3g}") for x in e] for n, e in v.items()}
+                          for k, v in errs.items()}))
+        for name, (_, err) in errs["kernels against float64"].items():
+            limit = 2 * errs["float32 twins against float64"][name][1] + RATE_GRAD_TOL
+            if band == RATE_GRAD_BAND and not err <= limit:
+                raise AssertionError(f"[rate gradient, {label}] band {band:g}, {name}: the kernels'"
+                                     f" gradient is {err} of its norm from the float64 twins',"
+                                     f" limit {limit}")
+        del g_k, g_k2, g_t, g_64, keeps
+    return out
+
+
+def fit_and_read(kernels, tr, n_steps, test_set, on_step, tag):
+    """One `tr.fit` to n_steps, the test views read from its step callback at
+    PSNR_READINGS steps (see PSNR_READ_EVERY).  A reading renders with the serving
+    kernels, which are not the training path: the launch counts are put back
+    to what they were before it.  Returns (seconds inside fit less the
+    readings, the reading with the median PSNR, with every reading's PSNR
+    under "readings")."""
+    read_at = {n_steps - 1 - back * PSNR_READ_EVERY for back in range(PSNR_READINGS)}
+    readings, read_s = [], 0.0
+
+    def callback(step, aux):
+        nonlocal read_s
+        on_step(step, aux)
+        if step in read_at:
+            t0 = time.time()
+            counted = dict(kernels.launches)
+            readings.append(tr.evaluate(test_set))
+            kernels.launches.update(counted)
+            read_s += time.time() - t0
+
+    seconds = tr.fit(n_steps - 1, log_every=100, log_fn=lambda m: log(tag + m),
+                     step_callback=callback)
+    if len(readings) != PSNR_READINGS:
+        raise AssertionError(f"{tag}read the test views {len(readings)} times,"
+                             f" not {PSNR_READINGS}")
+    median = sorted(readings, key=lambda r: r["psnr"])[PSNR_READINGS // 2]
+    return seconds - read_s, dict(median, readings=[round(r["psnr"], 3) for r in readings])
+
+
 def profile_view(torch, render, name: str = "profile") -> None:
     """Device busy share and time by operator over one call of `render`."""
-    from pathlib import Path
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -410,8 +944,11 @@ def main() -> int:
     import dataclasses
     from cnc_torch.config import CNCConfig, ModelConfig, RenderConfig, TrainConfig
     from cnc_torch.data import cameras, scenes
+    from cnc_torch.models import context_models as cm
     from cnc_torch.models import radiance_field as rf
+    from cnc_torch.ops import context_ops as cops
     from cnc_torch.ops import encoding as enc
+    from cnc_torch.ops import entropy as ent_ops
     from cnc_torch.ops import scatter_ops
     from cnc_torch.render import marching, renderer, volrend
     from cnc_torch.train.trainer import Trainer
@@ -632,11 +1169,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    t0 = time.time()
-    tr.fit(TRAIN_STEPS - 1, log_every=100, log_fn=lambda m: log("[train] " + m),
-           step_callback=on_step)
-    torch.cuda.synchronize()
-    run_s = time.time() - t0
+    run_s, scores = fit_and_read(kernels, tr, TRAIN_STEPS, test_set, on_step, "[train] ")
     train_launches = dict(kernels.launches)
     n_run = TRAIN_STEPS - TRAIN_WARM_STEPS
     training = ("grid_encode", "grid_encode_bwd", "compact", "march", "volrend", "volrend_bwd")
@@ -646,7 +1179,8 @@ def main() -> int:
         raise AssertionError(f"[train] a kernel was not launched every step: {train_launches}")
     loss_start = statistics.mean(h[1] for h in history[:10])
     loss_end = statistics.mean(h[1] for h in history[-10:])
-    last = history[-101:]
+    before_readings = (PSNR_READINGS - 1) * PSNR_READ_EVERY
+    last = history[-101 - before_readings:-before_readings]   # no reading inside
     ms_step = (last[-1][0] - last[0][0]) / 100 * 1e3
     marched = statistics.mean(h[3] for h in last[1:])
     if not (loss_end < loss_start and all(math.isfinite(h[1]) for h in history)):
@@ -654,20 +1188,26 @@ def main() -> int:
     if not marched >= 0.8 * cfg.train.target_sample_batch_size:
         raise AssertionError(f"[train] the ray controller did not reach its target: {marched}"
                              f" samples marched per step")
-    scores = tr.evaluate(test_set)
     log(f"[train] {n_run} steps in {run_s:.2f} s ({n_run / run_s:.2f} steps/s over the whole"
-        f" run, occupancy updates included); last 100 steps {ms_step:.2f} ms per step,"
+        f" run, occupancy updates included); steps {TRAIN_STEPS - 100 - before_readings} to"
+        f" {TRAIN_STEPS - before_readings} {ms_step:.2f} ms per step,"
         f" {marched:.0f} samples marched, {statistics.mean(h[2] for h in last[1:]):.0f} visible"
         f" and {statistics.mean(h[4] for h in last[1:]):.0f} rays per step;"
         f" loss {loss_start:.5f} -> {loss_end:.5f}; test views psnr {scores['psnr']:.3f}"
-        f" ssim {scores['ssim']:.4f} (floor {TRAIN_PSNR_MIN});"
+        f" ssim {scores['ssim']:.4f} (the median of {scores['readings']}; floor"
+        f" {TRAIN_PSNR_MIN});"
         f" occupancy {int(tr.occ_state.binaries.sum())} cells;"
         f" launches over the run {json.dumps(train_launches)}")
+    Path("chiprun_out").mkdir(exist_ok=True)
+    (Path("chiprun_out") / "train_history.json").write_text(json.dumps(
+        {"columns": ["host_s", "mse", "visible", "n_marched", "num_rays"],
+         "steps": [[h[0] - history[0][0]] + list(h[1:]) for h in history],
+         "test_psnr": scores["readings"], "test_psnr_every": PSNR_READ_EVERY}))
     if not scores["psnr"] > TRAIN_PSNR_MIN:
         raise AssertionError(f"[train] test psnr {scores['psnr']} <= {TRAIN_PSNR_MIN}")
 
     def one_step():
-        batch, pixels = train_set.fetch_rays(tr.generator, last[-1][4])
+        batch, pixels = train_set.fetch_rays(tr.generator, history[-1][4])
         tr._train_step(batch.origins, batch.viewdirs, pixels, bkgd)
 
     one_step()
@@ -687,8 +1227,136 @@ def main() -> int:
         f" ssim {float(metrics.ssim(rgb_t, gt)):.4f}; the random-weights view above:"
         f" {view_s * 1e3:.1f} ms, {stats['rounds']} rounds, {n_samples} samples")
 
-    # ---- 9. report: `launches` is the count over the path named beside it
-    # (one view, the training run of `steps` steps, or the probe's one drive)
+    # ---- 9. the rate path at full width: the model build and the lambda > 0 run
+    rate_cfg = CNCConfig()
+    if not rate_cfg.train.lmbda > 0:
+        raise AssertionError("[rate] the default configuration has no rate term")
+    torch.cuda.synchronize()
+    kernels.reset_launches()        # the rate path starts here
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    entropy = cm.ContextModels(rate_cfg.entropy, rate_cfg.model.grid_3d, rate_cfg.model.grid_2d)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    log(f"[K10] ContextModels built in {build_s:.2f} s; peak device memory"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, tables hold"
+        f" {(torch.cuda.memory_allocated() - mem_before) / 2**30:.2f} GiB;"
+        f" launches {kernels.launches['vertex_tables']} (compaction {kernels.launches['compact']});"
+        f" 3D entries " + json.dumps({l: t.n_entries for l, t in entropy.tables3d.items()})
+        + " sample_n " + json.dumps({l: t.sample_n for l, t in entropy.tables3d.items()})
+        + " max_win_pts " + json.dumps({l: t.max_win_pts for l, t in entropy.tables3d.items()})
+        + "; 2D entries " + json.dumps({l: t.n_entries for l, t in entropy.tables2d.items()})
+        + " max_win_pts " + json.dumps({l: t.max_win_pts for l, t in entropy.tables2d.items()}))
+    counted_so_far = dict(kernels.launches)
+    records["vertex_tables"] = check_vertex_tables(torch, cops, entropy, dev)
+    kernels.launches.update(counted_so_far)     # comparison launches do not count
+    torch.cuda.reset_peak_memory_stats()
+
+    trr = Trainer(rate_cfg, train_set, entropy=entropy)
+    rate_hist = []     # (host seconds, mse, bits_per_param, ctx_util, marched, rays)
+
+    def on_rate_step(step, aux):
+        rate_hist.append((time.time(), float(aux["mse"]), float(aux["bits_per_param"]),
+                          float(aux["ctx_util"]), aux["n_marched"], aux["num_rays"]))
+
+    trr.fit(RATE_WARM_STEPS - 1, log_every=0, step_callback=on_rate_step)
+    torch.cuda.synchronize()
+    log(f"[rate] {RATE_WARM_STEPS} steps done; peak device memory after the first rate steps"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counted_so_far = dict(kernels.launches)
+    occ_grid = tr.occ_state.binaries        # the grid the lambda = 0 run ended with
+    records["footprint"] = check_footprint(torch, cops, entropy, occ_grid)
+    n_fp = kernels.launches["footprint"]
+    entropy.refresh_cache(occ_grid)
+    n_fp = kernels.launches["footprint"] - n_fp
+    refresh_ms = time_ms(lambda: entropy.refresh_cache(occ_grid), iters=3, warmup=1)
+    log(f"[K8] refresh_cache on the trained occupancy grid ({int(occ_grid.sum())} cells):"
+        f" {refresh_ms:.2f} ms for {n_fp} footprint launches and the pn coord lists (a"
+        f" compaction and three stable sorts of {rate_cfg.entropy.pn_coords_cap} rows)")
+    records.update(check_rate_kernels(torch, trr, rf, cops, enc, gen))
+    check_rate_gradient(torch, trr, rf, cops, enc, ent_ops, f"step {RATE_WARM_STEPS}")
+    kernels.launches.update(counted_so_far)     # comparison launches do not count
+
+    rate_s, rate_scores = fit_and_read(kernels, trr, RATE_STEPS, test_set, on_rate_step, "[rate] ")
+    rate_launches = dict(kernels.launches)
+    n_rate = RATE_STEPS - RATE_WARM_STEPS
+    rate_kernels = ("vertex_tables", "footprint", "segment_pool", "segment_pool_bwd", "pn_hist",
+                    "grid_encode_v", "grid_encode_v_bwd", "compact", "grid_encode",
+                    "grid_encode_bwd", "march", "volrend", "volrend_bwd")
+    if trr.step != RATE_STEPS or len(rate_hist) != RATE_STEPS:
+        raise AssertionError(f"[rate] ran {trr.step} steps, not {RATE_STEPS}")
+    if not all(rate_launches[k] > 0 for k in rate_kernels):
+        raise AssertionError(f"[rate] a kernel of the rate path was not launched: {rate_launches}")
+    per_step = {k: (rate_launches[k] - counted_so_far[k]) / n_rate for k in rate_kernels}
+    # the table build runs once and the footprints once per refresh; every
+    # other kernel of the path runs in each step
+    if not all(per_step[k] >= 1 for k in rate_kernels if k not in ("vertex_tables", "footprint")):
+        raise AssertionError(f"[rate] a kernel was not launched every step: {per_step}")
+    bpp16 = rate_hist[RATE_WARM_STEPS][2]
+    bpp_end = statistics.mean(h[2] for h in rate_hist[-10:])
+    if not (all(math.isfinite(h[1]) and math.isfinite(h[2]) for h in rate_hist)
+            and bpp_end < bpp16):
+        raise AssertionError(f"[rate] bits_per_param did not fall: {bpp16} at step"
+                             f" {RATE_WARM_STEPS} -> {bpp_end}")
+    last_r = rate_hist[-101 - before_readings:-before_readings]   # no reading inside
+    ms_rate_step = (last_r[-1][0] - last_r[0][0]) / 100 * 1e3
+    log(f"[rate] {n_rate} steps in {rate_s:.2f} s ({n_rate / rate_s:.2f} steps/s, occupancy"
+        f" updates and cache refreshes included); steps {RATE_STEPS - 100 - before_readings} to"
+        f" {RATE_STEPS - before_readings} {ms_rate_step:.2f} ms per step"
+        f" (lambda = 0 above: {ms_step:.2f} ms), {statistics.mean(h[4] for h in last_r[1:]):.0f}"
+        f" samples marched and {statistics.mean(h[5] for h in last_r[1:]):.0f} rays per step;"
+        f" bits_per_param {rate_hist[0][2]:.4f} at step 0, {bpp16:.4f} at step"
+        f" {RATE_WARM_STEPS}, {bpp_end:.4f} at the end"
+        f" ({bpp_end * entropy.total_param_count / 8 / 2**20:.3f} MB);"
+        f" ctx_util {statistics.mean(h[3] for h in last_r):.3f} (max"
+        f" {max(h[3] for h in rate_hist):.3f});"
+        f" mse {statistics.mean(h[1] for h in rate_hist[:10]):.5f}"
+        f" -> {statistics.mean(h[1] for h in rate_hist[-10:]):.5f}; test views psnr"
+        f" {rate_scores['psnr']:.3f} ssim {rate_scores['ssim']:.4f} (the median of"
+        f" {rate_scores['readings']}; floor {RATE_PSNR_MIN};"
+        f" lambda = 0 above: {scores['psnr']:.3f});"
+        f" launches per step after step {RATE_WARM_STEPS}: "
+        + json.dumps({k: round(v, 3) for k, v in per_step.items()})
+        + f"; launches over the path {json.dumps(rate_launches)}")
+    (Path("chiprun_out") / "rate_history.json").write_text(json.dumps(
+        {"columns": ["host_s", "mse", "bits_per_param", "ctx_util", "n_marched", "num_rays"],
+         "steps": [[h[0] - rate_hist[0][0]] + list(h[1:]) for h in rate_hist]}))
+    if not rate_scores["psnr"] > RATE_PSNR_MIN:
+        raise AssertionError(f"[rate] test psnr {rate_scores['psnr']} <= {RATE_PSNR_MIN}")
+
+    check_rate_gradient(torch, trr, rf, cops, enc, ent_ops, f"step {RATE_STEPS}")
+
+    def one_rate_step():
+        batch, pixels = train_set.fetch_rays(trr.generator, rate_hist[-1][5])
+        trr._train_step(batch.origins, batch.viewdirs, pixels, bkgd,
+                        ent_cache=trr._last_ent_cache)
+
+    one_rate_step()
+    profile_view(torch, one_rate_step, "profile_rate")
+
+    # the sign histogram's backward kernel: three steps with pn_frac_grad on
+    entropy_pn = copy.copy(entropy)
+    entropy_pn.cfg = dataclasses.replace(entropy.cfg, pn_frac_grad=True)
+    tr_pn = Trainer(dataclasses.replace(rate_cfg, entropy=entropy_pn.cfg), train_set,
+                    entropy=entropy_pn)
+    kernels.reset_launches()
+    pn_bits = []
+    tr_pn.fit(2, log_every=0, step_callback=lambda s, aux: pn_bits.append(
+        float(aux["bits_per_param"])))
+    torch.cuda.synchronize()
+    pn_launches = dict(kernels.launches)
+    log(f"[rate, pn_frac_grad] 3 steps, bits_per_param {pn_bits}; launches"
+        f" pn_hist {pn_launches['pn_hist']} pn_hist_bwd {pn_launches['pn_hist_bwd']}")
+    if not (pn_launches["pn_hist_bwd"] > 0 and all(math.isfinite(b) for b in pn_bits)):
+        raise AssertionError(f"[rate, pn_frac_grad] the backward kernel did not launch:"
+                             f" {pn_launches}")
+    del tr_pn, entropy_pn
+
+    # ---- 10. report: `launches` is the count over the path named beside it
+    # (one view, the lambda = 0 training run, the probe's one drive, the rate
+    # path from the model's build to the run's last step, or the three
+    # pn_frac_grad steps)
     meta = {
         "grid_encode": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:104", "view"),
         "grid_encode_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "train"),
@@ -698,14 +1366,24 @@ def main() -> int:
         "volrend_bwd": ("volrend.cu", "cnc_tpu/render/volrend.py:43", "train"),
         "scatter_add": ("scatter_add.cu", "tools/pallas_probe.py:113", "probe"),
         "lane_gather": ("probe.cu", "tools/pallas_probe.py:79", "probe"),
+        "grid_encode_v": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:211", "rate"),
+        "grid_encode_v_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "rate"),
+        "segment_pool": ("segment_pool.cu", "cnc_tpu/models/context_models.py:123", "rate"),
+        "segment_pool_bwd": ("segment_pool.cu", "cnc_tpu/models/context_models.py:123", "rate"),
+        "pn_hist": ("pn_hist.cu", "cnc_tpu/models/context_models.py:783", "rate"),
+        "pn_hist_bwd": ("pn_hist.cu", "cnc_tpu/models/context_models.py:62", "rate_pn_grad"),
+        "footprint": ("footprint.cu", "cnc_tpu/models/context_models.py:1415", "rate"),
+        "vertex_tables": ("vertex_tables.cu", "cnc_tpu/models/context_models.py:269", "rate"),
     }
-    counted = {"view": launches, "train": train_launches, "probe": probe_launches}
+    counted = {"view": launches, "train": train_launches, "probe": probe_launches,
+               "rate": rate_launches, "rate_pn_grad": pn_launches}
     out = []
     for name, (source, replaces, path) in meta.items():
         r = records[name]
         out.append(dict(name=name, route="cuda", source="cnc_torch/csrc/" + source,
                         replaces=replaces, launches=counted[path][name], path=path,
                         train_launches=train_launches[name], train_steps=n_run,
+                        rate_launches=rate_launches[name], rate_steps=RATE_STEPS,
                         max_abs_err=r["max_abs_err"], ms=r["ms"],
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"]))

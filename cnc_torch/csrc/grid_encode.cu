@@ -1,8 +1,10 @@
 // K1 and K2: multiresolution hash-grid encode, forward and backward.
 //
 // Replaces (cnc_tpu, the XLA composition of one encode call):
-//   ops/encoding.py  _level_setup (145-152), _corner_setup (52-101, without
-//                    the occupancy masks), _gather_levels (104-142)
+//   ops/encoding.py  _level_setup (145-152), _corner_setup (52-101, with the
+//                    flat occ_mask of 90-94, without the summed-area one),
+//                    _gather_levels (104-142), grid_encode_diff_levels
+//                    (211-247), grid_encode_given_table (250-270)
 //   ops/scatter_ops.py grouped_gather_interp forward (56-96)
 //   ops/hash_ops.py  grid_index (67-102)
 // Plain twin: cnc_torch/ops/encoding.py `_encode_plain`.
@@ -13,6 +15,14 @@
 // masked to the level size; the weighted row sum over surviving corners is
 // divided by the surviving weight (1e-9 when none survive); points outside
 // [0,1] give zeros.  Output [N, L*F] f32, level-major.
+//
+// Variants for the rate estimate (K1v, and K2v in the backward), all in the
+// same kernels: with `mask`, a corner is also dropped when the bool at
+// mask_off[level] + flat(corner) is false, flat = (cc0*R + cc1)*R + cc2 with
+// the LAST axis fastest (the mask grids' order, not the table's); with
+// `min_ids`, thread (point, j) takes level clamp(min_ids[point] + j, 0, L-1)
+// of the L levels described, for j < n_out; a caller's dense plane is one
+// static level whose size is its row count.
 //
 // Bound on the H100: random reads of one table row per corner (16 B at F=4),
 // 2^D rows per (point, level).  The three 2D planes (5.5 MB each) stay in the
@@ -58,6 +68,7 @@ struct Levels {
   int res[kMaxLevels];
   int offset[kMaxLevels];
   int size[kMaxLevels];
+  long long mask_off[kMaxLevels];
 };
 
 template <int D>
@@ -105,6 +116,7 @@ struct LevelCell {
   uint32_t size;
   long long offset;
   bool dense;
+  const unsigned char* mask;  // this level's corner mask grid, or null
 };
 
 // Loads point p; false when it lies outside [0,1]^D (NaN counts as outside).
@@ -119,8 +131,10 @@ __device__ __forceinline__ bool load_point(const float* __restrict__ points, int
 }
 
 template <int D>
-__device__ __forceinline__ LevelCell<D> level_cell(const float* x, const Levels& lv, int l) {
+__device__ __forceinline__ LevelCell<D> level_cell(const float* x, const Levels& lv, int l,
+                                                   const unsigned char* mask) {
   LevelCell<D> c;
+  c.mask = mask ? mask + lv.mask_off[l] : nullptr;
   c.res = lv.res[l];
   c.size = static_cast<uint32_t>(lv.size[l]);
   c.offset = lv.offset[l];
@@ -138,7 +152,8 @@ __device__ __forceinline__ LevelCell<D> level_cell(const float* x, const Levels&
 }
 
 // Corner k of the cell: its D-linear weight and global table row; false when
-// the corner lies on the border (coordinate 0 or R-1) and is dropped.
+// the corner lies on the border (coordinate 0 or R-1), or its mask bit is
+// unset, and is dropped.
 template <int D>
 __device__ __forceinline__ bool cell_corner(const LevelCell<D>& c, int k, float* w,
                                             long long* row) {
@@ -154,27 +169,42 @@ __device__ __forceinline__ bool cell_corner(const LevelCell<D>& c, int k, float*
     cc[ax] = static_cast<uint32_t>(v);
   }
   *w = wk;
+  if (valid && c.mask) {
+    long long flat = cc[0];
+#pragma unroll
+    for (int ax = 1; ax < D; ++ax) flat = flat * c.res + cc[ax];
+    valid = c.mask[flat] != 0;
+  }
   if (valid) *row = c.offset + grid_index<D>(cc, static_cast<uint32_t>(c.res), c.size, c.dense);
   return valid;
+}
+
+// The level thread (p, j) works on: j itself, or with per-point first levels
+// clamp(min_ids[p] + j, 0, n_levels - 1).
+__device__ __forceinline__ int level_of(const int* __restrict__ min_ids, int p, int j,
+                                        int n_levels) {
+  return min_ids ? min(max(min_ids[p] + j, 0), n_levels - 1) : j;
 }
 
 template <int D, int F>
 __global__ void grid_encode_forward_kernel(const float* __restrict__ points,
                                            const float* __restrict__ table,
-                                           float* __restrict__ out, int n, int n_levels,
-                                           Levels lv) {
+                                           float* __restrict__ out, int n, int n_out,
+                                           int n_levels, Levels lv,
+                                           const unsigned char* __restrict__ mask,
+                                           const int* __restrict__ min_ids) {
   long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(n) * n_levels) return;
-  const int p = static_cast<int>(t / n_levels);
-  const int l = static_cast<int>(t % n_levels);
-  float* o = out + (static_cast<long long>(p) * n_levels + l) * F;
+  if (t >= static_cast<long long>(n) * n_out) return;
+  const int p = static_cast<int>(t / n_out);
+  const int j = static_cast<int>(t % n_out);
+  float* o = out + t * F;
 
   float x[D];
   if (!load_point<D>(points, p, x)) {
     for (int f = 0; f < F; ++f) o[f] = 0.f;
     return;
   }
-  const LevelCell<D> cell = level_cell<D>(x, lv, l);
+  const LevelCell<D> cell = level_cell<D>(x, lv, level_of(min_ids, p, j, n_levels), mask);
 
   float acc[F];
   for (int f = 0; f < F; ++f) acc[f] = 0.f;
@@ -209,16 +239,18 @@ __device__ __forceinline__ void atomic_add_row(float* __restrict__ table, long l
 template <int D, int F>
 __global__ void grid_encode_backward_kernel(const float* __restrict__ points,
                                             const float* __restrict__ grad,
-                                            float* __restrict__ d_table, int n, int n_levels,
-                                            Levels lv) {
+                                            float* __restrict__ d_table, int n, int n_out,
+                                            int n_levels, Levels lv,
+                                            const unsigned char* __restrict__ mask,
+                                            const int* __restrict__ min_ids) {
   long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(n) * n_levels) return;
-  const int p = static_cast<int>(t / n_levels);
-  const int l = static_cast<int>(t % n_levels);
+  if (t >= static_cast<long long>(n) * n_out) return;
+  const int p = static_cast<int>(t / n_out);
+  const int j = static_cast<int>(t % n_out);
 
   float x[D];
   if (!load_point<D>(points, p, x)) return;
-  const LevelCell<D> cell = level_cell<D>(x, lv, l);
+  const LevelCell<D> cell = level_cell<D>(x, lv, level_of(min_ids, p, j, n_levels), mask);
 
   float wsum = 0.f;
 #pragma unroll
@@ -229,9 +261,16 @@ __global__ void grid_encode_backward_kernel(const float* __restrict__ points,
   }
   if (wsum == 0.f) return;  // no corner survived, or all weights are zero
 
-  const float* g = grad + (static_cast<long long>(p) * n_levels + l) * F;
+  // a zero gradient adds nothing: skip its atomics (the padding rows of a
+  // compacted batch all sit on one vertex and would queue on its rows)
+  const float* g = grad + t * F;
   float gs[F];
-  for (int f = 0; f < F; ++f) gs[f] = g[f] / wsum;
+  bool any = false;
+  for (int f = 0; f < F; ++f) {
+    any |= g[f] != 0.f;
+    gs[f] = g[f] / wsum;
+  }
+  if (!any) return;
 #pragma unroll
   for (int c = 0; c < (1 << D); ++c) {
     float w;
@@ -244,37 +283,40 @@ __global__ void grid_encode_backward_kernel(const float* __restrict__ points,
 }
 
 template <int D>
-int launch_b(const float* points, const float* grad, float* d_table, int n, int f,
-             int n_levels, const Levels& lv, cudaStream_t stream) {
+int launch_b(const float* points, const float* grad, float* d_table, int n, int f, int n_out,
+             int n_levels, const Levels& lv, const unsigned char* mask, const int* min_ids,
+             cudaStream_t stream) {
   const int threads = 256;
-  const unsigned blocks = cnc_blocks(static_cast<long long>(n) * n_levels, threads);
+  const unsigned blocks = cnc_blocks(static_cast<long long>(n) * n_out, threads);
   switch (f) {
-    case 2: grid_encode_backward_kernel<D, 2><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_levels, lv); break;
-    case 4: grid_encode_backward_kernel<D, 4><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_levels, lv); break;
+    case 2: grid_encode_backward_kernel<D, 2><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_out, n_levels, lv, mask, min_ids); break;
+    case 4: grid_encode_backward_kernel<D, 4><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_out, n_levels, lv, mask, min_ids); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return cnc_last_error();
 }
 
-bool fill_levels(Levels* lv, int n_levels, const int* res, const int* offsets,
-                 const int* sizes) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return false;
+bool fill_levels(Levels* lv, int n_out, int n_levels, const int* res, const int* offsets,
+                 const int* sizes, const long long* mask_offs) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n_out < 1 || n_out > n_levels) return false;
   for (int l = 0; l < n_levels; ++l) {
     lv->res[l] = res[l];
     lv->offset[l] = offsets[l];
     lv->size[l] = sizes[l];
+    lv->mask_off[l] = mask_offs[l];
   }
   return true;
 }
 
 template <int D>
-int launch_f(const float* points, const float* table, float* out, int n, int f,
-             int n_levels, const Levels& lv, cudaStream_t stream) {
+int launch_f(const float* points, const float* table, float* out, int n, int f, int n_out,
+             int n_levels, const Levels& lv, const unsigned char* mask, const int* min_ids,
+             cudaStream_t stream) {
   const int threads = 256;
-  const unsigned blocks = cnc_blocks(static_cast<long long>(n) * n_levels, threads);
+  const unsigned blocks = cnc_blocks(static_cast<long long>(n) * n_out, threads);
   switch (f) {
-    case 2: grid_encode_forward_kernel<D, 2><<<blocks, threads, 0, stream>>>(points, table, out, n, n_levels, lv); break;
-    case 4: grid_encode_forward_kernel<D, 4><<<blocks, threads, 0, stream>>>(points, table, out, n, n_levels, lv); break;
+    case 2: grid_encode_forward_kernel<D, 2><<<blocks, threads, 0, stream>>>(points, table, out, n, n_out, n_levels, lv, mask, min_ids); break;
+    case 4: grid_encode_forward_kernel<D, 4><<<blocks, threads, 0, stream>>>(points, table, out, n, n_out, n_levels, lv, mask, min_ids); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return cnc_last_error();
@@ -282,34 +324,43 @@ int launch_f(const float* points, const float* table, float* out, int n, int f,
 
 }  // namespace
 
-// points [n, d] f32, table [rows, f] f32, out [n, n_levels*f] f32, all
-// contiguous on the device.  res/offsets/sizes are host arrays of n_levels
-// ints; the wrapper has checked offsets[l] + sizes[l] <= rows.
+// points [n, d] f32, table [rows, f] f32, out [n, n_out*f] f32, all
+// contiguous on the device.  res/offsets/sizes/mask_offs are host arrays of
+// n_levels entries; the wrapper has checked offsets[l] + sizes[l] <= rows and
+// that each level's mask grid lies inside `mask`.  mask (bool bytes) and
+// min_ids (int32 [n]) are device pointers or null; without min_ids,
+// n_out == n_levels.
 CNC_EXPORT int cnc_grid_encode_forward(const float* points, const float* table, float* out,
-                                       int n, int d, int f, int n_levels, const int* res,
-                                       const int* offsets, const int* sizes, void* stream) {
+                                       int n, int d, int f, int n_out, int n_levels,
+                                       const int* res, const int* offsets, const int* sizes,
+                                       const unsigned char* mask, const long long* mask_offs,
+                                       const int* min_ids, void* stream) {
   Levels lv;
-  if (!fill_levels(&lv, n_levels, res, offsets, sizes))
+  if (!fill_levels(&lv, n_out, n_levels, res, offsets, sizes, mask_offs) ||
+      (!min_ids && n_out != n_levels))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 2) return launch_f<2>(points, table, out, n, f, n_levels, lv, s);
-  if (d == 3) return launch_f<3>(points, table, out, n, f, n_levels, lv, s);
+  if (d == 2) return launch_f<2>(points, table, out, n, f, n_out, n_levels, lv, mask, min_ids, s);
+  if (d == 3) return launch_f<3>(points, table, out, n, f, n_out, n_levels, lv, mask, min_ids, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2.  points [n, d] f32, grad [n, n_levels*f] f32, d_table [rows, f] f32
-// zeroed by the caller and 4*f-byte aligned; levels as in the forward.  Adds
-// every point's share of grad into d_table.
+// K2.  points [n, d] f32, grad [n, n_out*f] f32, d_table [rows, f] f32
+// zeroed by the caller and 4*f-byte aligned; levels, mask and min_ids as in
+// the forward.  Adds every point's share of grad into d_table.
 CNC_EXPORT int cnc_grid_encode_backward(const float* points, const float* grad, float* d_table,
-                                        int n, int d, int f, int n_levels, const int* res,
-                                        const int* offsets, const int* sizes, void* stream) {
+                                        int n, int d, int f, int n_out, int n_levels,
+                                        const int* res, const int* offsets, const int* sizes,
+                                        const unsigned char* mask, const long long* mask_offs,
+                                        const int* min_ids, void* stream) {
   Levels lv;
-  if (!fill_levels(&lv, n_levels, res, offsets, sizes))
+  if (!fill_levels(&lv, n_out, n_levels, res, offsets, sizes, mask_offs) ||
+      (!min_ids && n_out != n_levels))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 2) return launch_b<2>(points, grad, d_table, n, f, n_levels, lv, s);
-  if (d == 3) return launch_b<3>(points, grad, d_table, n, f, n_levels, lv, s);
+  if (d == 2) return launch_b<2>(points, grad, d_table, n, f, n_out, n_levels, lv, mask, min_ids, s);
+  if (d == 3) return launch_b<3>(points, grad, d_table, n, f, n_out, n_levels, lv, mask, min_ids, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

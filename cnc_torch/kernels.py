@@ -32,15 +32,22 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # march.cu must round every float op as the plain twin does (see its header)
 SOURCE_FLAGS = {"march.cu": ("-fmad=false",)}
 
+# grid_encode_v / grid_encode_v_bwd: launches of the encode kernels in their
+# masked or mixed-level variants (the rate estimate's), counted apart from the
+# plain ones; vertex_tables: every launch of csrc/vertex_tables.cu
 launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
-            "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0}
+            "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
+            "grid_encode_v_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0, "pn_hist": 0,
+            "pn_hist_bwd": 0, "footprint": 0, "vertex_tables": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # host int arrays
+_LP = ctypes.POINTER(ctypes.c_longlong)
+_ENCODE = (_P, _P, _P, _I, _I, _I, _I, _I, _IP, _IP, _IP, _P, _LP, _P, _P)
 _SIGNATURES = {
     "cnc_cuda_error_string": ((_I,), ctypes.c_char_p),
-    "cnc_grid_encode_forward": ((_P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _P), _I),
-    "cnc_grid_encode_backward": ((_P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _P), _I),
+    "cnc_grid_encode_forward": (_ENCODE, _I),
+    "cnc_grid_encode_backward": (_ENCODE, _I),
     "cnc_compact_scratch": ((_LL,), _I),
     "cnc_compact_mask": ((_P, _LL, _I, _P, _P, _P, _P), _I),
     "cnc_march_coarse": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P,
@@ -54,6 +61,15 @@ _SIGNATURES = {
                               _P), _I),
     "cnc_scatter_add": ((_P, _P, _P, _LL, _I, _I, _P), _I),
     "cnc_lane_gather": ((_P, _P, _P, _I, _I, _LL, _P), _I),
+    "cnc_segment_pool": ((_P, _P, _P, _P, _LL, _I, _I, _P), _I),
+    "cnc_segment_pool_backward": ((_P, _P, _P, _P, _LL, _I, _I, _P), _I),
+    "cnc_pn_hist": ((_P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "cnc_pn_hist_backward": ((_P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "cnc_footprint": ((_P, _I, _I, _I, _P, _P, _P, _P, _P), _I),
+    "cnc_vertex_keys": ((_P, _LL, _I, _I, _I, _I, _I, _P, _P), _I),
+    "cnc_vertex_heads": ((_P, _LL, _P, _P), _I),
+    "cnc_vertex_fill": ((_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P), _I),
+    "cnc_dense_level": ((_P, _I, _I, _P, _P, _P, _P, _P), _I),
 }
 
 _lib = None

@@ -32,10 +32,13 @@ def fast_hash(pos_grid: torch.Tensor) -> torch.Tensor:
     return result
 
 
-def dense_index(pos_grid: torch.Tensor, resolution: int) -> torch.Tensor:
-    """Row-major index x + y*R + z*R^2 (gridencoder.cu:72-77), uint32-wrapped."""
+def dense_index(pos_grid: torch.Tensor, resolution) -> torch.Tensor:
+    """Row-major index x + y*R + z*R^2 (gridencoder.cu:72-77), uint32-wrapped.
+    `resolution` is an int or a per-point integer tensor (mixed levels)."""
     pg = pos_grid.to(torch.int64) & _U32
     idx = torch.zeros(pg.shape[:-1], dtype=torch.int64, device=pg.device)
+    if isinstance(resolution, torch.Tensor):
+        resolution = resolution.to(torch.int64)
     stride = 1
     for i in range(pg.shape[-1]):
         idx = (idx + pg[..., i] * stride) & _U32
@@ -43,15 +46,22 @@ def dense_index(pos_grid: torch.Tensor, resolution: int) -> torch.Tensor:
     return idx
 
 
-def grid_index(pos_grid: torch.Tensor, resolution: int, hashmap_size: int) -> torch.Tensor:
+def grid_index(pos_grid: torch.Tensor, resolution, hashmap_size) -> torch.Tensor:
     """Level-local entry index for lattice coords (gridencoder.cu:61-87).
 
     Dense row-major indexing when resolution**D <= hashmap_size, spatial hash
     otherwise, taken mod hashmap_size (a bit mask for power-of-two sizes).
-    Returns int64 in [0, hashmap_size).  The per-point (mixed-level) form of
-    `cnc_tpu`'s `grid_index` is not needed until `grid_encode_diff_levels`.
+    Returns int64 in [0, hashmap_size).  `resolution` and `hashmap_size` are
+    ints, or per-point integer tensors (mixed levels); the per-point form
+    masks the hash with `size - 1`, as cnc_tpu's does: hashed levels always
+    have power-of-two tables (GridSpec.level_sizes).
     """
     d = pos_grid.shape[-1]
+    if isinstance(resolution, torch.Tensor) or isinstance(hashmap_size, torch.Tensor):
+        res = torch.as_tensor(resolution, device=pos_grid.device).to(torch.int64)
+        size = torch.as_tensor(hashmap_size, device=pos_grid.device).to(torch.int64)
+        masked = fast_hash(pos_grid) & (size - 1)
+        return torch.where(res ** d <= size, dense_index(pos_grid, res), masked)
     if resolution ** d <= hashmap_size:
         # dense index < R**D <= hashmap_size: the final modulus is an identity
         return dense_index(pos_grid, resolution)

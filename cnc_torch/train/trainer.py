@@ -1,20 +1,23 @@
-"""Render-only training (the λ = 0 path).
+"""End-to-end training orchestration.
 
 Port of `cnc_tpu/train/trainer.py`, the host loop of the reference training
 script's hot loop (train_CNC_nerf_synthetic.py:302-366): per step the
-occupancy EMA update every 16 steps, a random ray batch, the budgeted render, MSE, Adam,
-and dynamic ray batching toward 2^18 samples per step.  The rate terms
-(entropy model, λ > 0) and checkpoints are not ported yet and raise.
+occupancy EMA update every 16 steps, a random ray batch, the budgeted render,
+MSE (+ lambda * bits_per_param once an entropy model is attached), two Adam
+optimizers, and dynamic ray batching toward 2^18 samples per step.
+Checkpoints are not ported yet and raise.
 
 What differs from cnc_tpu is XLA mechanics, not semantics: there are no jit
-caches, no mesh and no `warm_compile`; PyTorch runs the step eagerly, the
-gradient through `loss.backward()` (the encode and composite backward
-kernels on the card).  The ray count still moves in power-of-two buckets, so
-both packages take the same batch sizes.
+caches, no mesh and no `warm_compile`; PyTorch runs the step eagerly.  One
+backward over `mse + scale * (bits2d + bits3d)` takes the place of cnc_tpu's
+three separately compiled gradients (the split was for the TPU compiler; the
+sum is the same).  The ray count still moves in power-of-two buckets, so both
+packages take the same batch sizes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Dict, Optional
@@ -48,33 +51,55 @@ class Trainer:
     with `seed`, so they do not depend on the device; the training draws
     (ray batches, jitter, occupancy candidates) come from `self.generator`,
     which lives on the device.
+
+    `entropy` is a `models.context_models.ContextModels` on the same device;
+    with it and `cfg.train.lmbda > 0` the step adds the rate terms and trains
+    the context MLPs (`self.ent_params`) with their own Adam.
     """
 
     def __init__(self, cfg: CNCConfig, dataset, entropy=None, seed: Optional[int] = None,
                  device=None):
-        if entropy is not None:
-            raise NotImplementedError("the entropy model and the rate terms (lmbda > 0) come "
-                                      "with port slice 3, the rate estimate")
         if cfg.train.checkpoint_path:
             raise NotImplementedError("checkpoint save/resume (train.checkpoint_path) comes "
                                       "with port slice 5, the full pipeline")
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(device)
+        self.entropy = entropy
+        if entropy is not None and entropy.device != self.device:
+            raise ValueError(f"the entropy model lives on {entropy.device}, the trainer on "
+                             f"{self.device}")
         self.aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=self.device)
         self.reset_state(seed=seed)
 
     # ---------------------------------------------------------------- reset
-    def reset_state(self, seed: Optional[int] = None):
-        """Reinitialize all training state (field, optimizer, occupancy grid,
-        generator, step counter); matches a fresh Trainer(cfg, dataset)."""
+    def reset_state(self, lmbda: Optional[float] = None,
+                    rate_update_interval: Optional[int] = None, seed: Optional[int] = None):
+        """Reinitialize all training state (field, context MLPs, optimizers,
+        occupancy grid, generator, step counter), optionally with another
+        lmbda or rate_update_interval (an in-process rate-distortion sweep);
+        matches a fresh Trainer(cfg', dataset, entropy)."""
+        tr = self.cfg.train
+        if lmbda is not None or rate_update_interval is not None:
+            tr = dataclasses.replace(
+                tr, lmbda=tr.lmbda if lmbda is None else lmbda,
+                rate_update_interval=(tr.rate_update_interval if rate_update_interval is None
+                                      else rate_update_interval))
+            self.cfg = dataclasses.replace(self.cfg, train=tr)
         cfg = self.cfg
         seed = cfg.train.seed if seed is None else seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.field = rf.RadianceField(cfg.model, torch.Generator().manual_seed(seed),
-                                      device=self.device)
+        init_gen = torch.Generator().manual_seed(seed)
+        self.field = rf.RadianceField(cfg.model, init_gen, device=self.device)
         self.optimizer, self.scheduler = optim.make_optimizer(
             self.field.parameters(), cfg.train, cfg.train.weight_decay)
+        if self.entropy is not None:
+            self.ent_params = self.entropy.init_params(init_gen)
+            self.opt_ent, self.sched_ent = optim.make_optimizer(self.ent_params.parameters(),
+                                                                cfg.train)
+        else:
+            self.ent_params = self.opt_ent = self.sched_ent = None
+        self._last_ent_cache = None
         self.occ_state = occ.init_occ_grid(self.aabb, cfg.render.occ_resolution,
                                            device=self.device)
         self.num_rays = cfg.train.init_batch_size
@@ -108,14 +133,45 @@ class Trainer:
                "n_marched": out.n_marched_samples, "max_depth": out.depth.detach().max()}
         return mse, aux
 
-    def _train_step(self, rays_o, rays_d, pixels, bkgd, jitter=None) -> Dict:
-        """Render gradient and one Adam update.  `jitter`, when given, replaces
-        the march's draw from the generator."""
+    def _rate_scale(self) -> float:
+        """lmbda * K / total_params, the rate-loss weight.  Scaling by the
+        interval K keeps the time-averaged rate pressure equal to the
+        reference's every-step objective (train_CNC_nerf_synthetic.py:383)."""
+        return (self.cfg.train.lmbda * self.cfg.train.rate_update_interval
+                / self.entropy.total_param_count)
+
+    def _train_step(self, rays_o, rays_d, pixels, bkgd, jitter=None, ent_cache=None,
+                    starts=None) -> Dict:
+        """Render gradient, the rate gradients on the steps that take them,
+        and one update of each optimizer.  `jitter`, when given, replaces the
+        march's draw from the generator, `starts` the entry-window draws
+        (`ContextModels.draw_starts`).  The entropy optimizer steps only on
+        rate steps."""
+        cfg = self.cfg
+        use_entropy = (self.entropy is not None and cfg.train.lmbda > 0
+                       and self.step % cfg.train.rate_update_interval == 0)
+        if use_entropy and starts is None:
+            # drawn (one small device read) before the step's work is queued
+            starts = self.entropy.draw_starts(self.generator)
         self.optimizer.zero_grad(set_to_none=True)
-        mse, aux = self._render_loss(rays_o, rays_d, pixels, bkgd, jitter)
-        mse.backward()
+        loss, aux = self._render_loss(rays_o, rays_d, pixels, bkgd, jitter)
+        if use_entropy:
+            self.opt_ent.zero_grad(set_to_none=True)
+            tables = rf.quantized_tables(self.field, cfg.model)
+            bits2d = self.entropy.rate_bits_2d(self.ent_params, tables, starts["2d"], ent_cache)
+            bits3d, ctx_util = self.entropy.rate_bits_3d(
+                self.ent_params, tables["xyz"], starts["3d"], ent_cache, with_util=True)
+            ttl_bits = bits2d + bits3d
+            loss = loss + self._rate_scale() * ttl_bits
+            ttl = ttl_bits.detach()
+            aux = {**aux, "bits_per_param": ttl / self.entropy.total_param_count,
+                   "embed_MB": ttl / 8.0 / 1024.0 / 1024.0, "ctx_util": ctx_util}
+        loss.backward()
         self.optimizer.step()
         self.scheduler.step()
+        if use_entropy:
+            self.opt_ent.step()
+            self.sched_ent.step()
         return aux
 
     # ------------------------------------------------------------------ fit
@@ -132,6 +188,7 @@ class Trainer:
         max_steps = max_steps if max_steps is not None else cfg.train.max_steps
         tic = time.time()
         bkgd = torch.ones(3, device=self.device)
+        ent_cache = None
         local = 0
         while self.step <= max_steps:
             s = self.step
@@ -140,11 +197,14 @@ class Trainer:
                 self.occ_state = occ.update_occ_grid(
                     self.occ_state, self.generator, self._occ_eval_fn,
                     s < cfg.render.occ_warmup_steps, cfg.render)
+                if self.entropy is not None:
+                    ent_cache = self.entropy.refresh_cache(self.occ_state.binaries)
 
             bucket = _next_bucket(self.num_rays, cfg.train.min_ray_bucket,
                                   cfg.train.max_ray_bucket)
             rays, pixels = self.dataset.fetch_rays(self.generator, bucket)
-            aux = self._train_step(rays.origins, rays.viewdirs, pixels, bkgd)
+            aux = self._train_step(rays.origins, rays.viewdirs, pixels, bkgd,
+                                   ent_cache=ent_cache)
 
             # dynamic ray batching (train_CNC_nerf_synthetic.py:340-344), driven
             # by the true pre-truncation hit count so a saturated buffer
@@ -157,14 +217,20 @@ class Trainer:
                                               / float(n_marched)))
             if log_every and s % log_every == 0:
                 mse = float(aux["mse"])
-                log_fn(f"elapsed_time={time.time() - tic:.2f}s | step={s} | mse={mse:.5f} | "
+                msg = (f"elapsed_time={time.time() - tic:.2f}s | step={s} | mse={mse:.5f} | "
                        f"psnr={-10 * math.log10(max(mse, 1e-10)):.2f} | "
                        f"n_rendering_samples={n_samples} | num_rays={bucket} | "
                        f"max_depth={float(aux['max_depth']):.3f}")
+                if "bits_per_param" in aux:
+                    msg += (f" | bits_per_param={float(aux['bits_per_param']):.3f}"
+                            f" | embed_MB={float(aux['embed_MB']):.3f}"
+                            f" | ctx_util={float(aux['ctx_util']):.2f}")
+                log_fn(msg)
             self.step += 1
             local += 1
             if step_callback is not None:
                 step_callback(s, aux)
+        self._last_ent_cache = ent_cache
         return time.time() - tic
 
     # ----------------------------------------------------------------- eval

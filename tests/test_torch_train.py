@@ -200,9 +200,6 @@ def test_training_improves_psnr():
 
 def test_trainer_refuses_what_is_not_ported(monkeypatch):
     cfg = tiny_config(tconfig)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ttrainer.Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, lmbda=2e-3)), None, entropy=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         ttrainer.Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, checkpoint_path="run/ckpt")), None, device="cpu")
