@@ -53,7 +53,20 @@ Phases (any failure raises and the script exits non-zero):
      torch.profiler (chiprun_out/profile_rate.txt).  A three-step run with
      `pn_frac_grad=True` drives the sign histogram's backward kernel, which
      the default configuration does not reach;
- 10. print the kernels line, the card line and the final JSON line.
+ 10. [codec] the lambda = 2e-3 run's binarized tables through the codec, with
+     the counts set to 0 just before it: `refresh_cache_int`; the codec
+     kernels held to their twins with torch.equal ([K9a] int_encode, [K9b]
+     int_mlp_pool, [K9c] int_pq on the middle chunk of the last 3D context
+     level and on the last 2D context level with its plane, [K7i] pn_hist_int
+     on one plane; their launches taken out of the counts); `CNCCodec.encode`
+     into chiprun_out/bundle/ and `decode` in the same process, with every
+     codec kernel launched in each; the decoded tables must equal the trained
+     ones on every covered entry and be +1 elsewhere, the coded MB must lie
+     within 15% of the analytic MB, and the test views' PSNR must move by at
+     most 1e-3 dB; then `save_bundle` and `decode_bundle` in a fresh python3
+     process, whose tables and render of test view 0 must equal this
+     process's;
+ 11. print the kernels line, the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
 run outside the repository (cnc_torch missing).
@@ -73,6 +86,10 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+# int32 outside the tensor cores: the data sheet gives no figure; an SM issues
+# 64 int32 lanes per clock against 128 float32 ones, so half the f32 rate,
+# with a multiply-add counted as two operations as an FMA is
+INT32_OPS = F32_FLOPS / 2
 VIEW = 800
 CROP = 64
 CROP_RGB_TOL = 1e-3
@@ -201,6 +218,202 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
         f" live_corners={n_corners} distinct_rows={n_rows} err={err:.3g} ms={rec['ms']:.4f}"
         f" plain_ms={rec['plain_ms']:.4f} bound_ms={b:.4f}")
     return rec
+
+
+def bound_ms_int(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, pg3, pg2):
+    """K9a, K9b, K9c and K7i against their twins on the card, torch.equal:
+    one chunk of the last 3D context level (its middle chunk), the last 2D
+    context level of the xy plane with its frac plane, and that plane (K7i)."""
+    import numpy as np
+    records, log_parts = {}, {}
+    k = entropy.cfg.max_context_layer_num
+    f = entropy.cfg.n_features
+    per = {name: [] for name in ("int_encode", "int_mlp_pool", "int_pq", "pn_hist_int")}
+
+    def same(name, label, got, want):
+        got, want = (got if isinstance(got, tuple) else (got,)), \
+            (want if isinstance(want, tuple) else (want,))
+        for a, b in zip(got, want):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"[{name}] {label}: the kernel differs from its twin")
+
+    # ---- K7i on the xy plane (full coverage: every listed row)
+    pn = cache["pn"]["xy"]
+    args = (sign3, pn, entropy.fine_offset, entropy.pn_res, f)
+    plane = intctx._frac_plane_cuda(*args)
+    same("K7i", "xy", plane, intctx.int_frac_plane(*args))
+    rows = pn["entry_idx"].shape[0]
+    n_valid = int(torch.clamp(pn["n"], max=rows))
+    sel = pn["entry_idx"][:n_valid]
+    n_entries = torch.unique(sel).numel()
+    bins = pn["bounds"].shape[0] - 1
+    b, by = bound_ms_int(n_valid * 4 + n_entries * 4 * f + (bins + 1) * 4 + plane.numel() * 4,
+                         n_valid * f * 2)
+    bounds_l = pn["bounds"].long()
+    bin_of_row = (torch.searchsorted(pn["bounds"], torch.arange(n_valid, device=sign3.device,
+                                                                dtype=torch.int32), right=True)
+                  - 1).clamp(0, bins - 1).long()
+    ind = (sign3[entropy.fine_offset + sel.long()] > 0).to(torch.int32)
+    library = lambda: torch.zeros(bins, f, dtype=torch.int32, device=sign3.device).index_add_(
+        0, bin_of_row, ind)
+    if not torch.equal(library(), torch.stack([
+            torch.cumsum(torch.cat([ind.new_zeros(1, f), ind]), 0)[bounds_l[1:]][:, i]
+            - torch.cumsum(torch.cat([ind.new_zeros(1, f), ind]), 0)[bounds_l[:-1]][:, i]
+            for i in range(f)], -1)):
+        raise AssertionError("[K7i] index_add_ of the sign rows differs from the twin's counts")
+    records["pn_hist_int"] = dict(max_abs_err=0.0, ms=time_ms(lambda: intctx._frac_plane_cuda(
+        *args)), plain_ms=time_ms(lambda: intctx.int_frac_plane(*args), iters=5, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=time_ms(library))
+    log_parts["pn_hist_int"] = (f"rows={rows} listed={n_valid} distinct_entries={n_entries}"
+                                f" bins={bins} plane={entropy.pn_res}^2")
+    del ind, bin_of_row
+
+    # ---- one 3D chunk and one 2D level through K9a -> K9b -> K9c
+    l3 = entropy.ctx_levels_3d[-1]
+    chunk_e, n_chunks, w3 = codec.chunks3d[l3]
+    start = codec._chunk_bounds(l3)[n_chunks // 2][2]
+    (pos,), valid, slots, evals = entropy._entry_window("3d", l3, start, chunk_e, w3,
+                                                        ("pos_flat",))
+    mask = cache["mask3d"][entropy.mask3d_offsets[l3] + pos.long()] & valid
+    r3 = entropy.tables3d[l3].resolution
+    lv3 = entropy._ctx_levels_meta(entropy.spec3, entropy.mask3d_offsets, l3 - k, l3)
+    ovl = cache["ovl_int"][str(l3)]
+    l2 = entropy.ctx_levels_2d[-1]
+    t2 = entropy.tables2d[l2]
+    (coords,), valid2, slots2, evals2 = entropy._entry_window("2d", l2, 0, t2.n_entries,
+                                                              t2.n_points, ("coords",))
+    mask2 = cache["mask2d"][0][entropy.mask2d_offsets[l2] + (coords >> 16).long() * t2.resolution
+                               + (coords & 0xFFFF).long()] & valid2
+    lv2 = entropy._ctx_levels_meta(entropy.spec2, entropy.mask2d_offsets,
+                                   l2 - min(l2, k), l2)
+    cases = {
+        "3D": dict(enc=(pos, 3, r3, sign3, lv3, cache["mask3d"], None), level=None,
+                   mlp=(pg3, codec.m_shift3[l3], mask, slots, chunk_e, ovl, pos),
+                   pq=(codec.m_scale3[l3], sign3, entropy.tables3d[l3].offset, evals),
+                   label=f"level {l3} chunk {n_chunks // 2} of {n_chunks}", sign=sign3),
+        "2D": dict(enc=(coords, 2, t2.resolution, sign2, lv2, cache["mask2d"][0],
+                        (plane, entropy.pn_res, entropy.pn_mask_offset)), level=l2,
+                   mlp=(pg2, codec.m_shift2[l2], mask2, slots2, t2.n_entries, None, None),
+                   pq=(codec.m_scale2[l2], sign2, t2.offset, evals2),
+                   label=f"xy level {l2} with its plane", sign=sign2),
+    }
+    mlp_ops = lambda lv: sum(2 * ly["w"].shape[0] * ly["w"].shape[1] + ly["w"].shape[1] * 3
+                             for ly in intctx._mlp_layers(ip, lv))
+    for key, c in cases.items():
+        # K9a
+        feats = intctx._int_encode_cuda(*c["enc"])
+        touched = {}
+        want = intctx._int_encode_plain(*c["enc"], touched=touched)
+        same("K9a", c["label"], feats, want)
+        del want
+        n_rows = c["enc"][0].shape[0]
+        n_mask = torch.unique(torch.cat(touched["mask"])).numel()
+        live = torch.cat(touched["rows"])
+        n_tbl = torch.unique(live).numel()
+        n_plane = torch.unique(torch.cat(touched["plane_rows"])).numel() \
+            if "plane_rows" in touched else 0
+        n_corners = sum(t.numel() for t in touched["mask"])
+        del touched
+        fa = c["sign"].shape[1]
+        b, by = bound_ms_int(n_rows * 4 + n_mask + (n_tbl + n_plane) * 4 * fa + feats.numel() * 4,
+                             n_rows * len(c["enc"][4]) * (2 ** c["enc"][1]) * 16
+                             + live.numel() * 2 * fa)
+        per["int_encode"].append(dict(
+            max_abs_err=0.0, ms=time_ms(lambda: intctx._int_encode_cuda(*c["enc"])),
+            plain_ms=time_ms(lambda: intctx._int_encode_plain(*c["enc"]), iters=3, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=None))
+        log_parts.setdefault("int_encode", "")
+        log_parts["int_encode"] += (f" {key} ({c['label']}): rows={n_rows} cols={feats.shape[1]}"
+                                    f" corners={n_corners} live={live.numel()}"
+                                    f" distinct_rows={n_tbl + n_plane} mask_bytes={n_mask};")
+        del live
+        # K9b
+        mlp_args = (ip, c["level"], feats) + c["mlp"]
+        got = intctx._int_mlp_pool_cuda(*mlp_args)
+        same("K9b", c["label"], got, intctx._int_mlp_pool_plain(*mlp_args))
+        kept = int(c["mlp"][2].sum())
+        n_e = c["mlp"][4]
+        pos_k = c["mlp"][6]
+        n_ovl = torch.unique(pos_k[c["mlp"][2]]).numel() if pos_k is not None else 0
+        b, by = bound_ms_int(n_rows + kept * (feats.shape[1] * 4 + 4 + (4 if pos_k is not None
+                                                                         else 0))
+                             + n_ovl * 4 + n_e * (fa + 1) * 4,
+                             kept * (mlp_ops(c["level"]) + 4 * fa))
+        per["int_mlp_pool"].append(dict(
+            max_abs_err=0.0, ms=time_ms(lambda: intctx._int_mlp_pool_cuda(*mlp_args)),
+            plain_ms=time_ms(lambda: intctx._int_mlp_pool_plain(*mlp_args), iters=3, warmup=1),
+            bound_ms=b, bound_by=by, library_ms=None))
+        log_parts.setdefault("int_mlp_pool", "")
+        log_parts["int_mlp_pool"] += f" {key}: rows={n_rows} kept={kept} entries={n_e};"
+        # K9c
+        msum, wsum = got
+        pq_args = (msum, wsum) + c["pq"]
+        got_pq = intctx._int_pq_cuda(*pq_args)
+        same("K9c", c["label"], got_pq, intctx._int_pq_plain(*pq_args))
+        np.testing.assert_array_equal(got_pq[0].cpu().numpy(), intctx.host_pq(
+            msum.cpu().numpy(), wsum.cpu().numpy(), c["pq"][0]))
+        lib = lambda: intctx.pq_int64(msum, wsum, c["pq"][0])
+        if not torch.equal(lib(), got_pq[0]):
+            raise AssertionError("[K9c] the int64 formula differs from the kernel")
+        b, by = bound_ms_int(n_e * (4 * fa + 4 + 4 + 4 * fa + 2 * fa + 1 + fa), n_e * fa * 8)
+        per["int_pq"].append(dict(
+            max_abs_err=0.0, ms=time_ms(lambda: intctx._int_pq_cuda(*pq_args)),
+            plain_ms=time_ms(lambda: intctx._int_pq_plain(*pq_args)), bound_ms=b, bound_by=by,
+            library_ms=time_ms(lib)))
+        sat = int((got_pq[0] == 65535).sum())
+        one = int((got_pq[0] == 1).sum())
+        log_parts.setdefault("int_pq", "")
+        log_parts["int_pq"] += (f" {key}: entries={n_e} covered={int(got_pq[1].sum())}"
+                                f" pq at 65535: {sat}, at 1: {one};")
+        del feats, got, got_pq, msum, wsum
+    for name, recs in per.items():
+        if recs:
+            records[name] = dict(recs[0], other={k: recs[1][k] for k in ("ms", "plain_ms",
+                                                                         "bound_ms")})
+    for name, r in records.items():
+        o = r.get("other")
+        log(f"[{name}] exact; {log_parts[name].strip()} ms={r['ms']:.4f}"
+            f" plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+            f" library_ms={r['library_ms']}"
+            + (f"; 2D ms={o['ms']:.4f} plain_ms={o['plain_ms']:.4f}"
+               f" bound_ms={o['bound_ms']:.4f}" if o else ""))
+    return records
+
+
+def covered_rows(torch, intctx, entropy, codec, ip, signs, cache, pgs):
+    """Per table a bool over its rows: the entries the codec codes (every row
+    of a globally coded level; a context level's covered entries)."""
+    out = {}
+    for key, sign in signs.items():
+        spec = entropy.spec3 if key == "xyz" else entropy.spec2
+        cov = torch.ones(spec.total_entries, dtype=torch.bool, device=sign.device)
+        if key == "xyz":
+            for l in entropy.ctx_levels_3d:
+                t = entropy.tables3d[l]
+                cov[t.offset:t.offset + spec.level_sizes[l]] = False
+                pg_q = intctx.quantize_pg(pgs[f"3D{l}"])
+                evals = entropy.table_arrays["3d"]["entry_values"][t.e_off:t.e_off + t.n_entries]
+                for (lo, hi, st) in codec._chunk_bounds(l):
+                    _, c, _ = codec._pool3d(l, ip, sign, cache, pg_q, st, with_bits=False)
+                    rows = t.offset + evals[lo:hi].long()
+                    cov[rows] = c[lo - st:hi - st]
+        else:
+            ai = ("xy", "xz", "yz").index(key)
+            plane = codec._frac(signs["xyz"], cache, key)
+            for l in entropy.ctx_levels_2d:
+                t = entropy.tables2d[l]
+                cov[t.offset:t.offset + spec.level_sizes[l]] = False
+                _, c, _ = codec._pool2d(l, ip, sign, intctx.quantize_pg(pgs[f"{key}{l}"]), plane,
+                                        cache["mask2d"][ai], with_bits=False)
+                evals = entropy.table_arrays["2d"]["entry_values"][t.e_off:t.e_off + t.n_entries]
+                cov[t.offset + evals.long()] = c
+        out[key] = cov
+    return out
 
 
 def check_compact(torch, scatter_ops, n, cap, p, gen, dev):
@@ -931,6 +1144,153 @@ def profile_view(torch, render, name: str = "profile") -> None:
     (out / f"{name}.txt").write_text(f"wall_ms {wall_ms}\ndevice_ms {dev_ms}\n{table}\n{host}\n")
 
 
+def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, records):
+    """[codec]: the trained lambda = 2e-3 tables through the codec: the int
+    cache, the codec kernels against their twins, encode, decode in the same
+    process (lossless on the covered entries, the test views' PSNR kept), the
+    bundle, and decode_bundle in a fresh python3 process whose render of test
+    view 0 must equal this process's.  Returns the launch counts of the
+    encode, of the decode and of the whole codec path."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    from cnc_torch.codec import codec as codec_mod
+    from cnc_torch.codec import intctx
+    bundle_dir = Path("chiprun_out") / "bundle"
+    shutil.rmtree(bundle_dir, ignore_errors=True)
+    occ_rate = trr.occ_state.binaries
+    trained = {k: v.detach().clone() for k, v in rf.quantized_tables(trr.field,
+                                                                     rate_cfg.model).items()}
+    pre = trr.evaluate(test_set)
+    view0_pre = trr.eval_image(0, test_set)[0]
+    codec = codec_mod.CNCCodec(entropy)
+    torch.cuda.synchronize()
+    kernels.reset_launches()        # the codec path starts here
+    t0 = time.time()
+    cache_i = entropy.refresh_cache_int(occ_rate)
+    torch.cuda.synchronize()
+    cache_s = time.time() - t0
+    cache_launches = dict(kernels.launches)
+    log(f"[codec] refresh_cache_int {cache_s:.2f} s on {int(occ_rate.sum())} cells"
+        f" (ovl_int {sum(v.numel() for v in cache_i['ovl_int'].values()) * 4 / 2**30:.2f} GiB,"
+        f" mask3d {cache_i['mask3d'].numel() / 2**30:.2f} GiB); 3D chunks per level "
+        + json.dumps({l: c[1] for l, c in codec.chunks3d.items()})
+        + " m_shift3 " + json.dumps(codec.m_shift3) + " m_shift2 " + json.dumps(codec.m_shift2))
+    ip = codec._int_params(trr.ent_params)
+    sign3 = intctx.sign_table(trained["xyz"])
+    sums3, _ = codec._stats(trained["xyz"], entropy.spec3)
+    sums2, _ = codec._stats(trained["xy"], entropy.spec2)
+    f = entropy.cfg.n_features
+    l3, l2 = entropy.ctx_levels_3d[-1], entropy.ctx_levels_2d[-1]
+    pg3 = intctx.quantize_pg(codec._pg_from_sum(int(sums3[l3]), entropy.spec3.level_sizes[l3] * f))
+    pg2 = intctx.quantize_pg(codec._pg_from_sum(int(sums2[l2]), entropy.spec2.level_sizes[l2] * f))
+    records.update(check_codec_kernels(torch, intctx, entropy, codec, ip, sign3,
+                                       intctx.sign_table(trained["xy"]), cache_i, pg3, pg2))
+    kernels.launches.update(cache_launches)     # comparison launches do not count
+
+    t0 = time.time()
+    pgs, est_mb, coded_mb = codec.encode(trr.ent_params, trained, occ_rate, str(bundle_dir),
+                                         cache=cache_i)
+    torch.cuda.synchronize()
+    enc_s = time.time() - t0
+    enc_launches = {k: kernels.launches[k] - cache_launches[k] for k in kernels.launches}
+    kernels.reset_launches()
+    t0 = time.time()
+    rec = codec.decode(trr.ent_params, occ_rate, pgs, str(bundle_dir), cache=cache_i)
+    torch.cuda.synchronize()
+    dec_s = time.time() - t0
+    dec_launches = dict(kernels.launches)
+    codec_launches = {k: cache_launches[k] + enc_launches[k] + dec_launches[k]
+                      for k in kernels.launches}
+    codec_kernels = ("int_encode", "int_mlp_pool", "int_pq", "pn_hist_int")
+    if not all(enc_launches[k] > 0 and dec_launches[k] > 0 for k in codec_kernels):
+        raise AssertionError(f"[codec] a codec kernel was not launched: encode {enc_launches},"
+                             f" decode {dec_launches}")
+    n_streams = len(list(bundle_dir.glob("*.b")))
+    cov = covered_rows(torch, intctx, entropy, codec, ip,
+                       {k: intctx.sign_table(v) for k, v in trained.items()}, cache_i, pgs)
+    n_symbols = sum(int(c.sum()) for c in cov.values()) * f
+    for k in trained:
+        if not torch.equal(rec[k][cov[k]], trained[k][cov[k]]) or not bool(
+                (rec[k][~cov[k]] == 1).all()):
+            raise AssertionError(f"[codec] {k}: decode is not lossless on the covered entries")
+    embed_mb = bpp_end * entropy.total_param_count / 8 / 2**20
+    log(f"[codec] encode {enc_s:.2f} s: {coded_mb:.4f} MB coded, {est_mb:.4f} MB analytic"
+        f" ({100 * (coded_mb - est_mb) / coded_mb:+.2f}%), the trainer's last embed_MB"
+        f" {embed_mb:.4f}; {n_streams} streams, {n_symbols} symbols coded"
+        f" ({sum(int(c.sum()) for c in cov.values())} of"
+        f" {sum(c.numel() for c in cov.values())} entries covered); decode {dec_s:.2f} s"
+        f" (cache {cache_s:.2f} s shared); launches per encode "
+        + json.dumps({k: enc_launches[k] for k in codec_kernels}) + ", per decode "
+        + json.dumps({k: dec_launches[k] for k in codec_kernels}))
+    if not abs(est_mb - coded_mb) / coded_mb < 0.15:
+        raise AssertionError(f"[codec] coded {coded_mb} MB is not within 15% of the analytic"
+                             f" {est_mb} MB")
+
+    rf.replace_tables(trr.field, rec)
+    post = trr.evaluate(test_set)
+    view0 = trr.eval_image(0, test_set)[0]
+    delta = post["psnr"] - pre["psnr"]
+    log(f"[codec] test views psnr {pre['psnr']:.4f} before the codec, {post['psnr']:.4f} after"
+        f" (delta {delta:+.6f} dB; view 0 max abs change"
+        f" {float((view0 - view0_pre).abs().max()):.3g})")
+    if not abs(delta) <= 1e-3:
+        raise AssertionError(f"[codec] the codec moved the test psnr by {delta} dB")
+
+    codec_mod.save_bundle(str(bundle_dir), pgs, trr.ent_params, trr.field, occ_rate,
+                          {"scene": "blocks", "lmbda": rate_cfg.train.lmbda,
+                           "n_features": rate_cfg.model.n_features_per_level,
+                           "config": rate_cfg.to_dict()})
+    size_mb = codec_mod.bundle_size_mb(str(bundle_dir))
+    digests = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() for k, v in rec.items()}
+    # the fresh process renders test view 0 of the same procedural test set
+    fresh = ("import hashlib, json, sys, time\n"
+             "t0 = time.time()\n"
+             "import numpy as np, torch\n"
+             "from cnc_torch.data import scenes\n"
+             "from cnc_torch.render import renderer\n"
+             "from cnc_torch.train.driver import decode_bundle\n"
+             "dev = torch.device(sys.argv[3])\n"
+             "torch.zeros(1, device=dev)\n"
+             "t_ready = time.time()\n"
+             "field, binaries, cfg = decode_bundle(sys.argv[1], device=dev, log_fn=print)\n"
+             "t1 = time.time()\n"
+             "ds = scenes.ProceduralDataset('blocks', n_images=2, split='test', device=dev)\n"
+             "rays, _ = ds.image_and_rays(0)\n"
+             "aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=dev)\n"
+             "rgb = renderer.render_image(field, cfg.model, cfg.render, aabb, binaries,\n"
+             "                            rays.origins, rays.viewdirs, torch.ones(3),\n"
+             "                            device=dev)[0]\n"
+             "np.save(sys.argv[2], rgb.cpu().numpy())\n"
+             "print(json.dumps({'ready_s': t_ready - t0, 'decode_s': t1 - t_ready,"
+             " 'total_s': time.time() - t0,"
+             " 'tables': {k: hashlib.sha256(field.tables[k].detach().cpu().numpy().tobytes())"
+             ".hexdigest() for k in ('xyz', 'xy', 'xz', 'yz')}}))\n")
+    view_file = Path("chiprun_out") / "bundle_view0.npy"
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", fresh, str(bundle_dir), str(view_file),
+                           str(trr.device)], capture_output=True, text=True, timeout=600)
+    fresh_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[codec] decode_bundle in a fresh process failed:\n{proc.stderr}")
+    fresh_out = json.loads(proc.stdout.strip().splitlines()[-1])
+    view_fresh = torch.from_numpy(np.load(view_file)).to(view0.device)
+    view_err = float((view_fresh - view0).abs().max())
+    log(f"[codec] decode_bundle in a fresh python3 process: {fresh_s:.2f} s in all (imports"
+        f" and the card's context {fresh_out['ready_s']:.2f} s; decode_bundle, that is the"
+        f" ContextModels build, the int cache and the decode, {fresh_out['decode_s']:.2f} s;"
+        f" with the view {fresh_out['total_s']:.2f} s; it logged"
+        f" {proc.stdout.strip().splitlines()[0]!r}); bundle {size_mb:.4f} MB"
+        f" ({len(list(bundle_dir.iterdir()))} files); tables bit-equal"
+        f" {fresh_out['tables'] == digests}; view 0 max abs diff to the in-process render"
+        f" {view_err:.3g} (exactly equal {bool(torch.equal(view_fresh, view0))})")
+    if fresh_out["tables"] != digests or not view_err <= 1e-6:
+        raise AssertionError("[codec] the fresh process's field differs from the in-process one")
+    return enc_launches, dec_launches, codec_launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1353,10 +1713,14 @@ def main() -> int:
                              f" {pn_launches}")
     del tr_pn, entropy_pn
 
-    # ---- 10. report: `launches` is the count over the path named beside it
+    # ---- 10. [codec]
+    enc_launches, dec_launches, codec_launches = run_codec(
+        torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, records)
+
+    # ---- 11. report: `launches` is the count over the path named beside it
     # (one view, the lambda = 0 training run, the probe's one drive, the rate
-    # path from the model's build to the run's last step, or the three
-    # pn_frac_grad steps)
+    # path from the model's build to the run's last step, the three
+    # pn_frac_grad steps, or the codec path: int cache, encode and decode)
     meta = {
         "grid_encode": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:104", "view"),
         "grid_encode_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "train"),
@@ -1374,9 +1738,13 @@ def main() -> int:
         "pn_hist_bwd": ("pn_hist.cu", "cnc_tpu/models/context_models.py:62", "rate_pn_grad"),
         "footprint": ("footprint.cu", "cnc_tpu/models/context_models.py:1415", "rate"),
         "vertex_tables": ("vertex_tables.cu", "cnc_tpu/models/context_models.py:269", "rate"),
+        "int_encode": ("int_context.cu", "cnc_tpu/codec/intctx.py:110", "codec"),
+        "int_mlp_pool": ("int_context.cu", "cnc_tpu/codec/intctx.py:228", "codec"),
+        "int_pq": ("int_context.cu", "cnc_tpu/codec/intctx.py:344", "codec"),
+        "pn_hist_int": ("pn_hist.cu", "cnc_tpu/codec/intctx.py:298", "codec"),
     }
     counted = {"view": launches, "train": train_launches, "probe": probe_launches,
-               "rate": rate_launches, "rate_pn_grad": pn_launches}
+               "rate": rate_launches, "rate_pn_grad": pn_launches, "codec": codec_launches}
     out = []
     for name, (source, replaces, path) in meta.items():
         r = records[name]
@@ -1384,6 +1752,7 @@ def main() -> int:
                         replaces=replaces, launches=counted[path][name], path=path,
                         train_launches=train_launches[name], train_steps=n_run,
                         rate_launches=rate_launches[name], rate_steps=RATE_STEPS,
+                        encode_launches=enc_launches[name], decode_launches=dec_launches[name],
                         max_abs_err=r["max_abs_err"], ms=r["ms"],
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"]))

@@ -32,9 +32,11 @@
 // Simple design: one thread per (point, level), consecutive threads on the
 // levels of one point (so the output row is written contiguously), corners in
 // a loop, one 16-byte __ldg per corner row at F=4 (8 bytes at F=2; no other
-// F is built).  The position is rounded with __fmul_rn/__fadd_rn so the
-// lattice cell matches the twin exactly; the weights may contract to FMA (the
-// interpolation is continuous across cells, so the tolerance covers it).
+// F is built).  The file is built with -fmad=false and sums the corners in
+// order, as the twin does, so the forward equals its twin bit for bit: the
+// rate estimate feeds it to a LeakyReLU MLP, whose gradient jumps where an
+// input crosses a kink, and a last-bit difference would move the kernel's
+// gradient to one side and the twin's to the other.
 //
 // K2, the backward (d_table only), replaces cnc_tpu's
 //   ops/scatter_ops.py _ggi_bwd (104-122): per-feature column scatter-adds of

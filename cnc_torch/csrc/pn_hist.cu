@@ -22,6 +22,19 @@
 // The backward (reached only with pn_frac_grad) is the indicator's
 // straight-through rule: d_table[fine_offset + sel[r], f] += g[bin(r), f]
 // where the entry is > 0.9 and the row valid, as atomics into a zeroed table.
+//
+// K7i, the integer mode, replaces the codec's plane: cnc_tpu/codec/intctx.py
+// int_frac_plane (298-321), a gather of the int32 sign table's finest level at
+// every listed entry (full coverage: no stride sampling), the sign counts per
+// bin by per-feature int32 cumulative sums differenced at the boundaries,
+// frac_q = pos * Q_FEAT // max(cnt, 1), the zero border and the x-fastest
+// [pn_res^2, F] layout.  Plain twin: cnc_torch/codec/intctx.py
+// `int_frac_plane`.  One thread per plane row: border rows write zeros; an
+// inner row (x, y) walks bin (x - 1) * (pn_res - 2) + (y - 1), counting its
+// valid rows (row < min(n, rows)) whose sign is positive; cnt is the bin's
+// length, as the twin takes it.  Integers, so it equals the twin exactly.
+// Bound: bytes, one 16-byte sign row per listed row (2^24 rows at full width,
+// about 300 MB with sel) plus the 4 MB plane.
 
 #include "common.cuh"
 
@@ -87,7 +100,71 @@ __global__ void pn_hist_backward_kernel(const float* __restrict__ table, long lo
   }
 }
 
+constexpr int kQFeat = 256;   // codec/intctx.py Q_FEAT
+
+template <int F>
+__global__ void pn_hist_int_kernel(const int* __restrict__ sign, long long fine_offset,
+                                   long long tbl_rows, const int* __restrict__ sel,
+                                   long long n_rows, const int* __restrict__ n_listed,
+                                   const int* __restrict__ bnd, int pn_res,
+                                   int* __restrict__ plane) {
+  const long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (o >= static_cast<long long>(pn_res) * pn_res) return;
+  const int xo = static_cast<int>(o % pn_res), yo = static_cast<int>(o / pn_res);
+  int* out = plane + o * F;
+  if (xo == 0 || yo == 0 || xo == pn_res - 1 || yo == pn_res - 1) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) out[f] = 0;
+    return;
+  }
+  const long long b = static_cast<long long>(xo - 1) * (pn_res - 2) + (yo - 1);
+  const long long n_valid = min(static_cast<long long>(*n_listed), n_rows);
+  const int b0 = bnd[b], b1 = bnd[b + 1];
+  const long long lo = min(max(static_cast<long long>(b0), 0LL), n_rows);
+  const long long hi = min(max(static_cast<long long>(b1), 0LL), n_rows);
+  int cnt[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) cnt[f] = 0;
+  for (long long r = lo; r < hi && r < n_valid; ++r) {
+    const long long row = min(max(fine_offset + sel[r], 0LL), tbl_rows - 1);
+    int v[F];
+    if constexpr (F == 4) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(sign) + row);
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else {
+      const int2 q = __ldg(reinterpret_cast<const int2*>(sign) + row);
+      v[0] = q.x; v[1] = q.y;
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) cnt[f] += v[f] > 0 ? 1 : 0;
+  }
+  // pos >= 0 and the bin length >= 1 after the clamp: truncation floors
+  const int len = max(b1 - b0, 1);
+#pragma unroll
+  for (int f = 0; f < F; ++f) out[f] = cnt[f] * kQFeat / len;
+}
+
 }  // namespace
+
+// sign [tbl_rows, f] int32 (rows 4f-byte aligned), sel [n_rows] int32 finest-
+// level entries sorted by bin, n_listed a device int32 (rows at or past it are
+// not valid), bnd [(pn_res-2)^2 + 1] int32; plane [pn_res^2, f] int32, every
+// element written; f in (2, 4).
+CNC_EXPORT int cnc_pn_hist_int(const int* sign, long long fine_offset, long long tbl_rows,
+                               const int* sel, long long n_rows, const int* n_listed,
+                               const int* bnd, int pn_res, int f, int* plane, void* stream) {
+  const long long n_out = static_cast<long long>(pn_res) * pn_res;
+  if (n_out == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 128;
+  const unsigned blocks = cnc_blocks(n_out, threads);
+  switch (f) {
+    case 2: pn_hist_int_kernel<2><<<blocks, threads, 0, s>>>(sign, fine_offset, tbl_rows, sel, n_rows, n_listed, bnd, pn_res, plane); break;
+    case 4: pn_hist_int_kernel<4><<<blocks, threads, 0, s>>>(sign, fine_offset, tbl_rows, sel, n_rows, n_listed, bnd, pn_res, plane); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return cnc_last_error();
+}
 
 // table [table_rows, f] f32 (rows 4*f-byte aligned), sel [n_rows] int32,
 // row_valid [n_rows] bool bytes, bnd [n_bins + 1] int32 ascending, pos

@@ -29,16 +29,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
-# march.cu must round every float op as the plain twin does (see its header)
-SOURCE_FLAGS = {"march.cu": ("-fmad=false",)}
+# march.cu and grid_encode.cu must round every float op as their plain twins
+# do (see their headers)
+SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)}
 
 # grid_encode_v / grid_encode_v_bwd: launches of the encode kernels in their
 # masked or mixed-level variants (the rate estimate's), counted apart from the
-# plain ones; vertex_tables: every launch of csrc/vertex_tables.cu
+# plain ones; vertex_tables: every launch of csrc/vertex_tables.cu; the codec's
+# integer kernels: int_encode, int_mlp_pool, int_pq (csrc/int_context.cu) and
+# pn_hist_int (the integer mode of csrc/pn_hist.cu), counted apart from pn_hist
 launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
             "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
             "grid_encode_v_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0, "pn_hist": 0,
-            "pn_hist_bwd": 0, "footprint": 0, "vertex_tables": 0}
+            "pn_hist_bwd": 0, "footprint": 0, "vertex_tables": 0, "int_encode": 0,
+            "int_mlp_pool": 0, "int_pq": 0, "pn_hist_int": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # host int arrays
@@ -70,6 +74,12 @@ _SIGNATURES = {
     "cnc_vertex_heads": ((_P, _LL, _P, _P), _I),
     "cnc_vertex_fill": ((_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "cnc_dense_level": ((_P, _I, _I, _P, _P, _P, _P, _P), _I),
+    "cnc_int_encode": ((_P, _LL, _I, _I, _P, _LL, _I, _I, _IP, _LP, _LP, _LP, _P, _LL, _P, _I,
+                        _LL, _I, _P, _P), _I),
+    "cnc_int_mlp_pool": ((_P, _LL, _I, _I, _P, _LL, _I, _IP, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+                         _I),
+    "cnc_int_pq": ((_P, _P, _LL, _I, _I, _P, _LL, _P, _LL, _P, _P, _P, _P), _I),
+    "cnc_pn_hist_int": ((_P, _LL, _LL, _P, _LL, _P, _P, _I, _I, _P, _P), _I),
 }
 
 _lib = None

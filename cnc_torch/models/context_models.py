@@ -31,9 +31,10 @@ same).  The entry windows' starts are host integers: the caller draws them
 view of the level's buffer, not a gather.  The kernels are in
 `ops/context_ops.py` (K6 pooling, K7 sign histogram, K8 footprint grids, K10
 table build), `ops/encoding.py` (K1/K2 in their masked and mixed-level
-variants) and `ops/scatter_ops.py` (K3 compaction).  The integer twins the
-codec uses (`refresh_cache_int`, `pool_*_int`, `frac_plane_int`) and the
-mesh-sharded frac plane (`axis_name`) are not ported yet.
+variants) and `ops/scatter_ops.py` (K3 compaction).  The codec's integer
+path (`refresh_cache_int`, `pool_3d_level_int`, `pool_2d_level_int`,
+`frac_plane_int`) runs through `codec/intctx.py` (K9a-K9c, K7i).  The
+mesh-sharded frac plane (`axis_name`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..codec import intctx
 from ..config import EntropyConfig, GridSpec
 from ..ops import context_ops as cops
 from ..ops import encoding as enc
@@ -444,6 +446,16 @@ class ContextModels:
             {k: linear(np_params["ctx3d"][k], s, f"ctx3d/{k}") for k, s in ctx3d.items()},
             {k: linear(np_params["ctx2d"][k], s, f"ctx2d/{k}") for k, s in ctx2d.items()})
 
+    @staticmethod
+    def ent_params_to_numpy(params: ContextParams) -> Dict:
+        """The inverse of `ent_params_from_jax`: the context MLPs as cnc_tpu's
+        nested dict of numpy arrays (`w` [in, out]), the layout a bundle stores."""
+        def linear(m):
+            return {"w": m.w.detach().cpu().numpy().copy(), "b": m.b.detach().cpu().numpy().copy()}
+
+        return {"ctx3d": {k: linear(m) for k, m in params.ctx3d.items()},
+                "ctx2d": {k: linear(m) for k, m in params.ctx2d.items()}}
+
     def param_count(self, params: ContextParams) -> int:
         return sum(p.numel() for p in params.parameters())
 
@@ -515,15 +527,19 @@ class ContextModels:
             if ctx_level:
                 cache["ovl"][str(l)] = o
         cache["mask3d"] = mask3d
+        cache["mask2d"] = self._mask2d(bin2d)
+        cache["pn"] = self._refresh_pn_coords(binaries)
+        return cache
+
+    def _mask2d(self, bin2d):
+        """[3, sum r^2] per-corner footprint masks of the three planes (K8)."""
         offs2 = self.mask2d_offsets
         m2_total = offs2[-1] + self.mask2d_resolutions[-1] ** 2
-        mask2d = torch.empty(3, m2_total, dtype=torch.bool, device=dev)
+        mask2d = torch.empty(3, m2_total, dtype=torch.bool, device=bin2d.device)
         for ai in range(3):
             for o2, r in zip(offs2, self.mask2d_resolutions):
                 cops.footprint_grids(bin2d[ai], r, mask_out=mask2d[ai, o2:o2 + r * r])
-        cache["mask2d"] = mask2d
-        cache["pn"] = self._refresh_pn_coords(binaries)
-        return cache
+        return mask2d
 
     @property
     def mask3d_offsets(self):
@@ -882,6 +898,128 @@ class ContextModels:
         covered = wsum > 0
         values_q = tbl3.index_select(0, t.offset + evals.long())
         return pooled, covered, values_q
+
+    # --------------------------------------- deterministic int codec path
+    # Integer twins of refresh_cache / pool_3d_level / pool_2d_level /
+    # pn_frac_plane used by the codec (codec/intctx.py docstring): every
+    # arithmetic step is exact, so encode and decode compute bit-identical
+    # probabilities in any process, on any device and in either package.
+    def refresh_cache_int(self, binaries: torch.Tensor) -> Dict:
+        """The codec's occupancy cache: `bin2d`, the per-corner mask grids of
+        every 3D level (`mask3d`) and of the planes (`mask2d`), from K8's
+        mask-only path; `ovl_int`, the integer overlap weights of each 3D
+        context level (`intctx.int_overlap_grid`); and the pn coord lists."""
+        self._check_binaries(binaries)
+        with torch.no_grad():
+            return self._refresh_codec_impl(binaries.to(self.device))
+
+    def _refresh_codec_impl(self, binaries):
+        dev = self.device
+        cache = {}
+        bin2d = torch.stack([binaries.any(dim=2), binaries.any(dim=1), binaries.any(dim=0)])
+        cache["bin2d"] = bin2d
+        offs = self.mask3d_offsets
+        mask3d = torch.empty(offs[-1] + self.spec3.resolutions[-1] ** 3, dtype=torch.bool,
+                             device=dev)
+        cache["ovl_int"] = {}
+        for l, r in enumerate(self.spec3.resolutions):
+            cops.footprint_grids(binaries, r, mask_out=mask3d[offs[l]:offs[l] + r ** 3])
+            if l in self.ctx_levels_3d:
+                cache["ovl_int"][str(l)] = intctx.int_overlap_grid(binaries, r, self.rb)
+        cache["mask3d"] = mask3d
+        cache["mask2d"] = self._mask2d(bin2d)
+        cache["pn"] = self._refresh_pn_coords(binaries)
+        return cache
+
+    def _ctx_levels_meta(self, spec, mask_offsets, lo: int, hi: int):
+        return [(spec.resolutions[lc], spec.offsets[lc], spec.offsets[lc + 1] - spec.offsets[lc],
+                 mask_offsets[lc]) for lc in range(lo, hi)]
+
+    def _entry_window(self, kind: str, level: int, start_e: int, n_e: int, w: int, names):
+        """One level's entry window [start_e, start_e + n_e) and its vertex
+        window of capacity w (`_window_slices`): (slices, valid, slots
+        clipped to [0, n_e), entry values)."""
+        t = (self.tables3d if kind == "3d" else self.tables2d)[level]
+        a = self._arrays3d if kind == "3d" else self._arrays2d
+        cum = self._cum_np[kind]
+        start_e = int(start_e)
+        start_v = int(cum[t.c_off + start_e])
+        end_v = int(cum[t.c_off + start_e + n_e])
+        v_total = t.n_vertices if kind == "3d" else t.n_points
+        (*outs, slots), valid = _window_slices(a, tuple(names) + ("vert_entry",), t.v_off,
+                                               start_v, end_v, w, v_total)
+        slots = torch.clamp(slots - start_e, 0, n_e - 1)
+        evals = a["entry_values"][t.e_off + start_e:t.e_off + start_e + n_e]
+        return outs, valid, slots, evals
+
+    def pool_3d_sums_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
+                         m_shift):
+        """The integer pooled sums of one 3D level window: (msum [n_e, F],
+        wsum [n_e] int32, entry values [n_e]).  K9a encodes the window's
+        vertices against the k coarser levels, K9b runs the fixed-point MLP
+        and pools by the integer overlap weights."""
+        cfg = self.cfg
+        t = self.tables3d[level]
+        (pos,), valid, slots, evals = self._entry_window("3d", level, start_e, n_e, w,
+                                                         ("pos_flat",))
+        mask = cache_i["mask3d"][self.mask3d_offsets[level] + pos.long()] & valid
+        k = cfg.max_context_layer_num
+        levels = self._ctx_levels_meta(self.spec3, self.mask3d_offsets, level - k, level)
+        feats = intctx.int_encode(pos, 3, t.resolution, sign3, levels, cache_i["mask3d"])
+        ovl = cache_i["ovl_int"][str(level)] if cfg.use_overlap_area_pool else None
+        msum, wsum = intctx.int_mlp_pool(int_params, None, feats, pg_q, m_shift, mask, slots, n_e,
+                                         ovl=ovl, pos=pos if ovl is not None else None)
+        return msum, wsum, evals
+
+    def pool_3d_level_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
+                          m_shift):
+        """Integer pool_3d_level: returns (msum [n_e,F] int32, wsum [n_e]
+        int32, covered, values [n_e,F] int32 +-1); the caller derives the
+        uint16 coder probability as floor(msum*65536 / (wsum*m_scale))."""
+        msum, wsum, evals = self.pool_3d_sums_int(int_params, sign3, cache_i, level, pg_q,
+                                                  start_e, n_e, w, m_shift)
+        values = sign3.index_select(0, self.tables3d[level].offset + evals.long())
+        return msum, wsum, wsum > 0, values
+
+    def pool_2d_sums_int(self, int_params, sign2, level, pg_q, plane_q, mask2d_ax, start_e, n_e,
+                         w, m_shift):
+        """The integer pooled sums of one 2D level window: (msum [n_e, F],
+        cnt [n_e] int32, entry values [n_e]).
+
+        Coverage and pooling use the PER-CORNER footprint mask (mask2d), not
+        the float twin's block occupancy: the context gathers of finer levels
+        treat a corner as valid whenever mask2d[corner] is true, so every
+        such corner's entry must be in the bitstream or decode reads an
+        un-decoded (+1) entry where encode read the trained sign and the
+        coder desyncs.  plane_q: the int dimension-wise prior plane or None.
+        """
+        cfg = self.cfg
+        t = self.tables2d[level]
+        (coords,), valid, slots, evals = self._entry_window("2d", level, start_e, n_e, w,
+                                                            ("coords",))
+        x = (coords >> 16).long()
+        y = (coords & 0xFFFF).long()
+        mask_v = mask2d_ax[self.mask2d_offsets[level] + x * t.resolution + y] & valid
+        cln = min(level, cfg.max_context_layer_num)
+        levels = self._ctx_levels_meta(self.spec2, self.mask2d_offsets, level - cln, level)
+        plane = (plane_q, self.pn_res, self.pn_mask_offset) if plane_q is not None else None
+        feats = intctx.int_encode(coords, 2, t.resolution, sign2, levels, mask2d_ax, plane)
+        msum, cnt = intctx.int_mlp_pool(int_params, level, feats, pg_q, m_shift, mask_v, slots,
+                                        n_e)
+        return msum, cnt, evals
+
+    def pool_2d_level_int(self, int_params, sign2, level, pg_q, plane_q, mask2d_ax, start_e, n_e,
+                          w, m_shift):
+        """Integer pool_2d_level (full coverage): (msum, cnt, covered,
+        values), as `pool_3d_level_int`."""
+        msum, cnt, evals = self.pool_2d_sums_int(int_params, sign2, level, pg_q, plane_q,
+                                                 mask2d_ax, start_e, n_e, w, m_shift)
+        values = sign2.index_select(0, self.tables2d[level].offset + evals.long())
+        return msum, cnt, cnt > 0, values
+
+    def frac_plane_int(self, sign3: torch.Tensor, pn_ax: Dict) -> torch.Tensor:
+        """The integer dimension-wise prior plane [pn_res**2, F] (K7i)."""
+        return intctx.frac_plane(sign3, pn_ax, self.fine_offset, self.pn_res, self.cfg.n_features)
 
     # ------------------------------------------------------- 3D level bits
     def _bits_3d_sampled(self, ent_params, tbl3, pg_by_level, cache, starts):

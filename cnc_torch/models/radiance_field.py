@@ -222,3 +222,14 @@ def split_mlp_params(field: RadianceField) -> Dict[str, torch.Tensor]:
     """Non-embedding parameters, by name (the 13-bit MLP quantization path,
     driver train_CNC_nerf_synthetic.py:508-556)."""
     return {name: p for name, p in field.named_parameters() if not name.startswith("tables.")}
+
+
+def mlp_params_to_numpy(field: RadianceField) -> Dict:
+    """The two MLPs in cnc_tpu's `split_mlp_params` layout, as numpy arrays:
+    {"mlp_base": {"l0": {"w": [in, out], "b"}, ...}, "mlp_head": {...}} (the
+    inverse of `params_from_jax` for the MLPs; what a bundle stores)."""
+    def mlp(m):
+        return {k: {"w": lin.w.detach().cpu().numpy().copy(),
+                    "b": lin.b.detach().cpu().numpy().copy()} for k, lin in m.items()}
+
+    return {"mlp_base": mlp(field.mlp_base), "mlp_head": mlp(field.mlp_head)}

@@ -102,7 +102,10 @@ def _gather_levels(table: torch.Tensor, gidx_list, w_list, points: torch.Tensor)
     f = table.shape[-1]
     w2 = torch.cat(w_list, dim=1)
     acc = scatter_ops.grouped_gather_interp(table.float(), torch.cat(gidx_list, dim=1), w2, g)
-    wn = w2.reshape(n, g, c).sum(dim=-1)
+    w3 = w2.reshape(n, g, c)
+    wn = w3[:, :, 0]
+    for i in range(1, c):            # in order, as K1 sums them
+        wn = wn + w3[:, :, i]
     wn = torch.where(wn == 0.0, 1e-9, wn)
     out = acc.reshape(n, g, f) / wn[..., None]
     oob = ((points < 0.0) | (points > 1.0)).any(dim=-1)

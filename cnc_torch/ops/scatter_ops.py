@@ -100,7 +100,11 @@ class _GroupedGatherInterp(torch.autograd.Function):
         ctx.groups, ctx.rows = groups, table.shape[0]
         n, k = gidx2.shape
         feats = table[gidx2.clamp(0, table.shape[0] - 1)]          # [N, K, F]
-        out = (w2[..., None] * feats).reshape(n, groups, k // groups, -1).sum(dim=2)
+        prod = (w2[..., None] * feats).reshape(n, groups, k // groups, -1)
+        # the corners one by one, in order, as K1 adds them (bit-equal forward)
+        out = prod[:, :, 0]
+        for c in range(1, k // groups):
+            out = out + prod[:, :, c]
         return out.reshape(n, -1)
 
     @staticmethod

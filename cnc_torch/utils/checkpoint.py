@@ -1,16 +1,17 @@
-"""Read a cnc_tpu checkpoint into the port (read-only for now).
+"""Read a cnc_tpu checkpoint into the port, and the npz key layout bundles share.
 
 `cnc_tpu/utils/checkpoint.py` writes one npz: every param leaf under
 `params|<keystr>` (e.g. `params|['xyz']`, `params|['mlp_base']['l0']['w']`,
 `cnc_tpu/utils/checkpoint.py:19-23`), the occupancy grid bit-packed under
 `binaries` with its resolution in `bin_res` (:54-56, :76-78).  `load_field`
-reads it with numpy alone; saving and resuming come with training.
+reads it with numpy alone; `_flatten` writes nested dicts under the same keys
+(the codec's bundle uses it); saving and resuming come with slice 5.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,24 @@ from ..models.radiance_field import RadianceField, params_from_jax
 from ..utils.device import resolve_device
 
 _KEY = re.compile(r"\['([^']*)'\]")
+
+
+def _flatten(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    """{"a": {"b": x}} -> {"prefix|['a']['b']": x as numpy}: the keys JAX's
+    `keystr` gives a dict path, as cnc_tpu's `_flatten` writes them.  Leaves
+    are numpy arrays or tensors (copied to the host)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{str(k)!r}]")
+        else:
+            out[f"{prefix}|{path}"] = (node.detach().cpu().numpy()
+                                       if isinstance(node, torch.Tensor) else np.asarray(node))
+
+    walk(tree, "")
+    return out
 
 
 def _nest(flat: Dict[str, np.ndarray], prefix: str) -> Dict:

@@ -8,7 +8,8 @@ without the suite's conftest (which imports JAX):
 
 `chip_smoke.py` checks the kernels at the main path's full-width shapes;
 these cover the edge cases: other feature widths and dimensions, hashed
-levels of non-power-of-two size, empty and boundary-sized masks, both
+levels of non-power-of-two size, the forward bit-equal to its twin in every
+variant, empty and boundary-sized masks, both
 truncation regimes of the march, padding in the composite; for the backward
 kernels: both feature widths, one level, points all out of range, rays
 without samples, an all-padding buffer, a carried transmittance; the
@@ -18,7 +19,12 @@ a segment without a valid row and both ranks of x; the sign histogram with
 empty bins and more rows than the cap; the footprint grids on an empty and a
 full occupancy in 2D and 3D; the masked encode with every corner masked and
 the mixed-level encode with its first level at both ends; the table build on
-a dense, a hashed and a 2D level; a few rate steps on the card.
+a dense, a hashed and a 2D level; a few rate steps on the card.  For the
+codec's integer kernels (K9a-K9c, K7i), held to their twins with
+torch.equal: odd widths, an empty chunk, a chunk of uncovered rows, weights
+at +-W_MAX with inputs at the clip, saturated and zero probabilities; the
+wrappers' refusals; and a tiny encode on the card whose streams equal the
+same encode through the twins on the CPU, decoded back on the card.
 """
 
 import dataclasses
@@ -28,6 +34,8 @@ import pytest
 import torch
 
 from cnc_torch import kernels
+from cnc_torch.codec import codec as codec_mod
+from cnc_torch.codec import intctx
 from cnc_torch.config import (CNCConfig, EntropyConfig, GridSpec, ModelConfig, RenderConfig,
                               TrainConfig)
 from cnc_torch.data import cameras, scenes
@@ -505,6 +513,24 @@ def test_grid_encode_variants(dev, d, f, variant):
                                atol=1e-4 * max(float(want_d.abs().max()), 1e-6))
 
 
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("variant", ["plain", "masked", "mixed"])
+def test_grid_encode_forward_is_bit_equal_to_its_twin(dev, d, f, variant):
+    """K1's forward (built without FMA, corners summed in the twin's order)
+    equals the twin exactly, points on the border and outside included."""
+    res, offsets, moffs, pts, table, mask, g = _masked_encode_inputs(dev, d, f)
+    kw = {}
+    if variant != "plain":
+        kw = dict(occ_mask=mask, mask_offsets=moffs)
+    if variant == "mixed":
+        kw.update(min_level_ids=torch.randint(-1, len(res), (pts.shape[0],), generator=g,
+                                              device=dev, dtype=torch.int32), n_levels_calc=2)
+    got = enc._encode_cuda(pts, table, res, offsets, **kw)
+    want = enc._encode_plain(pts, table, res, offsets, **kw)
+    assert torch.equal(got, want)
+
+
 def test_grid_encode_given_table_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     r = 66
@@ -620,3 +646,205 @@ def test_trainer_rate_steps_on_the_card(dev):
     for k in ("grid_encode_v", "grid_encode_v_bwd", "segment_pool", "segment_pool_bwd", "pn_hist",
               "footprint", "compact"):
         assert kernels.launches[k] > 0, k
+
+
+# ----------------------------------------------------------- the codec (K9)
+def _int_levels(d, f, g):
+    """Context levels of a small lattice: dense, hashed at a power-of-two
+    size and hashed at 1000 entries; a sign table and a random mask."""
+    res = (6, 40, 40) if d == 3 else (20, 200, 200)
+    sizes = (res[0] ** d, 1024, 1000)
+    offs = np.cumsum((0,) + sizes)
+    moffs = np.cumsum((0,) + tuple(r ** d for r in res))
+    levels = [(res[i], int(offs[i]), sizes[i], int(moffs[i])) for i in range(3)]
+    sign = torch.where(torch.rand(int(offs[-1]), f, generator=g) > 0.4, 1, -1).to(torch.int32)
+    mask = torch.rand(int(moffs[-1]), generator=g) < 0.7
+    return levels, sign, mask
+
+
+@pytest.mark.parametrize("d,plane", [(3, False), (2, False), (2, True)])
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("n", [0, 1, 1001])
+def test_int_encode_kernel(dev, d, plane, f, n):
+    """K9a equals its twin exactly, coords on the border included (coord 0
+    on a finer target grid gives the negative numerators)."""
+    g = torch.Generator().manual_seed(d * 100 + f * 10 + n)
+    levels, sign, mask = _int_levels(d, f, g)
+    rf = 66 if d == 3 else 258
+    c = torch.randint(0, rf, (n, d), generator=g, dtype=torch.int32)
+    c[: n // 10] = 0
+    packed = (c[:, 0] * rf + c[:, 1]) * rf + c[:, 2] if d == 3 else (c[:, 0] << 16) | c[:, 1]
+    pl = None
+    if plane:
+        pn_res = 34
+        mask = torch.cat([mask, torch.rand(pn_res * pn_res, generator=g) < 0.8])
+        plane_q = torch.randint(0, 257, (pn_res * pn_res, f), generator=g, dtype=torch.int32)
+        pl = (plane_q, pn_res, mask.shape[0] - pn_res * pn_res)
+    want = intctx.int_encode(packed, d, rf, sign, levels, mask, pl)
+    got = intctx.int_encode(packed.to(dev), d, rf, sign.to(dev), levels, mask.to(dev),
+                            None if pl is None else (pl[0].to(dev), pl[1], pl[2]))
+    assert got.shape == want.shape == (n, 3 * f + (f if plane else 0))
+    assert torch.equal(got.cpu(), want)
+
+
+def _int_params(g, n_in, f, three_d, extreme=False):
+    def lin(i, o):
+        if extreme:
+            w = torch.where(torch.rand(i, o, generator=g) > 0.5, 1, -1) * int(intctx.W_MAX * 512)
+            b = torch.where(torch.rand(o, generator=g) > 0.5, 1, -1) * int(intctx.W_MAX * 256 * 512)
+        else:
+            w = torch.randint(-400, 400, (i, o), generator=g)
+            b = torch.randint(-50000, 50000, (o,), generator=g)
+        return {"w": w.to(torch.int32), "b": b.to(torch.int32)}
+
+    if three_d:
+        return {"ctx3d": {"l0": lin(n_in, 32), "l1": lin(32, 32), "l2": lin(32, f)}, "ctx2d": {}}
+    return {"ctx3d": {}, "ctx2d": {"2": lin(n_in, f)}}
+
+
+def _on(tree, dev):
+    return {k: (_on(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("three_d", [True, False])
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("case", ["random", "extreme", "uncovered", "empty", "odd_overlap"])
+def test_int_mlp_pool_kernel(dev, three_d, f, case):
+    """K9b equals its twin exactly: the fixed-point MLP (with weights at
+    +-W_MAX and inputs at the clip, where the LeakyReLU's product wraps),
+    the floor shift and the integer pooling, with and without overlap
+    weights; a chunk of uncovered rows and an empty chunk give zeros."""
+    g = torch.Generator().manual_seed(int(three_d) * 7 + f + len(case))
+    w = 0 if case == "empty" else 2049
+    n_in = 3 * f + 1 if three_d else 2 * f + 1
+    ip = _int_params(g, n_in, f, three_d, extreme=case == "extreme")
+    lim = intctx.H_CLIP if case == "extreme" else 257
+    feats = torch.randint(-lim, lim + 1, (w, n_in - 1), generator=g, dtype=torch.int32)
+    mask = torch.rand(w, generator=g) < (0.0 if case == "uncovered" else 0.7)
+    n_e = 97
+    slots = torch.sort(torch.randint(0, n_e, (w,), generator=g))[0].to(torch.int32)
+    ovl = pos = None
+    if case in ("odd_overlap", "extreme") or three_d:
+        ovl = torch.randint(0, 64, (5000,), generator=g, dtype=torch.int32)
+        pos = torch.randint(0, 5000, (w,), generator=g, dtype=torch.int32)
+    level = None if three_d else 2
+    for m_shift in (0, 3):
+        want = intctx.int_mlp_pool(ip, level, feats, 131, m_shift, mask, slots, n_e, ovl, pos)
+        got = intctx.int_mlp_pool(_on(ip, dev), level, feats.to(dev), 131, m_shift, mask.to(dev),
+                                  slots.to(dev), n_e, None if ovl is None else ovl.to(dev),
+                                  None if pos is None else pos.to(dev))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        if case in ("uncovered", "empty"):
+            assert not want[0].any() and not want[1].any()
+
+
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("n_e", [0, 1, 4099])
+def test_int_pq_kernel(dev, f, n_e):
+    """K9c equals its twin (cnc_tpu's long division) and host_pq over the
+    whole operand range, with zero and negative sums, zero weights, exact
+    saturation and the row just below it; coverage and sign bits exact."""
+    rng = np.random.default_rng(n_e + f)
+    for m_scale in (1, 37, 2048):
+        wmax = (1 << 27) // m_scale
+        msum = rng.integers(-(1 << 30), 1 << 30, (n_e, f), dtype=np.int32)
+        wsum = rng.integers(0, wmax, (n_e,), dtype=np.int32)
+        if n_e > 8:
+            msum[0] = 0
+            msum[1] = -1
+            wsum[2] = 0
+            msum[3] = int(wsum[3]) * m_scale
+            msum[4] = int(wsum[4]) * m_scale - 1
+        sign = torch.where(torch.from_numpy(rng.random((5000, f))) > 0.5, 1, -1).to(torch.int32)
+        evals = torch.from_numpy(rng.integers(0, 4000, n_e).astype(np.int32))
+        args = (torch.from_numpy(msum), torch.from_numpy(wsum), m_scale)
+        want = intctx.int_pq(*args, sign, 1000, evals)
+        got = intctx.int_pq(*(a.to(dev) for a in args[:2]), m_scale, sign.to(dev), 1000,
+                            evals.to(dev))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), intctx.host_pq(msum, wsum, m_scale))
+        pq_only = intctx.int_pq(*(a.to(dev) for a in args[:2]), m_scale)
+        assert pq_only[2] is None and torch.equal(pq_only[0], got[0])
+
+
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("listed", ["some", "all", "none"])
+def test_pn_hist_int_kernel(dev, f, listed):
+    """K7i equals its twin: bins of every length, empty ones included, with
+    the valid rows cut by the listed count."""
+    g = torch.Generator().manual_seed(f)
+    pn_res, cap = 34, 3000
+    scale = pn_res - 2
+    bins = torch.sort(torch.randint(0, scale * scale + 1, (cap,), generator=g))[0]
+    bounds = torch.searchsorted(bins, torch.arange(scale * scale + 1)).to(torch.int32)
+    n = {"some": 2100, "all": 5000, "none": 0}[listed]
+    pn = {"entry_idx": torch.randint(0, 700, (cap,), generator=g, dtype=torch.int32),
+          "n": torch.tensor(n, dtype=torch.int32), "bounds": bounds}
+    sign = torch.where(torch.rand(900, f, generator=g) > 0.45, 1, -1).to(torch.int32)
+    want = intctx.frac_plane(sign, pn, 150, pn_res, f)
+    got = intctx.frac_plane(sign.to(dev), {k: v.to(dev) for k, v in pn.items()}, 150, pn_res, f)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int_wrappers_reject_what_the_kernels_do_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    levels, sign, mask = _int_levels(3, 4, g)
+    packed = torch.zeros(10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        intctx.int_encode(packed, 3, 66, sign.to(dev), levels, mask)          # mask on the CPU
+    with pytest.raises(ValueError, match="int32"):
+        intctx.int_encode(packed, 3, 66, sign.to(dev).float(), levels, mask.to(dev))
+    with pytest.raises(ValueError, match="levels"):
+        intctx.int_encode(packed, 3, 66, sign.to(dev), levels * 2, mask.to(dev))
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        intctx.int_pq(torch.zeros(4, 4, dtype=torch.int32, device=dev),
+                      torch.zeros(4, dtype=torch.int32), 2048)
+
+
+def test_codec_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A tiny encode on the card writes the same streams as through the twins
+    on the CPU; decoding them on the card gives the trained signs on every
+    covered entry, and the frac planes of the decoded table equal the
+    trained table's."""
+    import filecmp
+    import os
+    rng = np.random.default_rng(3)
+    occ = torch.from_numpy(rng.random((16, 16, 16)) < 0.2)
+    tabs = {k: torch.from_numpy(np.where(rng.standard_normal((s.total_entries, 2)) > -0.3, 1.0,
+                                         -1.0).astype(np.float32))
+            for k, s in (("xyz", TINY3), ("xy", TINY2), ("xz", TINY2), ("yz", TINY2))}
+    ecfg = dataclasses.replace(TINY_E, max_points_per_chunk=1 << 13)
+    out = []
+    for i, device in enumerate(("cpu", dev)):
+        model = cm.ContextModels(ecfg, TINY3, TINY2, device=device)
+        params = model.init_params(torch.Generator().manual_seed(5))
+        codec = codec_mod.CNCCodec(model)
+        d = tmp_path / f"run{i}"
+        kernels.reset_launches()
+        cache = model.refresh_cache_int(occ.to(device))
+        res = codec.encode(params, {k: v.to(device) for k, v in tabs.items()}, occ.to(device),
+                           str(d), cache=cache)
+        out.append((model, params, codec, cache, res, d))
+    assert all(kernels.launches[k] > 0 for k in ("int_encode", "int_mlp_pool", "int_pq",
+                                                  "pn_hist_int"))
+    names = sorted(os.listdir(out[0][5]))
+    assert names == sorted(os.listdir(out[1][5])) and len(names) > 5
+    for name in names:
+        assert filecmp.cmp(out[0][5] / name, out[1][5] / name, shallow=False), name
+    assert out[0][4] == out[1][4]
+    model, params, codec, cache, (pgs, _, _), d = out[1]
+    rec = codec.decode(params, occ.to(dev), pgs, str(d), cache=cache)
+    sign3 = intctx.sign_table(tabs["xyz"].to(dev))
+    for ax in cm.AXES:
+        assert torch.equal(model.frac_plane_int(intctx.sign_table(rec["xyz"]), cache["pn"][ax]),
+                           model.frac_plane_int(sign3, cache["pn"][ax]))
+    for l in model.ctx_levels_3d:
+        t = model.tables3d[l]
+        _, wsum, evals = model.pool_3d_sums_int(codec._int_params(params), sign3, cache, l, 0, 0,
+                                                t.n_entries, t.n_vertices, 0)
+        rows = t.offset + evals.long()
+        cov = wsum > 0
+        assert torch.equal(rec["xyz"][rows][cov], tabs["xyz"].to(dev)[rows][cov])
+        assert bool((rec["xyz"][rows][~cov] == 1).all())
