@@ -8,7 +8,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build the kernels from cnc_torch/csrc (nvcc, sm_90a);
   3. hold each serving kernel (K1, K3, K4, K5) against its plain PyTorch twin
      on the card, at the shapes the serving path gives it, and time both with
-     CUDA events;
+     CUDA events (the encode kernels also by their device work alone,
+     without the wrapper's host time: `device_ms`; their forward must equal
+     the twin bit for bit);
   4. the serving path: render one 800x800 view of a full-width field
      (ModelConfig(), RenderConfig(), random weights from seed 0) through
      `render_image`, over the procedural `blocks` scene's 128^3 occupancy,
@@ -24,8 +26,9 @@ Phases (any failure raises and the script exits non-zero):
   7. [train] the training path at full width: `Trainer(CNCConfig() with
      lmbda=0, ProceduralDataset("blocks")).fit`.  After the first 16 steps
      the training kernels are held against their twins at one real training
-     march's buffer: K4 with jitter (exact), [K2] the encode backward on the
-     xyz table and one plane, [K5b] the composite backward at the full and
+     march's buffer: K4 with jitter (exact), K1 on the xyz table, [K2] the
+     encode backward on the xyz table and one plane, [K5b] the composite
+     backward at the full and
      at a half-padded buffer.  Then the counts are set to 0, `fit` runs on
      to TRAIN_STEPS, and the counts are read: every training kernel must
      have launched, the loss must have fallen, and the test views' PSNR must
@@ -40,9 +43,11 @@ Phases (any failure raises and the script exits non-zero):
      against their twins), then `Trainer(CNCConfig(), ProceduralDataset(
      "blocks"), entropy=...)` with the default lmbda = 2e-3.  After 16 steps
      the rate kernels are held against their twins at that step's real
-     shapes ([K8] on the lambda = 0 run's trained occupancy grid; [K6], [K7],
-     [K1v], [K2v] on the arguments one rate estimate gives them); those
-     launches are taken out of the counts again.  `fit` then runs on to RATE_STEPS and
+     shapes ([K8] and [pack], the packing of the masks, on the lambda = 0
+     run's trained occupancy grid; [K6], [K7], and [K1v], [K2v] at each call
+     site (the 3D mixed-level context, the 2D windows, the frac planes) with
+     its launches per step, on the arguments one rate estimate gives them);
+     those launches are taken out of the counts again.  `fit` then runs on to RATE_STEPS and
      the counts are read: every rate kernel must have launched (the step's
      kernels in every step), bits_per_param must be finite and lower than at
      step 16, and the test views' PSNR must exceed RATE_PSNR_MIN.  At step 16
@@ -76,12 +81,14 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import inspect
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -94,6 +101,9 @@ VIEW = 800
 CROP = 64
 CROP_RGB_TOL = 1e-3
 PROBE_LOG2_TABLE, PROBE_N = 18, 1 << 23   # tools/pallas_probe.py's default shapes
+# device_ms's spin before each timed call: about 1 ms at the H100's clocks,
+# far above a wrapper's host time
+SPIN_CYCLES = 2_000_000
 TRAIN_WARM_STEPS = 16       # steps before the training kernels are checked
 # total steps, the whole lr warm-up; the driven run is TRAIN_STEPS - TRAIN_WARM_STEPS
 TRAIN_STEPS = 1000
@@ -170,6 +180,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Median milliseconds of the device work of one fn() call, the
+    wrapper's host time left out: CUDA events around the call, recorded
+    behind a spin kernel (torch.cuda._sleep, about a millisecond) that keeps
+    the card busy until the call has enqueued its work, so the start event
+    fires just before it.  (torch.profiler's kernel times cannot serve: in a
+    process that has profiled before, it records only some launches, at
+    times none.)"""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -189,16 +222,21 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
     res, offs = spec.resolutions, spec.offsets
     n_out = kw.get("n_levels_calc") or len(res)
     got = enc._encode_cuda(pts, table, res, offs, **kw)
-    want = enc._encode_plain(pts, table, res, offs, **kw)
+    plain_kw = {k: v for k, v in kw.items() if k != "occ_bits"}   # the twin reads the bools
+    want = enc._encode_plain(pts, table, res, offs, **plain_kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not (got.isfinite().all() and err <= 1e-5):
         raise AssertionError(f"{name} {label}: max abs err {err} > 1e-5")
+    # built without FMA and summing the corners in the twin's order, the
+    # forward equals its twin bit for bit (see csrc/grid_encode.cu)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {label}: the forward is not bit-equal to its twin")
     del want
     # bytes the function needs: points and output once, each distinct table
     # row it reads once (data dependent: the rows these points touch), and
     # for a variant its level ids and one mask byte per distinct corner read
-    gs, ws = enc._corner_sets(pts, res, offs, **kw)
+    gs, ws = enc._corner_sets(pts, res, offs, **plain_kw)
     live = torch.cat([g[w > 0] for g, w in zip(gs, ws)])
     n_rows, n_corners = torch.unique(live).numel(), live.numel()
     del gs, ws, live
@@ -210,12 +248,15 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
         n_bytes += n_rows        # at least one mask byte per distinct row read
     n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
     b, by = bound_ms(n_bytes, n_flops)
-    rec = dict(max_abs_err=err, ms=time_ms(lambda: enc._encode_cuda(pts, table, res, offs, **kw)),
-               plain_ms=time_ms(lambda: enc._encode_plain(pts, table, res, offs, **kw),
+    kernel = lambda: enc._encode_cuda(pts, table, res, offs, **kw)
+    rec = dict(max_abs_err=err, ms=time_ms(kernel),
+               device_ms=device_ms(kernel),
+               plain_ms=time_ms(lambda: enc._encode_plain(pts, table, res, offs, **plain_kw),
                                 iters=5 if kw else 20, warmup=1 if kw else 3),
                bound_ms=b, bound_by=by, library_ms=None)
     log(f"[{name} grid_encode {label}] N={n} L={n_out} D={d} rows={table.shape[0]}"
-        f" live_corners={n_corners} distinct_rows={n_rows} err={err:.3g} ms={rec['ms']:.4f}"
+        f" live_corners={n_corners} distinct_rows={n_rows} err={err:.3g} (bit-equal)"
+        f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f}"
         f" plain_ms={rec['plain_ms']:.4f} bound_ms={b:.4f}")
     return rec
 
@@ -536,8 +577,9 @@ def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", *
     n_out, d = kw.get("n_levels_calc") or len(res), pts.shape[1]
     cot = torch.randn(n, n_out * f, generator=gen, device=pts.device)
     got = enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw)
+    plain_kw = {k: v for k, v in kw.items() if k != "occ_bits"}   # the twin reads the bools
     leaf = table.detach().clone().requires_grad_()
-    out = enc._encode_plain(pts, leaf, res, offs, **kw)
+    out = enc._encode_plain(pts, leaf, res, offs, **plain_kw)
     twin = lambda: torch.autograd.grad(out, leaf, cot, retain_graph=True)[0]
     want = twin()
     torch.cuda.synchronize()
@@ -549,7 +591,7 @@ def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", *
     # the updates the function makes: (row, g*w/wn) per surviving corner, as
     # one index_add_ would take them (the library yardstick), and the
     # distinct rows they touch (read-modify-write in the bound)
-    gs, ws = enc._corner_sets(pts, res, offs, **kw)
+    gs, ws = enc._corner_sets(pts, res, offs, **plain_kw)
     vs = []
     oob = ((pts < 0.0) | (pts > 1.0)).any(dim=-1)
     for li, wi in enumerate(ws):
@@ -570,16 +612,17 @@ def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", *
     n_bytes = pts.numel() * 4 + cot.numel() * 4 + 2 * n_rows * f * 4
     n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
     b, by = bound_ms(n_bytes, n_flops)
-    rec = dict(max_abs_err=err, rel_err=err / scale,
-               ms=time_ms(lambda: enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw),
-                          iters=10),
+    kernel = lambda: enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw)
+    rec = dict(max_abs_err=err, rel_err=err / scale, ms=time_ms(kernel, iters=10),
+               device_ms=device_ms(kernel),
                plain_ms=plain_ms, bound_ms=b, bound_by=by,
                library_ms=time_ms(library, iters=5, warmup=1))
     log(f"[{name} grid_encode_bwd {label}] N={n} L={n_out} D={d} rows={rows}"
         f" updates={n_updates} distinct_rows={n_rows} most_updates_on_one_row={worst}"
         f" rel_err={err / scale:.3g}"
         f" (limit {K2_REL_TOL}; index_add_ against the twin {lib_err:.3g}) ms={rec['ms']:.4f}"
-        f" plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} bound_ms={b:.4f}")
+        f" device_ms={rec['device_ms']:.4f} plain_ms={rec['plain_ms']:.4f}"
+        f" library_ms={rec['library_ms']:.4f} bound_ms={b:.4f}")
     return rec
 
 
@@ -650,11 +693,16 @@ def check_training_kernels(torch, tr, enc, marching, volrend, rf, gen):
         pos, _ = marching.sample_positions(got, o, d)
         x01 = ((pos - tr.aabb[:3]) / (tr.aabb[3:] - tr.aabb[:3])).contiguous()
         tables = rf.quantized_tables(tr.field, cfg.model)
+        # K1 at the training march's points too (the step's forward)
+        records["grid_encode_train"] = check_grid_encode(
+            torch, enc, cfg.model.grid_3d, tables["xyz"], x01, "xyz, training march",
+            perturb=False)
     k2_xyz = check_grid_encode_bwd(torch, enc, cfg.model.grid_3d, tables["xyz"], x01, gen, "xyz")
     k2_xy = check_grid_encode_bwd(torch, enc, cfg.model.grid_2d, tables["xy"],
                                   x01[:, [0, 1]].contiguous(), gen, "xy")
     records["grid_encode_bwd"] = dict(k2_xyz, max_abs_err=max(k2_xyz["max_abs_err"],
-                                                               k2_xy["max_abs_err"]))
+                                                               k2_xy["max_abs_err"]),
+                                      sites={"xyz": k2_xyz, "xy": k2_xy})
     k5b = {label: check_volrend_bwd(torch, volrend, smp, bucket, cfg.render, gen, label)
            for label, smp in (("full", got), ("padded", padded))}
     records["volrend_bwd"] = dict(k5b["full"], max_abs_err=max(v["max_abs_err"]
@@ -797,7 +845,9 @@ def check_footprint(torch, cops, entropy, binaries):
 def capture_rate_calls(torch, tr, rf, cops, enc):
     """The arguments one real rate step gives the rate kernels: the wrappers
     are swapped for recorders while one rate estimate runs on the trainer's
-    current tables, cache and freshly drawn windows."""
+    current tables, cache and freshly drawn windows.  The tables are made
+    with their gradient, as a step makes them, so a recorded encode's table
+    requires one where the step's backward runs K2v on it."""
     calls = {"segment_pool": [], "pn_hist": [], "encode": []}
     originals = (cops.segment_pool, cops.pn_hist, enc._encode)
 
@@ -811,8 +861,8 @@ def capture_rate_calls(torch, tr, rf, cops, enc):
     cops.pn_hist = recorder("pn_hist", originals[1])
     enc._encode = recorder("encode", originals[2])
     try:
+        tables = rf.quantized_tables(tr.field, tr.cfg.model)
         with torch.no_grad():
-            tables = rf.quantized_tables(tr.field, tr.cfg.model)
             starts = tr.entropy.draw_starts(tr.generator)
             tr.entropy.rate_estimate(tr.ent_params, tables, starts, tr._last_ent_cache)
     finally:
@@ -820,10 +870,45 @@ def capture_rate_calls(torch, tr, rf, cops, enc):
     return calls
 
 
+ENCODE_SITES = ("3D mixed levels", "2D window", "frac plane")
+
+
+def encode_sites(tr, enc, calls):
+    """The encode calls one rate step made (`capture_rate_calls`), each as
+    its bound arguments, by call site: the mixed-level 3D context encode, the
+    masked plane windows (three axes by the 2D context levels) and the
+    frac-plane lookups (one dense level over a [pn_res^2, F] table).  A
+    site's K1v launches per step are its calls, its K2v launches the calls
+    whose table takes a gradient."""
+    sig = inspect.signature(enc._encode)
+    sites = {label: [] for label in ENCODE_SITES}
+    for args, kw in calls["encode"]:
+        a = sig.bind(*args, **kw)
+        a.apply_defaults()
+        a = a.arguments
+        given = len(a["resolutions"]) == 1 and a["table"].shape[0] == tr.entropy.pn_res ** 2
+        label = (ENCODE_SITES[0] if a["min_level_ids"] is not None
+                 else ENCODE_SITES[2] if given else ENCODE_SITES[1])
+        sites[label].append(a)
+    return sites
+
+
+def encode_args(torch, a):
+    """(points, table, levels, kw) of one recorded encode call, as the
+    wrappers and the twin take them."""
+    kw = dict(occ_mask=a["occ_mask"].contiguous(),
+              mask_offsets=tuple(int(m) for m in a["mask_offsets"]), occ_bits=a["occ_bits"])
+    if a["min_level_ids"] is not None:
+        kw.update(min_level_ids=a["min_level_ids"].to(torch.int32).contiguous(),
+                  n_levels_calc=a["n_levels_calc"])
+    levels = types.SimpleNamespace(resolutions=tuple(a["resolutions"]),
+                                   offsets=tuple(a["offsets"]))
+    return a["points"].detach().contiguous(), a["table"].detach().contiguous(), levels, kw
+
+
 def check_rate_kernels(torch, tr, rf, cops, enc, gen):
     """K6, K7, K1v and K2v against their twins at the shapes of one real
     rate step of the trainer."""
-    import types
     calls = capture_rate_calls(torch, tr, rf, cops, enc)
     dev = tr.device
     records = {}
@@ -938,38 +1023,55 @@ def check_rate_kernels(torch, tr, rf, cops, enc, gen):
         f" ms={records['pn_hist_bwd']['ms']:.4f}")
     del ind, vals, flat, bin_of_row, leaf
 
-    # ---- K1v / K2v: the mixed-level 3D context encode, one masked plane
-    # window and the frac-plane lookup
-    def variant(call):
-        pts, table, res, offs, mask, moffs = call[0][:6]
-        kw = dict(occ_mask=mask.contiguous(), mask_offsets=tuple(int(m) for m in moffs))
-        if len(call[0]) == 8:
-            kw.update(min_level_ids=call[0][6].to(torch.int32).contiguous(),
-                      n_levels_calc=call[0][7])
-        levels = types.SimpleNamespace(resolutions=tuple(res), offsets=tuple(offs))
-        return pts.detach().contiguous(), table.detach().contiguous(), levels, kw
-
-    def is_given(c):     # the frac-plane lookup: one dense level over a [pn_res^2, F] table
-        return len(c[0][2]) == 1 and c[0][1].shape[0] == tr.entropy.pn_res ** 2
-
-    diff = [c for c in calls["encode"] if len(c[0]) == 8]
-    given = [c for c in calls["encode"] if len(c[0]) == 6 and is_given(c)]
-    planes = [c for c in calls["encode"] if len(c[0]) == 6 and not is_given(c)]
+    # ---- K1v / K2v at each call site of the step (see encode_sites); the
+    # largest call of each site is checked and timed
+    sites = encode_sites(tr, enc, calls)
     k1v, k2v = {}, {}
-    for label, call in (("3D mixed levels", diff[0]),
-                        ("2D window", max(planes, key=lambda c: c[0][0].shape[0])),
-                        ("frac plane", max(given, key=lambda c: c[0][0].shape[0]))):
-        pts, table, levels, kw = variant(call)
-        k1v[label] = check_grid_encode(torch, enc, levels, table, pts, label, perturb=False,
-                                       name="K1v", **kw)
-        k2v[label] = check_grid_encode_bwd(torch, enc, levels, table, pts, gen, label,
-                                           name="K2v", **kw)
+    for label in ENCODE_SITES:
+        pts, table, levels, kw = encode_args(torch, max(sites[label],
+                                                        key=lambda a: a["points"].shape[0]))
+        k1v[label] = dict(check_grid_encode(torch, enc, levels, table, pts, label,
+                                            perturb=False, name="K1v", **kw),
+                          launches_per_step=len(sites[label]))
+        k2v[label] = dict(check_grid_encode_bwd(torch, enc, levels, table, pts, gen, label,
+                                                name="K2v", **kw),
+                          launches_per_step=sum(c["table"].requires_grad for c in sites[label]))
+    log("[K1v, K2v] launches per step by call site: "
+        + json.dumps({k: [k1v[k]["launches_per_step"], k2v[k]["launches_per_step"]]
+                      for k in k1v}))
     first = "3D mixed levels"
     records["grid_encode_v"] = dict(k1v[first], max_abs_err=max(v["max_abs_err"]
-                                                                 for v in k1v.values()))
+                                                                 for v in k1v.values()),
+                                    sites=k1v)
     records["grid_encode_v_bwd"] = dict(k2v[first], max_abs_err=max(v["max_abs_err"]
-                                                                     for v in k2v.values()))
+                                                                     for v in k2v.values()),
+                                        sites=k2v)
     return records
+
+
+def check_pack(torch, enc, cache):
+    """The mask packing against its twin (torch.equal) on a refreshed cache:
+    the 3D levels' masks and the three planes'; each packed again equals the
+    cache's copy.  Returns the 3D record, the planes' under "sites"."""
+    recs = {}
+    for key in ("mask3d", "mask2d"):
+        mask = cache[key]
+        kernel = lambda: enc.pack_mask_bits(mask)
+        got, want = kernel(), enc._pack_bits_plain(mask)
+        if not (torch.equal(got, want) and torch.equal(got, cache[key + "_bits"])):
+            raise AssertionError(f"[pack] {key}: the packed words differ from the twin's")
+        # bytes: the bools read once, the words written once
+        b, by = bound_ms(mask.numel() + got.numel() * 4, 0)
+        recs[key] = dict(max_abs_err=0.0, ms=time_ms(kernel),
+                         device_ms=device_ms(kernel),
+                         plain_ms=time_ms(lambda: enc._pack_bits_plain(mask), iters=5, warmup=1),
+                         bound_ms=b, bound_by=by, library_ms=None)
+        r = recs[key]
+        log(f"[pack {key}] {tuple(mask.shape)} bools ({mask.numel() / 2**20:.1f} MiB) into"
+            f" {got.numel() * 4 / 2**20:.2f} MiB of words, exact ms={r['ms']:.4f}"
+            f" device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={b:.4f}")
+        del got, want
+    return dict(recs["mask3d"], sites=recs)
 
 
 @contextlib.contextmanager
@@ -1051,7 +1153,8 @@ def check_rate_gradient(torch, tr, rf, cops, enc, ent_ops, label):
     twins = ((cops, "segment_pool", cops._segment_pool_plain),
              (cops, "segment_gather", cops._segment_gather_plain),
              (cops, "pn_hist", cops._pn_hist_plain),
-             (enc, "_encode", lambda pts, table, res, offs, mask, moffs, ids=None, n_calc=None:
+             (enc, "_encode", lambda pts, table, res, offs, mask=None, moffs=None, bits=None,
+              ids=None, n_calc=None:
               enc._encode_plain(pts.detach(), table, res, offs, mask,
                                 None if mask is None else tuple(int(m) for m in moffs),
                                 ids, n_calc)))
@@ -1410,7 +1513,8 @@ def main() -> int:
         k1_xy = check_grid_encode(torch, enc, mcfg.grid_2d, tables["xy"],
                                   x01[:, [0, 1]].contiguous(), "xy")
         records["grid_encode"] = dict(k1_xyz, max_abs_err=max(k1_xyz["max_abs_err"],
-                                                               k1_xy["max_abs_err"]))
+                                                               k1_xy["max_abs_err"]),
+                                      sites={"xyz view": k1_xyz, "xy view": k1_xy})
 
         # K5 on the first round's buffer (full, truncated) and the late
         # round's (mostly padding)
@@ -1526,6 +1630,7 @@ def main() -> int:
 
     tr.fit(TRAIN_WARM_STEPS - 1, log_every=0, step_callback=on_step)
     records.update(check_training_kernels(torch, tr, enc, marching, volrend, rf, gen))
+    records["grid_encode"]["sites"]["xyz train"] = records.pop("grid_encode_train")
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1627,13 +1732,18 @@ def main() -> int:
     counted_so_far = dict(kernels.launches)
     occ_grid = tr.occ_state.binaries        # the grid the lambda = 0 run ended with
     records["footprint"] = check_footprint(torch, cops, entropy, occ_grid)
-    n_fp = kernels.launches["footprint"]
-    entropy.refresh_cache(occ_grid)
+    n_fp, n_pack = kernels.launches["footprint"], kernels.launches["pack_mask_bits"]
+    occ_cache = entropy.refresh_cache(occ_grid)
     n_fp = kernels.launches["footprint"] - n_fp
+    n_pack = kernels.launches["pack_mask_bits"] - n_pack
     refresh_ms = time_ms(lambda: entropy.refresh_cache(occ_grid), iters=3, warmup=1)
     log(f"[K8] refresh_cache on the trained occupancy grid ({int(occ_grid.sum())} cells):"
-        f" {refresh_ms:.2f} ms for {n_fp} footprint launches and the pn coord lists (a"
-        f" compaction and three stable sorts of {rate_cfg.entropy.pn_coords_cap} rows)")
+        f" {refresh_ms:.2f} ms for {n_fp} footprint launches, {n_pack} mask packings and the"
+        f" pn coord lists (a compaction and three stable sorts of"
+        f" {rate_cfg.entropy.pn_coords_cap} rows)")
+    records["pack_mask_bits"] = dict(check_pack(torch, enc, occ_cache),
+                                     launches_per_refresh=n_pack)
+    del occ_cache
     records.update(check_rate_kernels(torch, trr, rf, cops, enc, gen))
     check_rate_gradient(torch, trr, rf, cops, enc, ent_ops, f"step {RATE_WARM_STEPS}")
     kernels.launches.update(counted_so_far)     # comparison launches do not count
@@ -1641,17 +1751,18 @@ def main() -> int:
     rate_s, rate_scores = fit_and_read(kernels, trr, RATE_STEPS, test_set, on_rate_step, "[rate] ")
     rate_launches = dict(kernels.launches)
     n_rate = RATE_STEPS - RATE_WARM_STEPS
-    rate_kernels = ("vertex_tables", "footprint", "segment_pool", "segment_pool_bwd", "pn_hist",
-                    "grid_encode_v", "grid_encode_v_bwd", "compact", "grid_encode",
-                    "grid_encode_bwd", "march", "volrend", "volrend_bwd")
+    rate_kernels = ("vertex_tables", "footprint", "pack_mask_bits", "segment_pool",
+                    "segment_pool_bwd", "pn_hist", "grid_encode_v", "grid_encode_v_bwd", "compact",
+                    "grid_encode", "grid_encode_bwd", "march", "volrend", "volrend_bwd")
     if trr.step != RATE_STEPS or len(rate_hist) != RATE_STEPS:
         raise AssertionError(f"[rate] ran {trr.step} steps, not {RATE_STEPS}")
     if not all(rate_launches[k] > 0 for k in rate_kernels):
         raise AssertionError(f"[rate] a kernel of the rate path was not launched: {rate_launches}")
     per_step = {k: (rate_launches[k] - counted_so_far[k]) / n_rate for k in rate_kernels}
-    # the table build runs once and the footprints once per refresh; every
-    # other kernel of the path runs in each step
-    if not all(per_step[k] >= 1 for k in rate_kernels if k not in ("vertex_tables", "footprint")):
+    # the table build runs once, the footprints and the packing once per
+    # refresh; every other kernel of the path runs in each step
+    once = ("vertex_tables", "footprint", "pack_mask_bits")
+    if not all(per_step[k] >= 1 for k in rate_kernels if k not in once):
         raise AssertionError(f"[rate] a kernel was not launched every step: {per_step}")
     bpp16 = rate_hist[RATE_WARM_STEPS][2]
     bpp_end = statistics.mean(h[2] for h in rate_hist[-10:])
@@ -1742,6 +1853,8 @@ def main() -> int:
         "int_mlp_pool": ("int_context.cu", "cnc_tpu/codec/intctx.py:228", "codec"),
         "int_pq": ("int_context.cu", "cnc_tpu/codec/intctx.py:344", "codec"),
         "pn_hist_int": ("pn_hist.cu", "cnc_tpu/codec/intctx.py:298", "codec"),
+        # the packed copy of the mask cnc_tpu reads as bools at encoding.py:90-94
+        "pack_mask_bits": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:90", "rate"),
     }
     counted = {"view": launches, "train": train_launches, "probe": probe_launches,
                "rate": rate_launches, "rate_pn_grad": pn_launches, "codec": codec_launches}
@@ -1753,9 +1866,10 @@ def main() -> int:
                         train_launches=train_launches[name], train_steps=n_run,
                         rate_launches=rate_launches[name], rate_steps=RATE_STEPS,
                         encode_launches=enc_launches[name], decode_launches=dec_launches[name],
-                        max_abs_err=r["max_abs_err"], ms=r["ms"],
+                        max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r.get("device_ms"),
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                        library_ms=r["library_ms"]))
+                        library_ms=r["library_ms"], sites=r.get("sites"),
+                        launches_per_refresh=r.get("launches_per_refresh")))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

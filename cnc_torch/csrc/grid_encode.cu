@@ -17,10 +17,12 @@
 // [0,1] give zeros.  Output [N, L*F] f32, level-major.
 //
 // Variants for the rate estimate (K1v, and K2v in the backward), all in the
-// same kernels: with `mask`, a corner is also dropped when the bool at
-// mask_off[level] + flat(corner) is false, flat = (cc0*R + cc1)*R + cc2 with
-// the LAST axis fastest (the mask grids' order, not the table's); with
-// `min_ids`, thread (point, j) takes level clamp(min_ids[point] + j, 0, L-1)
+// same kernels: with a mask, a corner is also dropped when bit
+// mask_off[level] + flat(corner) of the packed mask is unset, flat =
+// (cc0*R + cc1)*R + cc2 with the LAST axis fastest (the mask grids' order,
+// not the table's); bit i lives in word i / 32 at bit i % 32 (the bool grid
+// packed little-endian by `cnc_pack_mask_bits` below, once per cache
+// refresh); with `min_ids`, point p takes level clamp(min_ids[p] + j, 0, L-1)
 // of the L levels described, for j < n_out; a caller's dense plane is one
 // static level whose size is its row count.
 //
@@ -29,14 +31,24 @@
 // 50 MB L2; the 64 MB 3D table does not, so its hashed levels go to HBM at
 // sector granularity.  Arithmetic is a few dozen flops per corner.
 //
-// Simple design: one thread per (point, level), consecutive threads on the
-// levels of one point (so the output row is written contiguously), corners in
-// a loop, one 16-byte __ldg per corner row at F=4 (8 bytes at F=2; no other
-// F is built).  The file is built with -fmad=false and sums the corners in
-// order, as the twin does, so the forward equals its twin bit for bit: the
-// rate estimate feeds it to a LeakyReLU MLP, whose gradient jumps where an
-// input crosses a kink, and a last-bit difference would move the kernel's
-// gradient to one side and the twin's to the other.
+// Design.  A block of 8 warps takes a tile of points and every one of their
+// n_out levels.  Lanes map to points and each warp walks its levels one pass
+// at a time, so a warp's level (resolution, offset, dense or hashed) is
+// uniform: always for K1, and for K1v's compacted rows, which come grouped by
+// level, everywhere but at a window's edge.  `wpt` warps share 32 points and
+// split their levels (wpt divides n_out where it can); the points (and level
+// ids) are staged in shared memory with coalesced loads, and the output tile
+// is staged there and written back as contiguous float4 (float2) rows.  Per
+// (point, level), all 2^D corners' rows, weights and mask words are computed
+// first, then every surviving corner's row load is issued at once
+// (predicated, no branch between them), then the corners are summed in order
+// 0..2^D-1.  The packed masks are an eighth of the bool grids (all 3D levels
+// 26.6 MB against 0.208 GiB), so they stay in L2 beside the table.  The file
+// is built with -fmad=false and sums the corners in the twin's order, so the
+// forward equals its twin bit for bit: the rate estimate feeds it to a
+// LeakyReLU MLP, whose gradient jumps where an input crosses a kink, and a
+// last-bit difference would move the kernel's gradient to one side and the
+// twin's to the other.
 //
 // K2, the backward (d_table only), replaces cnc_tpu's
 //   ops/scatter_ops.py _ggi_bwd (104-122): per-feature column scatter-adds of
@@ -46,12 +58,22 @@
 // tools/pallas_probe.py pallas_scatter (113, kernel 96-108).
 // Plain twin: autograd of cnc_torch/ops/encoding.py `_encode_plain`.
 //
-// Same thread mapping as K1.  Each (point, level) recomputes its corners with
-// the same device functions K1 uses (so the cells, borders and hashes agree),
-// sums the surviving weight in a first pass over the corners, and in a second
-// adds (g / wn) * w_c to row gidx_c of d_table with one vector atomicAdd per
-// row (float4 at F=4, float2 at F=2: sm_90 adds each element atomically).
-// Points outside [0,1] add nothing.  The wrapper zeroes d_table.
+// Same tiling and corners as K1 (the output gradient's tile is staged in
+// shared memory as the forward's output is), each corner computed once and
+// kept in registers through the surviving weight's sum and the adds of
+// (g / wn) * w_c.  The adds are aggregated in the warp: for each corner slot
+// the lanes that add into one row find each other (__match_any_sync), sum
+// their values by shuffles, and the group's lowest lane issues one vector
+// atomicAdd (float4 at F=4, float2 at F=2; sm_90 adds each element
+// atomically).  A march emits samples in (ray, t) order, so neighbouring
+// lanes often share the coarse levels' rows: at a training march's 30.5M
+// updates of the xyz table this issues 12.0M atomics.  Summing across the
+// slots as well would leave 7.9M, but a per-warp table of pending adds in
+// shared memory (256 slots, linear probing) cost 4x the time (PERF.md).  The
+// rate's 3D context encode shares few rows between lanes (48.0M updates,
+// 45.2M atomics).  Points outside [0,1], corners without weight and zero
+// gradients (the padding rows of a compacted batch, which all sit on one
+// vertex) add nothing.  The wrapper zeroes d_table.
 //
 // Bound on the H100: bytes, and in practice atomics.  It reads the points and
 // the gradient once and read-modify-writes each distinct row touched; the
@@ -60,17 +82,24 @@
 // thousand rows, which the L2 serialises.  The sum order varies from run to
 // run, so the kernel is compared with its twin by a tolerance.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 32;
+constexpr int kWarps = 8;                 // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoRow = 0xffffffffu;  // a lane with nothing to add
 
 struct Levels {
   int res[kMaxLevels];
   int offset[kMaxLevels];
   int size[kMaxLevels];
   long long mask_off[kMaxLevels];
+  bool dense[kMaxLevels];                 // R^D <= size
 };
 
 template <int D>
@@ -93,10 +122,69 @@ __device__ __forceinline__ uint32_t grid_index(const uint32_t* cc, uint32_t res,
   return (size & (size - 1)) == 0 ? (idx & (size - 1)) : (idx % size);
 }
 
+// The 2^D corners of one (point, level): global table row, D-linear weight,
+// and whether the corner survives (not on the border, its mask bit set).
+template <int D>
+struct Corners {
+  uint32_t row[1 << D];
+  float w[1 << D];
+  bool live[1 << D];
+};
+
+template <int D>
+__device__ __forceinline__ void level_corners(const float* x, const Levels& lv, int l,
+                                              const uint32_t* __restrict__ bits,
+                                              Corners<D>& c) {
+  const int res = lv.res[l];
+  const uint32_t size = static_cast<uint32_t>(lv.size[l]);
+  const uint32_t offset = static_cast<uint32_t>(lv.offset[l]);
+  const bool dense = lv.dense[l];
+  const float scale = static_cast<float>(res - 2);
+  int pg[D];
+  float frac[D];
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) {
+    const float pos = __fadd_rn(__fmul_rn(x[ax], scale), 0.5f);
+    const float fl = floorf(pos);
+    pg[ax] = static_cast<int>(fl);
+    frac[ax] = __fsub_rn(pos, fl);
+  }
+  uint32_t word[1 << D];
+  long long bit[1 << D];
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+    uint32_t cc[D];
+    float wk = 1.f;
+    bool valid = true;
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) {
+      const bool up = (k >> ax) & 1;
+      const int v = up ? min(pg[ax] + 1, res - 1) : pg[ax];
+      wk = __fmul_rn(wk, up ? frac[ax] : __fsub_rn(1.f, frac[ax]));
+      valid &= (v != 0) && (v != res - 1);
+      cc[ax] = static_cast<uint32_t>(v);
+    }
+    c.w[k] = wk;
+    c.live[k] = valid;
+    c.row[k] = offset + grid_index<D>(cc, static_cast<uint32_t>(res), size, dense);
+    long long flat = cc[0];
+#pragma unroll
+    for (int ax = 1; ax < D; ++ax) flat = flat * res + cc[ax];
+    bit[k] = lv.mask_off[l] + flat;
+  }
+  if (bits) {
+    // every corner's mask word in flight at once, then the bits
+#pragma unroll
+    for (int k = 0; k < (1 << D); ++k) word[k] = c.live[k] ? __ldg(bits + (bit[k] >> 5)) : 0u;
+#pragma unroll
+    for (int k = 0; k < (1 << D); ++k) c.live[k] = c.live[k] && ((word[k] >> (bit[k] & 31)) & 1u);
+  }
+}
+
 // One table row as one 8- or 16-byte load (F = 2 or 4, the widths every
 // config of the repo uses; the wrapper rejects any other F).
 template <int F>
-__device__ __forceinline__ void load_row(const float* __restrict__ table, long long row,
+__device__ __forceinline__ void load_row(const float* __restrict__ table, uint32_t row,
                                          float* v) {
   static_assert(F == 2 || F == 4, "K1 takes F = 2 or 4");
   if constexpr (F == 4) {
@@ -108,127 +196,129 @@ __device__ __forceinline__ void load_row(const float* __restrict__ table, long l
   }
 }
 
-// One (point, level): the lattice cell, its fractional position and the
-// level's table block.
-template <int D>
-struct LevelCell {
-  int pg[D];
-  float frac[D];
-  int res;
-  uint32_t size;
-  long long offset;
-  bool dense;
-  const unsigned char* mask;  // this level's corner mask grid, or null
-};
-
-// Loads point p; false when it lies outside [0,1]^D (NaN counts as outside).
-template <int D>
-__device__ __forceinline__ bool load_point(const float* __restrict__ points, int p, float* x) {
-  bool inside = true;
-  for (int ax = 0; ax < D; ++ax) {
-    x[ax] = points[static_cast<long long>(p) * D + ax];
-    inside &= x[ax] >= 0.f && x[ax] <= 1.f;
-  }
-  return inside;
-}
-
-template <int D>
-__device__ __forceinline__ LevelCell<D> level_cell(const float* x, const Levels& lv, int l,
-                                                   const unsigned char* mask) {
-  LevelCell<D> c;
-  c.mask = mask ? mask + lv.mask_off[l] : nullptr;
-  c.res = lv.res[l];
-  c.size = static_cast<uint32_t>(lv.size[l]);
-  c.offset = lv.offset[l];
-  long long rd = 1;  // R^D <= size, in 64 bits (1026^2, 514^3 fit)
-  for (int ax = 0; ax < D; ++ax) rd *= c.res;
-  c.dense = rd <= static_cast<long long>(c.size);
-  const float scale = static_cast<float>(c.res - 2);
-  for (int ax = 0; ax < D; ++ax) {
-    const float pos = __fadd_rn(__fmul_rn(x[ax], scale), 0.5f);
-    const float fl = floorf(pos);
-    c.pg[ax] = static_cast<int>(fl);
-    c.frac[ax] = __fsub_rn(pos, fl);
-  }
-  return c;
-}
-
-// Corner k of the cell: its D-linear weight and global table row; false when
-// the corner lies on the border (coordinate 0 or R-1), or its mask bit is
-// unset, and is dropped.
-template <int D>
-__device__ __forceinline__ bool cell_corner(const LevelCell<D>& c, int k, float* w,
-                                            long long* row) {
-  uint32_t cc[D];
-  float wk = 1.f;
-  bool valid = true;
-#pragma unroll
-  for (int ax = 0; ax < D; ++ax) {
-    const bool up = (k >> ax) & 1;
-    const int v = up ? min(c.pg[ax] + 1, c.res - 1) : c.pg[ax];
-    wk = __fmul_rn(wk, up ? c.frac[ax] : __fsub_rn(1.f, c.frac[ax]));
-    valid &= (v != 0) && (v != c.res - 1);
-    cc[ax] = static_cast<uint32_t>(v);
-  }
-  *w = wk;
-  if (valid && c.mask) {
-    long long flat = cc[0];
-#pragma unroll
-    for (int ax = 1; ax < D; ++ax) flat = flat * c.res + cc[ax];
-    valid = c.mask[flat] != 0;
-  }
-  if (valid) *row = c.offset + grid_index<D>(cc, static_cast<uint32_t>(c.res), c.size, c.dense);
-  return valid;
-}
-
-// The level thread (p, j) works on: j itself, or with per-point first levels
-// clamp(min_ids[p] + j, 0, n_levels - 1).
-__device__ __forceinline__ int level_of(const int* __restrict__ min_ids, int p, int j,
-                                        int n_levels) {
-  return min_ids ? min(max(min_ids[p] + j, 0), n_levels - 1) : j;
+// The tile: `wpt` warps share 32 points and split their levels; a block
+// holds kWarps / wpt such groups.  wpt is the largest of 8, 4, 2, 1 that
+// divides n_out with at most 4 levels per warp, else the largest power of
+// two up to 8 not above n_out, so the staged output tile stays within
+// kThreads * 4 levels (16 KB at F = 4).
+int warps_per_point(int n_out) {
+  for (int p = kWarps; p > 1; p /= 2)
+    if (n_out % p == 0 && n_out / p <= 4) return p;
+  if (n_out <= 4) return 1;
+  int p = 1;
+  while (p * 2 <= n_out && p * 2 <= kWarps) p *= 2;
+  return p;
 }
 
 template <int D, int F>
-__global__ void grid_encode_forward_kernel(const float* __restrict__ points,
-                                           const float* __restrict__ table,
-                                           float* __restrict__ out, int n, int n_out,
-                                           int n_levels, Levels lv,
-                                           const unsigned char* __restrict__ mask,
-                                           const int* __restrict__ min_ids) {
-  long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(n) * n_out) return;
-  const int p = static_cast<int>(t / n_out);
-  const int j = static_cast<int>(t % n_out);
-  float* o = out + t * F;
+size_t smem_bytes(int tile, int n_out) {
+  return static_cast<size_t>(tile) * (n_out * F + D + 1) * sizeof(float);
+}
 
-  float x[D];
-  if (!load_point<D>(points, p, x)) {
-    for (int f = 0; f < F; ++f) o[f] = 0.f;
-    return;
-  }
-  const LevelCell<D> cell = level_cell<D>(x, lv, level_of(min_ids, p, j, n_levels), mask);
+// Shared memory of one block: the [tile, n_out*F] output (or gradient)
+// tile, then the tile's points and level ids.
+struct Staged {
+  float* rows;
+  float* pts;
+  int* ids;
+};
 
-  float acc[F];
-  for (int f = 0; f < F; ++f) acc[f] = 0.f;
-  float wsum = 0.f;
+template <int D, int F>
+__device__ __forceinline__ Staged stage_tile(float* smem, const float* __restrict__ points,
+                                             const int* __restrict__ min_ids, long long p0,
+                                             int n_pts, int tile, int n_out) {
+  Staged s;
+  s.rows = smem;
+  s.pts = smem + static_cast<size_t>(tile) * n_out * F;
+  s.ids = reinterpret_cast<int*>(s.pts + tile * D);
+  for (int i = threadIdx.x; i < n_pts * D; i += kThreads) s.pts[i] = points[p0 * D + i];
+  if (min_ids)
+    for (int i = threadIdx.x; i < n_pts; i += kThreads) s.ids[i] = min_ids[p0 + i];
+  return s;
+}
+
+// Copies n floats between global and shared memory as float4 (F = 4) or
+// float2 (F = 2) rows; both ends are 4F-byte aligned (the tile starts at a
+// multiple of n_out*F floats of a freshly allocated tensor).
+template <int F>
+__device__ __forceinline__ void copy_rows(float* __restrict__ dst, const float* __restrict__ src,
+                                          int n) {
+  using V = typename std::conditional<F == 4, float4, float2>::type;
+  V* d = reinterpret_cast<V*>(dst);
+  const V* s = reinterpret_cast<const V*>(src);
+  for (int i = threadIdx.x; i < n / F; i += kThreads) d[i] = s[i];
+}
+
+__device__ __forceinline__ bool inside_unit(const float* x, int d) {
+  bool inside = true;  // NaN counts as outside
+  for (int ax = 0; ax < d; ++ax) inside &= x[ax] >= 0.f && x[ax] <= 1.f;
+  return inside;
+}
+
+template <int D, int F>
+__global__ void __launch_bounds__(kThreads)
+grid_encode_forward_kernel(const float* __restrict__ points, const float* __restrict__ table,
+                           float* __restrict__ out, int n, int n_out, int n_levels, Levels lv,
+                           const uint32_t* __restrict__ bits, const int* __restrict__ min_ids,
+                           int wpt) {
+  extern __shared__ float4 smem4[];
+  const int tile = kThreads / wpt;
+  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
+  const int n_pts = static_cast<int>(min(static_cast<long long>(tile), n - p0));
+  const Staged s = stage_tile<D, F>(reinterpret_cast<float*>(smem4), points, min_ids, p0, n_pts,
+                                    tile, n_out);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lp = (warp / wpt) * 32 + (threadIdx.x & 31);  // the lane's point in the tile
+  if (lp < n_pts) {
+    float x[D];
 #pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    float w;
-    long long idx;
-    if (!cell_corner<D>(cell, c, &w, &idx)) continue;
-    float row[F];
-    load_row<F>(table, idx, row);
-    for (int f = 0; f < F; ++f) acc[f] += w * row[f];
-    wsum += w;
+    for (int ax = 0; ax < D; ++ax) x[ax] = s.pts[lp * D + ax];
+    const bool inside = inside_unit(x, D);
+    for (int j = warp % wpt; j < n_out; j += wpt) {
+      float* o = s.rows + (lp * n_out + j) * F;
+      float acc[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = 0.f;
+      if (inside) {
+        const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
+        Corners<D> c;
+        level_corners<D>(x, lv, l, bits, c);
+        float v[1 << D][F];
+#pragma unroll
+        for (int k = 0; k < (1 << D); ++k) {
+          if (c.live[k]) {
+            load_row<F>(table, c.row[k], v[k]);
+          } else {
+#pragma unroll
+            for (int f = 0; f < F; ++f) v[k][f] = 0.f;
+          }
+        }
+        float wsum = 0.f;
+#pragma unroll
+        for (int k = 0; k < (1 << D); ++k) {
+          if (!c.live[k]) continue;
+#pragma unroll
+          for (int f = 0; f < F; ++f) acc[f] += c.w[k] * v[k][f];
+          wsum += c.w[k];
+        }
+        const float wn = wsum == 0.f ? 1e-9f : wsum;
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = acc[f] / wn;
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) o[f] = acc[f];
+    }
   }
-  const float wn = wsum == 0.f ? 1e-9f : wsum;
-  for (int f = 0; f < F; ++f) o[f] = acc[f] / wn;
+  __syncthreads();
+  copy_rows<F>(out + p0 * n_out * F, s.rows, n_pts * n_out * F);
 }
 
 // One table row of d_table += v, as one vector atomic (each element is added
 // atomically; the row as a whole need not be).
 template <int F>
-__device__ __forceinline__ void atomic_add_row(float* __restrict__ table, long long row,
+__device__ __forceinline__ void atomic_add_row(float* __restrict__ table, uint32_t row,
                                                const float* v) {
   static_assert(F == 2 || F == 4, "K2 takes F = 2 or 4");
   if constexpr (F == 4) {
@@ -238,67 +328,86 @@ __device__ __forceinline__ void atomic_add_row(float* __restrict__ table, long l
   }
 }
 
+// Sums v over the lanes of `peers` (the lanes holding this lane's key) into
+// the group's lowest lane.  Every lane of the warp calls it; groups of one
+// lane leave at once.  (The segmented tree of NVIDIA's "warp-aggregated
+// atomics with __match_any_sync": each step folds the next-higher peer's
+// partial sum into every lane whose rank in its group is even.)
+template <int F>
+__device__ __forceinline__ void reduce_peers(unsigned peers, float* v) {
+  const int lane = threadIdx.x & 31;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (lane == 31 ? 0u : (kFull << (lane + 1)));
+  while (__any_sync(kFull, above != 0u)) {
+    const int next = __ffs(above) - 1;  // -1 when none is left
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float t = __shfl_sync(kFull, v[f], next < 0 ? lane : next);
+      if (next >= 0) v[f] += t;
+    }
+    // lanes of odd rank have been folded into their lower neighbour: drop them
+    above &= __ballot_sync(kFull, (rank & 1u) == 0u);
+    rank >>= 1;
+  }
+}
+
 template <int D, int F>
-__global__ void grid_encode_backward_kernel(const float* __restrict__ points,
-                                            const float* __restrict__ grad,
-                                            float* __restrict__ d_table, int n, int n_out,
-                                            int n_levels, Levels lv,
-                                            const unsigned char* __restrict__ mask,
-                                            const int* __restrict__ min_ids) {
-  long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(n) * n_out) return;
-  const int p = static_cast<int>(t / n_out);
-  const int j = static_cast<int>(t % n_out);
+__global__ void __launch_bounds__(kThreads)
+grid_encode_backward_kernel(const float* __restrict__ points, const float* __restrict__ grad,
+                            float* __restrict__ d_table, int n, int n_out, int n_levels,
+                            Levels lv, const uint32_t* __restrict__ bits,
+                            const int* __restrict__ min_ids, int wpt) {
+  extern __shared__ float4 smem4[];
+  const int tile = kThreads / wpt;
+  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
+  const int n_pts = static_cast<int>(min(static_cast<long long>(tile), n - p0));
+  const Staged s = stage_tile<D, F>(reinterpret_cast<float*>(smem4), points, min_ids, p0, n_pts,
+                                    tile, n_out);
+  copy_rows<F>(s.rows, grad + p0 * n_out * F, n_pts * n_out * F);
+  __syncthreads();
 
+  // every lane stays to the end: the aggregation is warp-synchronous
+  const int warp = threadIdx.x >> 5;
+  const int lp = (warp / wpt) * 32 + (threadIdx.x & 31);
   float x[D];
-  if (!load_point<D>(points, p, x)) return;
-  const LevelCell<D> cell = level_cell<D>(x, lv, level_of(min_ids, p, j, n_levels), mask);
-
-  float wsum = 0.f;
 #pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    float w;
-    long long idx;
-    if (cell_corner<D>(cell, c, &w, &idx)) wsum += w;
-  }
-  if (wsum == 0.f) return;  // no corner survived, or all weights are zero
-
-  // a zero gradient adds nothing: skip its atomics (the padding rows of a
-  // compacted batch all sit on one vertex and would queue on its rows)
-  const float* g = grad + t * F;
-  float gs[F];
-  bool any = false;
-  for (int f = 0; f < F; ++f) {
-    any |= g[f] != 0.f;
-    gs[f] = g[f] / wsum;
-  }
-  if (!any) return;
+  for (int ax = 0; ax < D; ++ax) x[ax] = lp < n_pts ? s.pts[lp * D + ax] : -1.f;
+  const bool inside = lp < n_pts && inside_unit(x, D);
+  for (int j = warp % wpt; j < n_out; j += wpt) {
+    Corners<D> c;
+    float gs[F];
+    bool adds = false;
+    if (inside) {
+      const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
+      level_corners<D>(x, lv, l, bits, c);
+      float wsum = 0.f;
 #pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    float w;
-    long long idx;
-    if (!cell_corner<D>(cell, c, &w, &idx)) continue;
-    float v[F];
-    for (int f = 0; f < F; ++f) v[f] = gs[f] * w;
-    atomic_add_row<F>(d_table, idx, v);
+      for (int k = 0; k < (1 << D); ++k) wsum += c.live[k] ? c.w[k] : 0.f;
+      const float* g = s.rows + (lp * n_out + j) * F;
+      bool any = false;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        any |= g[f] != 0.f;
+        gs[f] = wsum == 0.f ? 0.f : g[f] / wsum;
+      }
+      // no surviving weight, or a zero gradient: nothing to add
+      adds = wsum != 0.f && any;
+    }
+#pragma unroll
+    for (int k = 0; k < (1 << D); ++k) {
+      const bool live = adds && c.live[k];
+      const uint32_t key = live ? c.row[k] : kNoRow;
+      float v[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[f] = live ? gs[f] * c.w[k] : 0.f;
+      const unsigned peers = __match_any_sync(kFull, key);
+      reduce_peers<F>(peers, v);
+      if (live && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) atomic_add_row<F>(d_table, key, v);
+    }
   }
 }
 
-template <int D>
-int launch_b(const float* points, const float* grad, float* d_table, int n, int f, int n_out,
-             int n_levels, const Levels& lv, const unsigned char* mask, const int* min_ids,
-             cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned blocks = cnc_blocks(static_cast<long long>(n) * n_out, threads);
-  switch (f) {
-    case 2: grid_encode_backward_kernel<D, 2><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_out, n_levels, lv, mask, min_ids); break;
-    case 4: grid_encode_backward_kernel<D, 4><<<blocks, threads, 0, stream>>>(points, grad, d_table, n, n_out, n_levels, lv, mask, min_ids); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return cnc_last_error();
-}
-
-bool fill_levels(Levels* lv, int n_out, int n_levels, const int* res, const int* offsets,
+bool fill_levels(Levels* lv, int d, int n_out, int n_levels, const int* res, const int* offsets,
                  const int* sizes, const long long* mask_offs) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_out < 1 || n_out > n_levels) return false;
   for (int l = 0; l < n_levels; ++l) {
@@ -306,63 +415,102 @@ bool fill_levels(Levels* lv, int n_out, int n_levels, const int* res, const int*
     lv->offset[l] = offsets[l];
     lv->size[l] = sizes[l];
     lv->mask_off[l] = mask_offs[l];
+    long long rd = 1;  // R^D <= size, in 64 bits (1026^2, 514^3 fit)
+    for (int ax = 0; ax < d; ++ax) rd *= res[l];
+    lv->dense[l] = rd <= static_cast<long long>(sizes[l]);
   }
   return true;
 }
 
-template <int D>
-int launch_f(const float* points, const float* table, float* out, int n, int f, int n_out,
-             int n_levels, const Levels& lv, const unsigned char* mask, const int* min_ids,
-             cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned blocks = cnc_blocks(static_cast<long long>(n) * n_out, threads);
-  switch (f) {
-    case 2: grid_encode_forward_kernel<D, 2><<<blocks, threads, 0, stream>>>(points, table, out, n, n_out, n_levels, lv, mask, min_ids); break;
-    case 4: grid_encode_forward_kernel<D, 4><<<blocks, threads, 0, stream>>>(points, table, out, n, n_out, n_levels, lv, mask, min_ids); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// One launch of either kernel over all points: tiles of kThreads / wpt.
+template <int D, int F, bool Backward>
+int launch(const float* points, const float* in, float* out, int n, int n_out, int n_levels,
+           const Levels& lv, const uint32_t* bits, const int* min_ids, cudaStream_t stream) {
+  const int wpt = warps_per_point(n_out);
+  const int tile = kThreads / wpt;
+  const unsigned blocks = cnc_blocks(n, tile);
+  const size_t smem = smem_bytes<D, F>(tile, n_out);
+  if constexpr (Backward) {
+    grid_encode_backward_kernel<D, F><<<blocks, kThreads, smem, stream>>>(
+        points, in, out, n, n_out, n_levels, lv, bits, min_ids, wpt);
+  } else {
+    grid_encode_forward_kernel<D, F><<<blocks, kThreads, smem, stream>>>(
+        points, in, out, n, n_out, n_levels, lv, bits, min_ids, wpt);
   }
   return cnc_last_error();
 }
 
+template <bool Backward>
+int encode(const float* points, const float* in, float* out, int n, int d, int f, int n_out,
+           int n_levels, const int* res, const int* offsets, const int* sizes,
+           const uint32_t* bits, const long long* mask_offs, const int* min_ids, void* stream) {
+  Levels lv;
+  if (!fill_levels(&lv, d, n_out, n_levels, res, offsets, sizes, mask_offs) ||
+      (!min_ids && n_out != n_levels))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto go = [&](auto kernel) {
+    return kernel(points, in, out, n, n_out, n_levels, lv, bits, min_ids, s);
+  };
+  if (d == 2 && f == 2) return go(launch<2, 2, Backward>);
+  if (d == 2 && f == 4) return go(launch<2, 4, Backward>);
+  if (d == 3 && f == 2) return go(launch<3, 2, Backward>);
+  if (d == 3 && f == 4) return go(launch<3, 4, Backward>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One warp packs 32 consecutive bools of a row into one word.
+__global__ void pack_mask_bits_kernel(const unsigned char* __restrict__ mask, long long rows,
+                                      long long cols, long long words, uint32_t* __restrict__ out) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long per_row = words * 32;
+  const long long r = t / per_row;
+  const long long col = t - r * per_row;
+  const bool set = r < rows && col < cols && mask[r * cols + col] != 0;
+  const unsigned word = __ballot_sync(kFull, set);
+  if ((threadIdx.x & 31) == 0 && r < rows) out[r * words + (col >> 5)] = word;
+}
+
 }  // namespace
 
-// points [n, d] f32, table [rows, f] f32, out [n, n_out*f] f32, all
-// contiguous on the device.  res/offsets/sizes/mask_offs are host arrays of
-// n_levels entries; the wrapper has checked offsets[l] + sizes[l] <= rows and
-// that each level's mask grid lies inside `mask`.  mask (bool bytes) and
-// min_ids (int32 [n]) are device pointers or null; without min_ids,
+// K1.  points [n, d] f32, table [rows, f] f32, out [n, n_out*f] f32, all
+// contiguous on the device, table and out 4*f-byte aligned.
+// res/offsets/sizes/mask_offs are host arrays of n_levels entries; the
+// wrapper has checked offsets[l] + sizes[l] <= rows < 2^31 and that each
+// level's mask grid lies inside `bits`.  bits (the packed mask, int32 words)
+// and min_ids (int32 [n]) are device pointers or null; without min_ids,
 // n_out == n_levels.
 CNC_EXPORT int cnc_grid_encode_forward(const float* points, const float* table, float* out,
                                        int n, int d, int f, int n_out, int n_levels,
                                        const int* res, const int* offsets, const int* sizes,
-                                       const unsigned char* mask, const long long* mask_offs,
+                                       const uint32_t* bits, const long long* mask_offs,
                                        const int* min_ids, void* stream) {
-  Levels lv;
-  if (!fill_levels(&lv, n_out, n_levels, res, offsets, sizes, mask_offs) ||
-      (!min_ids && n_out != n_levels))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 2) return launch_f<2>(points, table, out, n, f, n_out, n_levels, lv, mask, min_ids, s);
-  if (d == 3) return launch_f<3>(points, table, out, n, f, n_out, n_levels, lv, mask, min_ids, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return encode<false>(points, table, out, n, d, f, n_out, n_levels, res, offsets, sizes, bits,
+                       mask_offs, min_ids, stream);
 }
 
-// K2.  points [n, d] f32, grad [n, n_out*f] f32, d_table [rows, f] f32
-// zeroed by the caller and 4*f-byte aligned; levels, mask and min_ids as in
-// the forward.  Adds every point's share of grad into d_table.
+// K2.  points [n, d] f32, grad [n, n_out*f] f32 (4*f-byte aligned), d_table
+// [rows, f] f32 zeroed by the caller and 4*f-byte aligned; levels, bits and
+// min_ids as in the forward.  Adds every point's share of grad into d_table.
 CNC_EXPORT int cnc_grid_encode_backward(const float* points, const float* grad, float* d_table,
                                         int n, int d, int f, int n_out, int n_levels,
                                         const int* res, const int* offsets, const int* sizes,
-                                        const unsigned char* mask, const long long* mask_offs,
+                                        const uint32_t* bits, const long long* mask_offs,
                                         const int* min_ids, void* stream) {
-  Levels lv;
-  if (!fill_levels(&lv, n_out, n_levels, res, offsets, sizes, mask_offs) ||
-      (!min_ids && n_out != n_levels))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+  return encode<true>(points, grad, d_table, n, d, f, n_out, n_levels, res, offsets, sizes, bits,
+                      mask_offs, min_ids, stream);
+}
+
+// The packed copy of a bool mask [rows, cols] (contiguous on the device):
+// out [rows, words] int32 words, words = ceil(cols / 32), bit c % 32 of word
+// c / 32 set when mask[r, c] is; the bits past cols are 0.
+CNC_EXPORT int cnc_pack_mask_bits(const unsigned char* mask, long long rows, long long cols,
+                                  unsigned* out, void* stream) {
+  const long long words = (cols + 31) / 32;
+  if (rows * words == 0) return 0;
+  const unsigned blocks = cnc_blocks(rows * words * 32, 256);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 2) return launch_b<2>(points, grad, d_table, n, f, n_out, n_levels, lv, mask, min_ids, s);
-  if (d == 3) return launch_b<3>(points, grad, d_table, n, f, n_out, n_levels, lv, mask, min_ids, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  pack_mask_bits_kernel<<<blocks, 256, 0, s>>>(mask, rows, cols, words, out);
+  return cnc_last_error();
 }

@@ -477,6 +477,8 @@ class ContextModels:
             "bin2d": torch.zeros(3, rb, rb, dtype=torch.bool, device=dev),
             "mask3d": torch.zeros(m3_total, dtype=torch.bool, device=dev),
             "mask2d": torch.zeros(3, m2_total, dtype=torch.bool, device=dev),
+            "mask3d_bits": torch.zeros((m3_total + 31) // 32, dtype=torch.int32, device=dev),
+            "mask2d_bits": torch.zeros(3, (m2_total + 31) // 32, dtype=torch.int32, device=dev),
             "ovl": {},
         }
         for l in self.ctx_levels_3d:
@@ -501,8 +503,10 @@ class ContextModels:
 
     def refresh_cache(self, binaries: torch.Tensor) -> Dict:
         """The occupancy-dependent cache: per-corner mask grids of every
-        level (K8), overlap weights of the context levels, and the pn coord
-        lists.  Nothing here is differentiated."""
+        level (K8) as bools and packed one bit per vertex (`mask3d_bits`,
+        `mask2d_bits`: what the CUDA encodes read), overlap weights of the
+        context levels, and the pn coord lists.  Nothing here is
+        differentiated."""
         self._check_binaries(binaries)
         with torch.no_grad():
             return self._refresh_impl(binaries.to(self.device))
@@ -528,6 +532,8 @@ class ContextModels:
                 cache["ovl"][str(l)] = o
         cache["mask3d"] = mask3d
         cache["mask2d"] = self._mask2d(bin2d)
+        cache["mask3d_bits"] = enc.pack_mask_bits(mask3d)
+        cache["mask2d_bits"] = enc.pack_mask_bits(cache["mask2d"])
         cache["pn"] = self._refresh_pn_coords(binaries)
         return cache
 
@@ -736,7 +742,7 @@ class ContextModels:
                 if l in self.ctx_levels_2d:
                     bits_n = self._bits_2d_level(ent_params, tbl2, l, pg_n, frac_plane,
                                                  cache["bin2d"][ai], cache["mask2d"][ai],
-                                                 starts[(ai, l)])
+                                                 starts[(ai, l)], cache["mask2d_bits"][ai])
                 ttl_bits = ttl_bits + bits_n
         return ttl_bits
 
@@ -770,10 +776,12 @@ class ContextModels:
 
     # ------------------------------------------------------- 2D level pooling
     def pool_2d_level(self, ent_params, tbl2, level, pg_n, frac_plane, bin2d, mask2d, start_e,
-                      n_e, w):
+                      n_e, w, mask2d_bits=None):
         """Per-entry pooled context probabilities for one 2D level window.
 
-        Returns (pooled [n_e,F], covered [n_e], values_q [n_e,F]).
+        `mask2d` is one axis's row of cache['mask2d'], `mask2d_bits` the same
+        row of cache['mask2d_bits'] (needed on the card, where the encodes
+        read it).  Returns (pooled [n_e,F], covered [n_e], values_q [n_e,F]).
         Shared by the training rate estimate (sampled window) and the codec
         (full coverage: start_e=0, n_e=n_entries, w=n_points).
         """
@@ -819,11 +827,12 @@ class ContextModels:
         else:
             rows, cnt_src, pool_valid = w, occ_block, occ_block
         feats = [enc.grid_encode(pts, ctx_src, self.spec2, level - cln, level, occ_mask=mask2d,
-                                 mask_offsets=self.mask2d_offsets)]
+                                 mask_offsets=self.mask2d_offsets, occ_bits=mask2d_bits)]
         if frac_plane is not None:
             feats.append(enc.grid_encode_given_table(pts, frac_plane, self.pn_res,
                                                      occ_mask=mask2d,
-                                                     mask_offset=self.pn_mask_offset))
+                                                     mask_offset=self.pn_mask_offset,
+                                                     occ_bits=mask2d_bits))
         feats.append(pg_n.reshape(1, 1).expand(rows, 1))
         mean = self.apply_ctx2d(ent_params.ctx2d, level, torch.cat(feats, dim=-1))
         if cap is not None and cap < w:
@@ -836,7 +845,8 @@ class ContextModels:
         values_q = tbl2.index_select(0, t.offset + evals.long())
         return pooled, covered, values_q
 
-    def _bits_2d_level(self, ent_params, tbl2, level, pg_n, frac_plane, bin2d, mask2d, start_e):
+    def _bits_2d_level(self, ent_params, tbl2, level, pg_n, frac_plane, bin2d, mask2d, start_e,
+                       mask2d_bits):
         """Context-model bits of one 2D level over a sampled entry window."""
         t = self.tables2d[level]
         if not 0 <= int(start_e) <= t.n_entries - t.sample_n:
@@ -844,7 +854,7 @@ class ContextModels:
                              f"[0, {t.n_entries - t.sample_n}]")
         pooled, covered, values_q = self.pool_2d_level(
             ent_params, tbl2, level, pg_n, frac_plane, bin2d, mask2d, start_e, t.sample_n,
-            t.max_win_pts)
+            t.max_win_pts, mask2d_bits)
         bits = ent_ops.bernoulli_bits(values_q, pooled)
         bits = torch.where(covered[:, None], bits, 0.0).sum()
         # extrapolate the sampled window to the whole level (exact when
@@ -881,7 +891,7 @@ class ContextModels:
         pts = (xyz.float() - 0.5) / (r - 2.0)
         k = cfg.max_context_layer_num
         ctx = enc.grid_encode(pts, tbl3, self.spec3, level - k, level, occ_mask=cache["mask3d"],
-                              mask_offsets=self.mask3d_offsets)
+                              mask_offsets=self.mask3d_offsets, occ_bits=cache["mask3d_bits"])
         ctx = torch.cat([ctx, pg_n.reshape(1, 1).expand(w, 1)], dim=-1)
         mean = self.apply_ctx3d(ent_params.ctx3d, ctx)
 
@@ -1072,7 +1082,8 @@ class ContextModels:
         ctx_src = tbl3 if cfg.ctx_grad else tbl3.detach()
         ctx = enc.grid_encode_diff_levels(pts, ctx_src, self.spec3, clev - k, k,
                                           occ_mask=cache["mask3d"],
-                                          mask_offsets=self.mask3d_offsets)
+                                          mask_offsets=self.mask3d_offsets,
+                                          occ_bits=cache["mask3d_bits"])
         pg_arr = torch.stack([pg_by_level[l] for l in range(self.spec3.n_levels)])
         # each vertex's level probability: 2^21 rows of a dozen values, so the
         # gradient is summed per run of equal levels (K6), not row by row

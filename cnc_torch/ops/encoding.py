@@ -23,7 +23,10 @@ same two kernels:
   * `occ_mask` / `mask_offsets`: a flat bool grid per level, read at
     `mask_offset + flat(corner)` with the LAST axis fastest
     (`flat = (cc0*R + cc1)*R + cc2`, not the x-fastest dense table index); a
-    corner whose bit is false is dropped like a border corner;
+    corner whose bit is false is dropped like a border corner.  The CUDA
+    kernels read the same grid packed one bit per vertex (`occ_bits =
+    pack_mask_bits(occ_mask)`, which a caller makes once per mask: the
+    rate's cache holds both), the plain twin the bools;
   * `grid_encode_diff_levels`: point i encodes levels
     `clip(min_level_ids[i] + j, 0, L-1)` for j < n_levels_calc;
   * `grid_encode_given_table`: one dense level over a caller's table.
@@ -35,6 +38,7 @@ no module of cnc_tpu passes it to an encode.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -146,58 +150,119 @@ def _corner_sets(points, resolutions, offsets, occ_mask=None, mask_offsets=None,
 
 
 def _encode_plain(points, table, resolutions, offsets, occ_mask=None, mask_offsets=None,
-                  min_level_ids=None, n_levels_calc=None):
-    """The plain twin of K1 (and, through autograd, of K2)."""
+                  min_level_ids=None, n_levels_calc=None, occ_bits=None):
+    """The plain twin of K1 (and, through autograd, of K2).  It reads the
+    bools of `occ_mask`; `occ_bits`, the packed copy the kernels read, is
+    taken so that one set of arguments serves both, and not read."""
     gs, ws = _corner_sets(points, resolutions, offsets, occ_mask, mask_offsets, min_level_ids,
                           n_levels_calc)
     return _gather_levels(table, gs, ws, points)
 
 
-def _check_cuda_args(name, points, other, f, resolutions, offsets, rows, occ_mask, mask_offsets,
-                     min_level_ids, n_levels_calc):
-    """What K1 and K2 take; returns the kernel's level arguments."""
-    kernels.require_cuda(name, points, other, occ_mask, min_level_ids)
-    if points.dtype != torch.float32 or other.dtype != torch.float32:
-        raise ValueError(f"{name}: points, table and gradient must be float32")
-    n, d = points.shape
+def _pack_bits_plain(mask: torch.Tensor) -> torch.Tensor:
+    """The plain twin of the pack kernel: bool [..., m] -> int32 [..., ceil(m/32)],
+    bit c % 32 of word c // 32 set when mask[..., c] is (little-endian, as
+    `np.packbits(..., bitorder="little")` viewed as int32 words)."""
+    m = mask.shape[-1]
+    words = (m + 31) // 32
+    pad = torch.zeros(*mask.shape[:-1], words * 32 - m, dtype=torch.bool, device=mask.device)
+    b = torch.cat([mask, pad], dim=-1).reshape(*mask.shape[:-1], words, 32).to(torch.int64)
+    v = (b << torch.arange(32, device=mask.device)).sum(dim=-1)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
+    """The packed copy of a flat bool mask [m] (or of each row of [rows, m])
+    that the CUDA encodes read: int32 words [..., ceil(m/32)], bit i of the
+    mask at bit i % 32 of word i // 32.  A CPU tensor takes the plain twin,
+    a CUDA tensor the pack kernel (csrc/grid_encode.cu)."""
+    if mask.dtype != torch.bool or mask.dim() not in (1, 2):
+        raise ValueError("pack_mask_bits: mask must be a bool tensor of 1 or 2 dims")
+    if not mask.is_cuda:
+        return _pack_bits_plain(mask)
+    kernels.require_cuda("pack_mask_bits", mask)
+    rows, cols = (1, mask.shape[0]) if mask.dim() == 1 else mask.shape
+    out = torch.empty(*mask.shape[:-1], (cols + 31) // 32, dtype=torch.int32, device=mask.device)
+    kernels.call("cnc_pack_mask_bits", kernels.ptr(mask), rows, cols, kernels.ptr(out))
+    kernels.launches["pack_mask_bits"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _levels(name, d, f, resolutions, offsets, mask_offsets, n_levels_calc):
+    """(n_out, n_levels, the ctypes level arrays, the end of the last mask
+    grid in bits) of one level description (tuples of ints, or None).  A
+    run uses a handful of descriptions, none of which changes, so each is
+    checked and turned into ctypes arrays on first use only."""
     n_levels = len(resolutions)
     if d not in (2, 3) or f not in (2, 4) or not 1 <= n_levels <= 32:
         raise ValueError(f"{name}: the kernel takes D in (2, 3), F in (2, 4) and "
                          f"1..32 levels, got D={d}, F={f}, {n_levels} levels")
-    if offsets[n_levels] > rows:
-        raise ValueError(f"{name}: level offsets run past the table")
-    moffs = [0] * n_levels
-    if occ_mask is not None:
-        if occ_mask.dtype != torch.bool or occ_mask.dim() != 1 or len(mask_offsets) != n_levels:
-            raise ValueError(f"{name}: occ_mask must be a flat bool tensor with one offset "
-                             "per level")
+    if len(offsets) <= n_levels or offsets[n_levels] >= 2 ** 31:
+        raise ValueError(f"{name}: level offsets must give every level's end below 2^31")
+    moffs, mask_end = [0] * n_levels, 0
+    if mask_offsets is not None:
+        if len(mask_offsets) != n_levels:
+            raise ValueError(f"{name}: occ_mask needs one offset per level")
         moffs = [int(m) for m in mask_offsets]
-        if any(m < 0 or m + int(r) ** d > occ_mask.numel() for m, r in zip(moffs, resolutions)):
-            raise ValueError(f"{name}: a level's mask grid runs past occ_mask")
+        if any(m < 0 for m in moffs):
+            raise ValueError(f"{name}: a level's mask offset is negative")
+        mask_end = max(m + int(r) ** d for m, r in zip(moffs, resolutions))
     n_out = n_levels
-    if min_level_ids is not None:
-        if min_level_ids.dtype != torch.int32 or min_level_ids.shape != (n,):
-            raise ValueError(f"{name}: min_level_ids must be int32 [N]")
+    if n_levels_calc is not None:
         n_out = int(n_levels_calc)
         if not 1 <= n_out <= n_levels:
             raise ValueError(f"{name}: n_levels_calc must lie in 1..{n_levels}")
     sizes = [offsets[i + 1] - offsets[i] for i in range(n_levels)]
     arr, larr = ctypes.c_int * n_levels, ctypes.c_longlong * n_levels
-    return n_out, (n_out, n_levels, arr(*map(int, resolutions)), arr(*map(int, offsets[:n_levels])),
-                   arr(*map(int, sizes)), kernels.ptr(occ_mask), larr(*moffs),
-                   kernels.ptr(min_level_ids))
+    return (n_out, n_levels, arr(*map(int, resolutions)), arr(*map(int, offsets[:n_levels])),
+            arr(*map(int, sizes)), larr(*moffs), mask_end)
+
+
+def _check_cuda_args(name, points, other, f, resolutions, offsets, rows, occ_mask, mask_offsets,
+                     occ_bits, min_level_ids, n_levels_calc):
+    """What K1 and K2 take; returns (n_out, the kernel's level arguments).
+    The level description is checked once (`_levels`), the tensors on every
+    call."""
+    kernels.require_cuda(name, points, other, occ_mask, occ_bits, min_level_ids)
+    if points.dtype != torch.float32 or other.dtype != torch.float32:
+        raise ValueError(f"{name}: points, table and gradient must be float32")
+    n, d = points.shape
+    n_out, n_levels, res, offs, sizes, moffs, mask_end = _levels(
+        name, d, f, tuple(resolutions), tuple(offsets),
+        tuple(mask_offsets) if occ_mask is not None else None,
+        n_levels_calc if min_level_ids is not None else None)
+    if other.data_ptr() % (4 * f):
+        # the kernels move a row as one float2/float4
+        raise ValueError(f"{name}: table and gradient rows must be {4 * f}-byte aligned")
+    if offsets[n_levels] > rows:
+        raise ValueError(f"{name}: level offsets run past the table")
+    if occ_mask is not None:
+        if occ_mask.dtype != torch.bool or occ_mask.dim() != 1:
+            raise ValueError(f"{name}: occ_mask must be a flat bool tensor with one offset "
+                             "per level")
+        if mask_end > occ_mask.numel():
+            raise ValueError(f"{name}: a level's mask grid runs past occ_mask")
+        if occ_bits is None:
+            raise ValueError(f"{name}: the kernel reads the packed mask: pass occ_bits ="
+                             " pack_mask_bits(occ_mask), packed once per mask")
+        if occ_bits.dtype != torch.int32 or occ_bits.shape != ((occ_mask.numel() + 31) // 32,):
+            raise ValueError(f"{name}: occ_bits must be the int32 words of "
+                             "pack_mask_bits(occ_mask)")
+    if min_level_ids is not None and (min_level_ids.dtype != torch.int32
+                                      or min_level_ids.shape != (n,)):
+        raise ValueError(f"{name}: min_level_ids must be int32 [N]")
+    bits = kernels.ptr(occ_bits) if occ_mask is not None else None
+    return n_out, (n_out, n_levels, res, offs, sizes, bits, moffs, kernels.ptr(min_level_ids))
 
 
 def _encode_cuda(points, table, resolutions, offsets, occ_mask=None, mask_offsets=None,
-                 min_level_ids=None, n_levels_calc=None):
+                 occ_bits=None, min_level_ids=None, n_levels_calc=None):
     n, d = points.shape
     f = table.shape[1]
     n_out, levels = _check_cuda_args("grid_encode", points, table, f, resolutions, offsets,
-                                     table.shape[0], occ_mask, mask_offsets, min_level_ids,
-                                     n_levels_calc)
-    if table.data_ptr() % (4 * f):
-        # the kernel reads a row as one float2/float4
-        raise ValueError(f"grid_encode: table rows must be {4 * f}-byte aligned")
+                                     table.shape[0], occ_mask, mask_offsets, occ_bits,
+                                     min_level_ids, n_levels_calc)
     out = torch.empty(n, n_out * f, dtype=torch.float32, device=points.device)
     kernels.call("cnc_grid_encode_forward", kernels.ptr(points), kernels.ptr(table),
                  kernels.ptr(out), n, d, f, *levels)
@@ -207,7 +272,8 @@ def _encode_cuda(points, table, resolutions, offsets, occ_mask=None, mask_offset
 
 
 def _encode_backward_cuda(points, grad, rows, resolutions, offsets, occ_mask=None,
-                          mask_offsets=None, min_level_ids=None, n_levels_calc=None):
+                          mask_offsets=None, occ_bits=None, min_level_ids=None,
+                          n_levels_calc=None):
     """K2: d_table [rows, F] of `_encode_cuda` for the output gradient `grad`
     [N, L*F].  The sum runs through float atomics, so its order, and the last
     bits of the result, vary from run to run."""
@@ -217,7 +283,7 @@ def _encode_backward_cuda(points, grad, rows, resolutions, offsets, occ_mask=Non
         raise ValueError("grid_encode_bwd: grad must be [N, L*F]")
     f = grad.shape[1] // n_out
     _, levels = _check_cuda_args("grid_encode_bwd", points, grad, f, resolutions, offsets, rows,
-                                 occ_mask, mask_offsets, min_level_ids, n_levels_calc)
+                                 occ_mask, mask_offsets, occ_bits, min_level_ids, n_levels_calc)
     d_table = torch.zeros(rows, f, dtype=torch.float32, device=points.device)
     kernels.call("cnc_grid_encode_backward", kernels.ptr(points), kernels.ptr(grad),
                  kernels.ptr(d_table), n, d, f, *levels)
@@ -230,24 +296,25 @@ class _GridEncodeCuda(torch.autograd.Function):
     """K1 forward, K2 backward; a gradient for the table only."""
 
     @staticmethod
-    def forward(ctx, points, table, resolutions, offsets, occ_mask, mask_offsets, min_level_ids,
-                n_levels_calc):
-        ctx.save_for_backward(points, occ_mask, min_level_ids)
+    def forward(ctx, points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits,
+                min_level_ids, n_levels_calc):
+        ctx.save_for_backward(points, occ_mask, occ_bits, min_level_ids)
         ctx.levels = (table.shape[0], resolutions, offsets, mask_offsets, n_levels_calc)
         return _encode_cuda(points, table, resolutions, offsets, occ_mask, mask_offsets,
-                            min_level_ids, n_levels_calc)
+                            occ_bits, min_level_ids, n_levels_calc)
 
     @staticmethod
     def backward(ctx, grad):
-        points, occ_mask, min_level_ids = ctx.saved_tensors
+        points, occ_mask, occ_bits, min_level_ids = ctx.saved_tensors
         rows, resolutions, offsets, mask_offsets, n_levels_calc = ctx.levels
         d_table = _encode_backward_cuda(points, grad.contiguous(), rows, resolutions, offsets,
-                                        occ_mask, mask_offsets, min_level_ids, n_levels_calc)
-        return (None, d_table) + (None,) * 6
+                                        occ_mask, mask_offsets, occ_bits, min_level_ids,
+                                        n_levels_calc)
+        return (None, d_table) + (None,) * 7
 
 
-def _encode(points, table, resolutions, offsets, occ_mask, mask_offsets, min_level_ids=None,
-            n_levels_calc=None):
+def _encode(points, table, resolutions, offsets, occ_mask=None, mask_offsets=None,
+            occ_bits=None, min_level_ids=None, n_levels_calc=None):
     if occ_mask is not None and mask_offsets is None:
         raise ValueError("occ_mask needs mask_offsets, one per level")
     moffs = tuple(int(m) for m in mask_offsets) if occ_mask is not None else None
@@ -256,8 +323,8 @@ def _encode(points, table, resolutions, offsets, occ_mask, mask_offsets, min_lev
         if occ_mask is not None:
             occ_mask = occ_mask.contiguous()
         return _GridEncodeCuda.apply(points.detach().contiguous(), table.contiguous(),
-                                     tuple(resolutions), tuple(offsets), occ_mask, moffs, ids,
-                                     n_levels_calc)
+                                     tuple(resolutions), tuple(offsets), occ_mask, moffs,
+                                     occ_bits, ids, n_levels_calc)
     return _encode_plain(points.detach(), table, resolutions, offsets, occ_mask, moffs,
                          min_level_ids, n_levels_calc)
 
@@ -265,49 +332,56 @@ def _encode(points, table, resolutions, offsets, occ_mask, mask_offsets, min_lev
 def encode_explicit(points: torch.Tensor, table: torch.Tensor,
                     resolutions: Sequence[int], offsets: Sequence[int],
                     occ_mask: Optional[torch.Tensor] = None,
-                    mask_offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
+                    mask_offsets: Optional[Sequence[int]] = None,
+                    occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encode against explicit per-level (resolution, offset) lists.
 
     offsets has len(resolutions)+1 entries; a level's table size is the
     difference.  occ_mask/mask_offsets: flat per-corner bool grids and each
-    level's start in them.  Returns [N, L*F] float32, level-major.  CPU
-    tensors take the plain twin, CUDA tensors the K1 kernel (and K2 in the
+    level's start in them; occ_bits: `pack_mask_bits(occ_mask)`, which the
+    CUDA kernels read in its place (required with a CUDA occ_mask, unused by
+    the plain twin).  Returns [N, L*F] float32, level-major.  CPU tensors
+    take the plain twin, CUDA tensors the K1 kernel (and K2 in the
     backward).  Only `table` gets a gradient.
     """
-    return _encode(points, table, resolutions, offsets, occ_mask, mask_offsets)
+    return _encode(points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits)
 
 
 def grid_encode(points: torch.Tensor, table: torch.Tensor, spec: GridSpec,
                 min_level: int = 0, max_level: Optional[int] = None,
                 occ_mask: Optional[torch.Tensor] = None,
-                mask_offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
+                mask_offsets: Optional[Sequence[int]] = None,
+                occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encode levels [min_level, max_level) of a GridSpec table.
 
     points [N, D] in [0, 1]; table [spec.total_entries, F]; occ_mask /
-    mask_offsets cover ALL levels of the spec.
+    mask_offsets cover ALL levels of the spec (occ_bits as in
+    `encode_explicit`).
     Returns [N, (max_level-min_level) * F] float32, level-major.
     """
     min_level = max(min_level, 0)
     max_level = spec.n_levels if max_level is None else min(max_level, spec.n_levels)
     moffs = mask_offsets[min_level:max_level] if mask_offsets is not None else None
     return encode_explicit(points, table, spec.resolutions[min_level:max_level],
-                           spec.offsets[min_level:max_level + 1], occ_mask, moffs)
+                           spec.offsets[min_level:max_level + 1], occ_mask, moffs, occ_bits)
 
 
 def grid_encode_diff_levels(points: torch.Tensor, table: torch.Tensor, spec: GridSpec,
                             min_level_ids: torch.Tensor, n_levels_calc: int,
                             occ_mask: Optional[torch.Tensor] = None,
-                            mask_offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
+                            mask_offsets: Optional[Sequence[int]] = None,
+                            occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-point mixed-level encode (GridEncoder.forward_diff_levels): point i
     contributes levels min_level_ids[i] .. min_level_ids[i]+J-1, each clipped
     into [0, L-1], in one call.  Returns [N, J*F]."""
     return _encode(points, table, spec.resolutions, spec.offsets, occ_mask, mask_offsets,
-                   min_level_ids, n_levels_calc)
+                   occ_bits, min_level_ids, n_levels_calc)
 
 
 def grid_encode_given_table(points: torch.Tensor, table: torch.Tensor, resolution: int,
                             occ_mask: Optional[torch.Tensor] = None,
-                            mask_offset: int = 0) -> torch.Tensor:
+                            mask_offset: int = 0,
+                            occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-level dense-table encode (GridEncoder.forward_given_params).
 
     Used for the dimension-wise prior: `table` is a dense [resolution**2, F]
@@ -316,4 +390,4 @@ def grid_encode_given_table(points: torch.Tensor, table: torch.Tensor, resolutio
     (the reference reads the transposed map).
     """
     return encode_explicit(points, table, [resolution], [0, table.shape[0]], occ_mask,
-                           [mask_offset] if occ_mask is not None else None)
+                           [mask_offset] if occ_mask is not None else None, occ_bits)

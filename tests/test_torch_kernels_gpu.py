@@ -18,7 +18,11 @@ the rate estimate's kernels: the pooling with all rows invalid, one segment,
 a segment without a valid row and both ranks of x; the sign histogram with
 empty bins and more rows than the cap; the footprint grids on an empty and a
 full occupancy in 2D and 3D; the masked encode with every corner masked and
-the mixed-level encode with its first level at both ends; the table build on
+the mixed-level encode with its first level at both ends; the encode's edge
+cases (whole warps on one row, lanes alternating between two rows, a level
+change within a warp, 1, 31, 33 and a tile plus one points, every corner
+masked, mask offsets inside a word, points outside [0,1], zero gradient
+rows; the forward bit-equal) and the mask packing; the table build on
 a dense, a hashed and a 2D level; a few rate steps on the card.  For the
 codec's integer kernels (K9a-K9c, K7i), held to their twins with
 torch.equal: odd widths, an empty chunk, a chunk of uncovered rows, weights
@@ -496,7 +500,7 @@ def test_grid_encode_variants(dev, d, f, variant):
            "diff_hi": torch.full((n,), len(res) - n_calc, dtype=torch.int32, device=dev),
            "diff_mixed": torch.randint(-1, len(res), (n,), generator=g, device=dev,
                                        dtype=torch.int32)}.get(variant)
-    kw = dict(occ_mask=mask, mask_offsets=moffs)
+    kw = dict(occ_mask=mask, mask_offsets=moffs, occ_bits=enc.pack_mask_bits(mask))
     if ids is not None:
         kw.update(min_level_ids=ids, n_levels_calc=n_calc)
     got = enc._encode_cuda(pts, table, res, offsets, **kw)
@@ -522,7 +526,7 @@ def test_grid_encode_forward_is_bit_equal_to_its_twin(dev, d, f, variant):
     res, offsets, moffs, pts, table, mask, g = _masked_encode_inputs(dev, d, f)
     kw = {}
     if variant != "plain":
-        kw = dict(occ_mask=mask, mask_offsets=moffs)
+        kw = dict(occ_mask=mask, mask_offsets=moffs, occ_bits=enc.pack_mask_bits(mask))
     if variant == "mixed":
         kw.update(min_level_ids=torch.randint(-1, len(res), (pts.shape[0],), generator=g,
                                               device=dev, dtype=torch.int32), n_levels_calc=2)
@@ -531,13 +535,105 @@ def test_grid_encode_forward_is_bit_equal_to_its_twin(dev, d, f, variant):
     assert torch.equal(got, want)
 
 
+# the kernels' tile is 256 / wpt points: 64 points at four levels, 128 at two
+EDGE_N = {"n1": 1, "n31": 31, "n33": 33, "tile_plus_1": 65, "tile_plus_1_mixed": 129}
+EDGE_CASES = ["one_row", "one_row_plain", "two_rows", "two_rows_plain", "levels_in_warp",
+              "all_masked", "outside", "zero_grad_rows", *EDGE_N]
+
+
+def _edge_inputs(dev, d, f, case):
+    """Four levels (dense, dense, hashed at 1024 and at 1000 entries), their
+    mask grids at offsets that are not multiples of 32, and the points of one
+    edge case."""
+    mixed = case in ("levels_in_warp", "tile_plus_1_mixed")
+    res = (6, 12, 40, 40) if d == 3 else (20, 60, 200, 200)
+    # the mixed-level twin masks the hash with size - 1, as cnc_tpu's does
+    # (hashed tables are powers of two in every config), so 1000 only with
+    # static levels
+    sizes = (res[0] ** d, res[1] ** d, 1024, 1024 if mixed else 1000)
+    offsets = tuple(int(x) for x in np.cumsum((0,) + sizes))
+    moffs = tuple(int(x) for x in 3 + np.cumsum((0,) + tuple(r ** d + 2 for r in res[:-1])))
+    assert all(m % 32 for m in moffs)
+    g = torch.Generator(device=dev).manual_seed(d * 1000 + f * 10 + EDGE_CASES.index(case))
+    n = EDGE_N.get(case, 3000)
+    pts = torch.rand(n, d, generator=g, device=dev)
+    if case.startswith("one_row"):         # every lane on the same rows
+        pts[:] = pts[0]
+    elif case.startswith("two_rows"):      # lanes alternating between two points
+        pts[1::2] = pts[1]
+        pts[0::2] = pts[0]
+    elif case == "outside":
+        pts = pts * 1.6 - 0.3
+    table = torch.randn(offsets[-1], f, generator=g, device=dev)
+    mask = torch.rand(moffs[-1] + res[-1] ** d + 7, generator=g, device=dev) < (
+        0.0 if case == "all_masked" else 0.6)
+    kw = {}
+    if not case.endswith("_plain"):
+        kw = dict(occ_mask=mask, mask_offsets=moffs, occ_bits=enc.pack_mask_bits(mask))
+    if mixed:
+        # a level change at every lane, and runs of one level breaking mid-warp
+        ids = torch.arange(n, device=dev) % 5 - 1
+        ids[n // 2:] = (torch.arange(n - n // 2, device=dev) // 7) % 4
+        kw.update(min_level_ids=ids.to(torch.int32), n_levels_calc=2)
+    cot = torch.randn(n, (2 if "min_level_ids" in kw else 4) * f, generator=g, device=dev)
+    if case == "zero_grad_rows":
+        cot[torch.rand(n, generator=g, device=dev) < 0.5] = 0.0
+    return res, offsets, pts, table, kw, cot
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_grid_encode_edge_cases(dev, d, f, case):
+    """K1 and K1v bit-equal to the twin, K2 and K2v within 1e-4 of the
+    largest entry of the twin's gradient (chip_smoke's K2_REL_TOL): whole
+    warps on one row and lanes alternating between two (the backward's
+    aggregation), a level change within a warp, point counts around a warp
+    and a tile, every corner masked out, points outside [0,1], zero rows of
+    the output gradient, each with mask offsets inside a word."""
+    res, offsets, pts, table, kw, cot = _edge_inputs(dev, d, f, case)
+    got = enc._encode_cuda(pts, table, res, offsets, **kw)
+    leaf = table.clone().requires_grad_()
+    want = enc._encode_plain(pts, leaf, res, offsets, **kw)
+    assert torch.equal(got, want.detach())
+    if case in ("all_masked", "outside"):
+        assert (not bool(got.any())) if case == "all_masked" else bool(got.any())
+    d_table = enc._encode_backward_cuda(pts, cot, table.shape[0], res, offsets, **kw)
+    (want_d,) = torch.autograd.grad(want, leaf, cot)
+    torch.testing.assert_close(d_table, want_d, rtol=0,
+                               atol=1e-4 * max(float(want_d.abs().max()), 1e-6))
+    if case.startswith("one_row"):
+        assert int((want_d != 0).any(dim=1).sum()) <= 4 * (1 << d)
+
+
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (3, 1000), (2_000_003,)])
+def test_pack_mask_bits_kernel(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    mask = torch.rand(shape, generator=g, device=dev) < 0.3
+    before = kernels.launches["pack_mask_bits"]
+    got = enc.pack_mask_bits(mask)
+    assert kernels.launches["pack_mask_bits"] == before + 1
+    assert torch.equal(got, enc._pack_bits_plain(mask))
+
+
+def test_cuda_encode_refuses_a_mask_without_its_packed_copy(dev):
+    res, offsets, pts, table, kw, _ = _edge_inputs(dev, 3, 4, "n33")
+    with pytest.raises(ValueError, match="occ_bits"):
+        enc._encode_cuda(pts, table, res, offsets, occ_mask=kw["occ_mask"],
+                         mask_offsets=kw["mask_offsets"])
+    with pytest.raises(ValueError, match="occ_bits"):
+        enc._encode_cuda(pts, table, res, offsets, occ_mask=kw["occ_mask"],
+                         mask_offsets=kw["mask_offsets"], occ_bits=kw["occ_bits"][1:])
+
+
 def test_grid_encode_given_table_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     r = 66
     plane = torch.rand(r * r, 4, generator=g, device=dev).requires_grad_()
     mask = torch.rand(100 + r * r, generator=g, device=dev) < 0.7
     pts = torch.rand(3000, 2, generator=g, device=dev)
-    got = enc.grid_encode_given_table(pts, plane, r, occ_mask=mask, mask_offset=100)
+    got = enc.grid_encode_given_table(pts, plane, r, occ_mask=mask, mask_offset=100,
+                                      occ_bits=enc.pack_mask_bits(mask))
     want = enc._encode_plain(pts, plane, [r], [0, r * r], mask, [100])
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     cot = torch.randn(got.shape, generator=g, device=dev)
@@ -591,7 +687,7 @@ def test_context_models_on_the_card_match_the_cpu(dev):
     rng = np.random.default_rng(0)
     occ = torch.from_numpy(rng.random((16, 16, 16)) < 0.15)
     cache_g, cache_c = on_gpu.refresh_cache(occ.to(dev)), on_cpu.refresh_cache(occ)
-    for k in ("bin2d", "mask3d", "mask2d"):
+    for k in ("bin2d", "mask3d", "mask2d", "mask3d_bits", "mask2d_bits"):
         assert torch.equal(cache_g[k].cpu(), cache_c[k]), k
     for ax in cm.AXES:
         for k, v in cache_c["pn"][ax].items():
