@@ -6,15 +6,18 @@
 Phases (any failure raises and the script exits non-zero):
   1. the card (name, power limit), torch and CUDA versions;
   2. build the kernels from cnc_torch/csrc (nvcc, sm_90a);
-  3. hold each serving kernel (K1, K3, K4, K5) against its plain PyTorch twin
-     on the card, at the shapes the serving path gives it, and time both with
-     CUDA events (the encode kernels also by their device work alone,
-     without the wrapper's host time: `device_ms`; their forward must equal
-     the twin bit for bit);
+  3. hold each serving kernel (K1, K4, K5; K3 at random masks) against its
+     plain PyTorch twin on the card, at the shapes the serving path gives it,
+     and time both with CUDA events (the encode kernels and the march also by
+     their device work alone, without the wrapper's host time: `device_ms`;
+     the encode's forward must equal the twin bit for bit, and every field of
+     the march, its padding slots and its per-ray hit counts and last t_mid
+     included, at the view's first and a late round);
   4. the serving path: render one 800x800 view of a full-width field
      (ModelConfig(), RenderConfig(), random weights from seed 0) through
      `render_image`, over the procedural `blocks` scene's 128^3 occupancy,
-     with every kernel's launch count read just after; then render it once
+     with every kernel's launch count read just after (the march three a
+     round, no K3); then render it once
      more under torch.profiler for the device's busy share and the time by
      operator (also written to chiprun_out/profile.txt);
   5. render a 64x64 crop of the view on the card and with device="cpu" (the
@@ -26,7 +29,7 @@ Phases (any failure raises and the script exits non-zero):
   7. [train] the training path at full width: `Trainer(CNCConfig() with
      lmbda=0, ProceduralDataset("blocks")).fit`.  After the first 16 steps
      the training kernels are held against their twins at one real training
-     march's buffer: K4 with jitter (exact), K1 on the xyz table, [K2] the
+     march's buffer: K4 with jitter (exact, timed), K1 on the xyz table, [K2] the
      encode backward on the xyz table and one plane, [K5b] the composite
      backward at the full and
      at a half-padded buffer.  Then the counts are set to 0, `fit` runs on
@@ -44,9 +47,12 @@ Phases (any failure raises and the script exits non-zero):
      "blocks"), entropy=...)` with the default lmbda = 2e-3.  After 16 steps
      the rate kernels are held against their twins at that step's real
      shapes ([K8] and [pack], the packing of the masks, on the lambda = 0
-     run's trained occupancy grid; [K6], [K7], and [K1v], [K2v] at each call
-     site (the 3D mixed-level context, the 2D windows, the frac planes) with
-     its launches per step, on the arguments one rate estimate gives them);
+     run's trained occupancy grid; [K6] segment_gather's gather and its
+     backward's sums at the 3D context, [K6m] segment_mean at each pooling site (the 3D context, the 2D windows:
+     within K6_REL_TOL, covered exact, two runs bit-equal, its backward), [K3]
+     at the 3D context compaction, [K7], and [K1v], [K2v] at each call site
+     (the 3D mixed-level context, the 2D windows, the frac planes) with its
+     launches per step, on the arguments one rate estimate gives them);
      those launches are taken out of the counts again.  `fit` then runs on to RATE_STEPS and
      the counts are read: every rate kernel must have launched (the step's
      kernels in every step), bits_per_param must be finite and lower than at
@@ -57,7 +63,8 @@ Phases (any failure raises and the script exits non-zero):
      distance from it (check_rate_gradient).  One more step runs under
      torch.profiler (chiprun_out/profile_rate.txt).  A three-step run with
      `pn_frac_grad=True` drives the sign histogram's backward kernel, which
-     the default configuration does not reach;
+     the default configuration does not reach.  After each of these rate
+     phases the word segment_mean sets when live ids decrease must be clear;
  10. [codec] the lambda = 2e-3 run's binarized tables through the codec, with
      the counts set to 0 just before it: `refresh_cache_int`; the codec
      kernels held to their twins with torch.equal ([K9a] int_encode, [K9b]
@@ -149,6 +156,10 @@ RATE_PSNR_MIN = 32.0
 # the kernels' largest entry error was 1.9e-2, the float32 twins' 6.8e-3, on
 # one table and 5.3e-2 both on another): those figures are printed, not held.
 RATE_GRAD_BANDS = (0.0, 4e-6, 1e-3)
+# every field of the march's output, the padding slots and the per-ray
+# outputs included, is held to the twin with torch.equal
+MARCH_FIELDS = ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples", "ray_hits",
+                "ray_last_t")
 RATE_GRAD_BAND, RATE_GRAD_TOL = 1e-3, 1e-4
 
 
@@ -459,20 +470,126 @@ def covered_rows(torch, intctx, entropy, codec, ip, signs, cache, pgs):
 
 def check_compact(torch, scatter_ops, n, cap, p, gen, dev):
     mask = torch.rand(n, generator=gen, device=dev) < p
+    return check_compact_mask(torch, scatter_ops, mask, cap, f"random, p={p}")
+
+
+def check_compact_mask(torch, scatter_ops, mask, cap, label):
+    n = mask.numel()
     src, count = scatter_ops._compact_cuda(mask, cap)
     want_src, want_count = scatter_ops._compact_plain(mask, cap)
     torch.cuda.synchronize()
     if not (torch.equal(src, want_src) and int(count) == int(want_count)):
-        raise AssertionError(f"K3 n={n} cap={cap}: kernel and twin differ")
+        raise AssertionError(f"K3 {label} n={n} cap={cap}: kernel and twin differ")
     n_bytes = n + cap * 4 + 4
     b, by = bound_ms(n_bytes, n)
     rec = dict(max_abs_err=0.0, ms=time_ms(lambda: scatter_ops._compact_cuda(mask, cap)),
+               device_ms=device_ms(lambda: scatter_ops._compact_cuda(mask, cap)),
                plain_ms=time_ms(lambda: scatter_ops._compact_plain(mask, cap)),
                bound_ms=b, bound_by=by,
                library_ms=time_ms(lambda: torch.nonzero(mask)[:cap]))
-    log(f"[K3 compact] n={n} cap={cap} count={int(count)} exact ms={rec['ms']:.4f}"
-        f" plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} bound_ms={b:.5f}")
+    log(f"[K3 compact, {label}] n={n} cap={cap} count={int(count)} exact ms={rec['ms']:.4f}"
+        f" device_ms={rec['device_ms']:.4f} plain_ms={rec['plain_ms']:.4f}"
+        f" library_ms={rec['library_ms']:.4f} bound_ms={b:.5f}")
     return rec
+
+
+def mean_args(torch, call) -> dict:
+    """The bound arguments of one recorded segment_mean call, as its
+    kernel's wrapper takes them."""
+    from cnc_torch.ops import context_ops as cops
+    import numpy as np
+    a = inspect.signature(cops.segment_mean).bind(*call[0], **call[1])
+    a.apply_defaults()
+    a = a.arguments
+    return dict(x=a["x"].detach().contiguous(), den=a["den"].contiguous(),
+                seg=a["seg"].to(torch.int32).contiguous(), valid=a["valid"].contiguous(),
+                num=a["num_segments"], min_den=float(np.float32(a["min_den"])),
+                weighted=bool(a["weighted"]))
+
+
+def check_segment_mean(torch, cops, calls, gen, dev) -> dict:
+    """K6m against its twin at each pooling call site of one rate step (the
+    3D context, the call with the most rows, and the 2D windows, the largest
+    of them): pooled within K6_REL_TOL of max |pooled|, covered exact, two
+    runs bit-equal, the backward within K6_REL_TOL of the twin's autograd,
+    no order fault; ms, device ms, plain and library ms, bound and launches
+    per step.  Returns the forward's and the backward's records, the 3D
+    site's numbers on top and every site's under "sites"."""
+    biggest = max(calls["segment_mean"], key=lambda c: c[0][0].shape[0])
+    sites = {"3D context": [biggest],
+             "2D window": [c for c in calls["segment_mean"] if c is not biggest]}
+    fwd, bwd = {}, {}
+    for label, site_calls in sites.items():
+        if not site_calls:
+            continue
+        a = mean_args(torch, max(site_calls, key=lambda c: c[0][0].shape[0]))
+        x, den, seg, valid, num = a["x"], a["den"], a["seg"], a["valid"], a["num"]
+        opts = (a["min_den"], a["weighted"])
+        kernel = lambda: cops._segment_mean_cuda(x, den, seg, valid, num, *opts)
+        plain = lambda: cops._segment_mean_plain(x, den, seg, valid, num, *opts)
+        (got, cov, den_sum), (want, want_cov) = kernel(), plain()
+        again = kernel()
+        err = rel_err(got, want)
+        if not (err <= K6_REL_TOL and torch.equal(cov, want_cov)):
+            raise AssertionError(f"[K6m {label}] rel err {err} > {K6_REL_TOL} or covered differs")
+        if not (torch.equal(again[0], got) and torch.equal(again[1], cov)):
+            raise AssertionError(f"[K6m {label}] two runs differ")
+        cot = torch.randn(num, x.shape[1], generator=gen, device=dev)
+        leaf = x.clone().requires_grad_()
+        (want_dx,) = torch.autograd.grad(
+            cops._segment_mean_plain(leaf, den, seg, valid, num, *opts)[0], leaf, cot)
+        bwd_kernel = lambda: cops._segment_mean_backward_cuda(cot, den, seg, valid, den_sum,
+                                                              *opts)
+        got_dx = bwd_kernel()
+        bwd_err = rel_err(got_dx, want_dx)
+        if not bwd_err <= K6_REL_TOL:
+            raise AssertionError(f"[K6m {label}] backward rel err {bwd_err} > {K6_REL_TOL}")
+        n, f = x.shape
+        n_live = int(cops._live_rows(seg, valid, num).sum())
+        # the library yardstick: both sums in one index_add_ (no divide)
+        seg_safe = torch.where(valid, seg.long(), num).clamp(max=num)
+        rows = torch.cat([x * den[:, None] if opts[1] else x, den[:, None]], dim=1)
+        library = lambda: torch.zeros(num + 1, f + 1, device=dev).index_add_(0, seg_safe, rows)
+        b, by = bound_ms(n * (4 * f + 9) + num * (4 * f + 5),
+                         n_live * (2 * f + 1) + num * f)
+        fwd[label] = dict(max_abs_err=float((got - want).abs().max()), rel_err=err,
+                          ms=time_ms(kernel), device_ms=device_ms(kernel),
+                          plain_ms=time_ms(plain), bound_ms=b, bound_by=by,
+                          library_ms=time_ms(library), launches_per_step=len(site_calls),
+                          rows=n, live_rows=n_live, segments=num, features=f,
+                          weighted=opts[1])
+        bb, bby = bound_ms(n * (4 * f + 9) + num * (4 * f + 4), n_live * 2 * f)
+        bwd_plain = lambda: torch.autograd.grad(
+            cops._segment_mean_plain(leaf, den, seg, valid, num, *opts)[0], leaf, cot)
+        gather = lambda: torch.index_select(cot, 0, seg.long().clamp(0, num - 1))
+        bwd[label] = dict(max_abs_err=float((got_dx - want_dx).abs().max()), rel_err=bwd_err,
+                          ms=time_ms(bwd_kernel), device_ms=device_ms(bwd_kernel),
+                          plain_ms=time_ms(bwd_plain), bound_ms=bb, bound_by=bby,
+                          library_ms=time_ms(gather), launches_per_step=len(site_calls))
+        r, rb = fwd[label], bwd[label]
+        log(f"[K6m segment_mean, {label}] rows={n} live={n_live} F={f} segments={num}"
+            f" weighted={opts[1]} ({len(site_calls)} calls in the step) rel_err {err:.3g}"
+            f" (limit {K6_REL_TOL}) covered exact, two runs bit-equal; ms={r['ms']:.4f}"
+            f" device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+            f" library_ms={r['library_ms']:.4f} bound_ms={b:.4f}; backward rel_err"
+            f" {bwd_err:.3g} ms={rb['ms']:.4f} device_ms={rb['device_ms']:.4f}"
+            f" bound_ms={bb:.4f}")
+        del leaf
+    check_order_faults(cops, dev, "[K6m]")
+    first = "3D context"
+    return {"segment_mean": dict(fwd[first], max_abs_err=max(v["max_abs_err"]
+                                                             for v in fwd.values()),
+                                 sites=fwd),
+            "segment_mean_bwd": dict(bwd[first], max_abs_err=max(v["max_abs_err"]
+                                                                 for v in bwd.values()),
+                                     sites=bwd)}
+
+
+def check_order_faults(cops, dev, where: str) -> None:
+    """The word K6m sets when live ids decrease must be clear."""
+    if cops.segment_order_faults(dev):
+        raise AssertionError(f"{where} a segment_mean launch met live ids that decrease")
+    log(f"{where} segment_mean's order-fault word is clear")
 
 
 def march_work(torch, marching, scatter_ops, o, d, binaries, aabb, rcfg, capacity, alive,
@@ -680,14 +797,31 @@ def check_training_kernels(torch, tr, enc, marching, volrend, rf, gen):
                                      mip, u)
         padded = marching._march_cuda(o, d, binaries, tr.aabb, cfg.render, cap, half, None, None,
                                       mip, u)
+        padded_want = marching._march_plain(o, d, binaries, tr.aabb, cfg.render, cap, half, None,
+                                            None, mip, u)
+        again = marching._march_cuda(o, d, binaries, tr.aabb, cfg.render, cap, None, None, None,
+                                     mip, u)
         torch.cuda.synchronize()
-        for name in ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples"):
-            a, b = getattr(got, name), getattr(want, name)
-            if not torch.equal(a.to(b.dtype), b):
-                raise AssertionError(f"K4 with jitter: {name} differs between kernel and twin")
+        for x, y, what in ((got, want, "full"), (padded, padded_want, "half the rays"),
+                           (again, got, "a second run")):
+            for name in MARCH_FIELDS:
+                a, b = getattr(x, name), getattr(y, name)
+                if not torch.equal(a.to(b.dtype), b):
+                    raise AssertionError(f"K4 with jitter ({what}): {name} differs")
         n_valid = int(got.valid.sum())
+        march = lambda: marching._march_cuda(o, d, binaries, tr.aabb, cfg.render, cap, None, None,
+                                             None, mip, u)
+        records["march_train"] = dict(
+            ms=time_ms(march), device_ms=device_ms(march),
+            plain_ms=time_ms(lambda: marching._march_plain(o, d, binaries, tr.aabb, cfg.render,
+                                                           cap, None, None, None, mip, u)),
+            rays=bucket, capacity=cap, samples=n_valid, truncated=bool(got.truncated))
+        r = records["march_train"]
         log(f"[K4 march, jittered] rays={bucket} capacity={cap} samples={n_valid}"
-            f" truncated={bool(got.truncated)} exact against the twin")
+            f" truncated={bool(got.truncated)} resume_ray={int(got.resume_ray)}: every field,"
+            f" the per-ray outputs and the padding exact against the twin (also with half the"
+            f" rays masked), two runs equal; ms={r['ms']:.4f} device_ms={r['device_ms']:.4f}"
+            f" plain_ms={r['plain_ms']:.4f}")
         if n_valid < cap // 2:
             raise AssertionError(f"[train] the march filled only {n_valid} of {cap} slots")
         pos, _ = marching.sample_positions(got, o, d)
@@ -843,13 +977,18 @@ def check_footprint(torch, cops, entropy, binaries):
 
 
 def capture_rate_calls(torch, tr, rf, cops, enc):
-    """The arguments one real rate step gives the rate kernels: the wrappers
+    """The arguments one real rate step gives the rate kernels (the pooled
+    means, the level-probability gather, the sign histograms, the encodes and
+    the compactions): the wrappers
     are swapped for recorders while one rate estimate runs on the trainer's
     current tables, cache and freshly drawn windows.  The tables are made
     with their gradient, as a step makes them, so a recorded encode's table
     requires one where the step's backward runs K2v on it."""
-    calls = {"segment_pool": [], "pn_hist": [], "encode": []}
-    originals = (cops.segment_pool, cops.pn_hist, enc._encode)
+    from cnc_torch.ops import scatter_ops
+    calls = {"segment_mean": [], "segment_gather": [], "pn_hist": [], "encode": [],
+             "compact": []}
+    originals = (cops.segment_mean, cops.segment_gather, cops.pn_hist, enc._encode,
+                 scatter_ops.compact_mask_indices)
 
     def recorder(key, fn):
         def wrapped(*args, **kw):
@@ -857,16 +996,19 @@ def capture_rate_calls(torch, tr, rf, cops, enc):
             return fn(*args, **kw)
         return wrapped
 
-    cops.segment_pool = recorder("segment_pool", originals[0])
-    cops.pn_hist = recorder("pn_hist", originals[1])
-    enc._encode = recorder("encode", originals[2])
+    cops.segment_mean = recorder("segment_mean", originals[0])
+    cops.segment_gather = recorder("segment_gather", originals[1])
+    cops.pn_hist = recorder("pn_hist", originals[2])
+    enc._encode = recorder("encode", originals[3])
+    scatter_ops.compact_mask_indices = recorder("compact", originals[4])
     try:
         tables = rf.quantized_tables(tr.field, tr.cfg.model)
         with torch.no_grad():
             starts = tr.entropy.draw_starts(tr.generator)
             tr.entropy.rate_estimate(tr.ent_params, tables, starts, tr._last_ent_cache)
     finally:
-        cops.segment_pool, cops.pn_hist, enc._encode = originals
+        (cops.segment_mean, cops.segment_gather, cops.pn_hist, enc._encode,
+         scatter_ops.compact_mask_indices) = originals
     return calls
 
 
@@ -907,56 +1049,68 @@ def encode_args(torch, a):
 
 
 def check_rate_kernels(torch, tr, rf, cops, enc, gen):
-    """K6, K7, K1v and K2v against their twins at the shapes of one real
-    rate step of the trainer."""
+    """K6, K6m, K3, K7, K1v and K2v against their twins at the shapes of one
+    real rate step of the trainer."""
+    from cnc_torch.ops import scatter_ops
     calls = capture_rate_calls(torch, tr, rf, cops, enc)
     dev = tr.device
     records = {}
 
-    # ---- K6: the 3D pooling of the context means ([cap, F] rows into the
-    # step's sampled entries) and of the weights ([cap])
-    rows2 = [c for c in calls["segment_pool"] if c[0][0].dim() == 2]
-    x, seg, valid, num = max(rows2, key=lambda c: c[0][0].shape[0])[0]
-    x, seg, valid = x.contiguous(), seg.to(torch.int32).contiguous(), valid.contiguous()
-    x1 = x[:, 0].contiguous()
-    errs = []
-    for xs in (x, x1):
-        got, want = cops._segment_pool_cuda(xs, seg, valid, num), \
-            cops._segment_pool_plain(xs, seg, valid, num)
-        errs.append(rel_err(got, want))
-    if not max(errs) <= K6_REL_TOL:
-        raise AssertionError(f"[K6] rel err {errs} > {K6_REL_TOL}")
-    abs_err = float((got - want).abs().max())
-    cot = torch.randn(num, x.shape[1], generator=gen, device=dev)
-    leaf = x.clone().requires_grad_()
-    (want_dx,) = torch.autograd.grad(cops._segment_pool_plain(leaf, seg, valid, num), leaf, cot)
-    got_dx = cops._segment_pool_backward_cuda(cot, seg, valid, x.shape)
-    if not torch.equal(got_dx, want_dx):
-        raise AssertionError("[K6] the backward kernel differs from the twin's gradient")
-    n, f = x.shape
-    n_valid = int(valid.sum())
-    seg_safe = torch.where(valid, seg.long(), num)
-    xm = torch.where(valid[:, None], x, 0.0)
-    library = lambda: torch.zeros(num + 1, f, device=dev).index_add_(0, seg_safe, xm)
-    b, by = bound_ms(n * (4 * f + 5) + num * f * 4, n_valid * f)
-    records["segment_pool"] = dict(
-        max_abs_err=abs_err, ms=time_ms(lambda: cops._segment_pool_cuda(x, seg, valid, num)),
-        plain_ms=time_ms(lambda: cops._segment_pool_plain(x, seg, valid, num)),
-        bound_ms=b, bound_by=by, library_ms=time_ms(library))
-    bb, bby = bound_ms(n * (4 * f + 5) + num * f * 4, 0)
+    # ---- K6: segment_gather at the 3D context, its only call (each row's
+    # level probability, [2^21] rows from [n_levels] values): the forward is
+    # K6's gather kernel (record segment_pool_bwd), the backward K6's per-run
+    # sums into the level segments (record segment_pool)
+    (values, clev, gvalid), _ = calls["segment_gather"][0]
+    values = values.detach().contiguous()
+    seg, valid = clev.to(torch.int32).contiguous(), gvalid.contiguous()
+    num, n = values.shape[0], seg.shape[0]
+    gather = lambda: cops._segment_pool_backward_cuda(values, seg, valid)
+    if not torch.equal(gather(), cops._segment_gather_plain(values, seg, valid)):
+        raise AssertionError("[K6 gather] the gather kernel differs from its twin")
+    # the sums are held against the twin summed in float64: in float32 the
+    # twin's index_add_ adds a level's ~10^6 rows one at a time onto one word
+    # and lands further off itself (logged beside the kernel's error)
+    cot = torch.randn(n, generator=gen, device=dev)
+    sums = lambda: cops._segment_pool_cuda(cot, seg, valid, num)
+    sums_plain = lambda: cops._segment_pool_plain(cot, seg, valid, num)
+    got, want = sums(), cops._segment_pool_plain(cot.double(), seg, valid, num)
+    err, twin_err = rel_err(got.double(), want), rel_err(sums_plain().double(), want)
+    if not err <= K6_REL_TOL:
+        raise AssertionError(f"[K6] rel err {err} > {K6_REL_TOL}")
+    live = cops._live_rows(seg, valid, num)
+    n_live = int(live.sum())
+    safe = torch.where(live, seg.long(), 0)
+    cot_live = torch.where(live, cot, 0.0)
+    # both read seg and valid (5 B a row); the gather writes 4 B a row and
+    # reads the values, the sums read 4 B a row and add each live one
+    b, by = bound_ms(n * 9 + num * 4, 0)
     records["segment_pool_bwd"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: cops._segment_pool_backward_cuda(cot, seg, valid, x.shape)),
-        plain_ms=time_ms(lambda: torch.where(valid[:, None], cot[seg_safe.clamp(max=num - 1)],
-                                             0.0)),
-        bound_ms=bb, bound_by=bby,
-        library_ms=time_ms(lambda: torch.index_select(cot, 0, seg_safe.clamp(max=num - 1))))
-    r = records["segment_pool"]
-    log(f"[K6 segment_pool] rows={n} valid={n_valid} F={f} segments={num}"
-        f" ({len(calls['segment_pool'])} calls in the step) rel_err [N,F] {errs[0]:.3g}"
-        f" [N] {errs[1]:.3g} (limit {K6_REL_TOL}) backward exact ms={r['ms']:.4f}"
-        f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms={b:.4f};"
-        f" backward ms={records['segment_pool_bwd']['ms']:.4f}")
+        max_abs_err=0.0, ms=time_ms(gather), device_ms=device_ms(gather),
+        plain_ms=time_ms(lambda: cops._segment_gather_plain(values, seg, valid)),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: torch.index_select(values, 0, safe)),
+        launches_per_step=len(calls["segment_gather"]), rows=n, segments=num)
+    bb, bby = bound_ms(n * 9 + num * 4, n_live)
+    records["segment_pool"] = dict(
+        max_abs_err=float((got.double() - want).abs().max()), rel_err=err, ms=time_ms(sums),
+        device_ms=device_ms(sums), plain_ms=time_ms(sums_plain), bound_ms=bb, bound_by=bby,
+        library_ms=time_ms(lambda: torch.zeros(num, device=dev).index_add_(0, safe, cot_live)),
+        launches_per_step=len(calls["segment_gather"]), rows=n, segments=num)
+    r, rg = records["segment_pool"], records["segment_pool_bwd"]
+    runs = int((seg[1:] != seg[:-1]).sum()) + 1
+    log(f"[K6 segment_gather, 3D context] rows={n} live={n_live} segments={num} runs={runs}"
+        f" ({len(calls['segment_gather'])} call in the step); gather exact ms={rg['ms']:.4f}"
+        f" device_ms={rg['device_ms']:.4f} plain_ms={rg['plain_ms']:.4f}"
+        f" library_ms={rg['library_ms']:.4f} bound_ms={b:.4f}; its backward (K6) rel_err"
+        f" {err:.3g} against float64 (limit {K6_REL_TOL}; the float32 twin's {twin_err:.3g})"
+        f" ms={r['ms']:.4f} device_ms={r['device_ms']:.4f}"
+        f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms={bb:.4f}")
+    records.update(check_segment_mean(torch, cops, calls, gen, dev))
+
+    # ---- K3 at the 3D context compaction of the step (its largest mask)
+    mask, cap = max(calls["compact"], key=lambda c: c[0][0].numel())[0]
+    records["compact"] = check_compact_mask(torch, scatter_ops, mask.contiguous(), cap,
+                                            "3D context")
 
     # ---- K7: one plane's sign histogram
     table, fine_offset, sel, row_valid, bnd = calls["pn_hist"][0][0]
@@ -1150,7 +1304,8 @@ def check_rate_gradient(torch, tr, rf, cops, enc, ent_ops, label):
                          math.sqrt(diff2 / max(want2, 1e-300))]
         return out
 
-    twins = ((cops, "segment_pool", cops._segment_pool_plain),
+    twins = ((cops, "segment_mean", lambda x, den, seg, valid, num, min_den, weighted=False:
+              cops._segment_mean_plain(x, den, seg, valid, num, min_den, weighted)),
              (cops, "segment_gather", cops._segment_gather_plain),
              (cops, "pn_hist", cops._pn_hist_plain),
              (enc, "_encode", lambda pts, table, res, offs, mask=None, moffs=None, bits=None,
@@ -1481,7 +1636,7 @@ def main() -> int:
         late_want = marching._march_plain(o, d, binaries, aabb, rcfg, capacity, alive_late,
                                           cursor, None, mip)
         torch.cuda.synchronize()
-        for name in ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples"):
+        for name in MARCH_FIELDS:
             for x, y in ((got, want), (late, late_want)):
                 a, b = getattr(x, name), getattr(y, name)
                 if not torch.equal(a.to(b.dtype), b):
@@ -1499,12 +1654,24 @@ def main() -> int:
             + n_vox + 6 * 4 + capacity * 9 + 12
         n_flops = (n_coarse + n_fine) * 40
         b, by = bound_ms(n_bytes, n_flops)
-        records["march"] = dict(max_abs_err=0.0, ms=time_ms(march), plain_ms=time_ms(plain),
-                                bound_ms=b, bound_by=by, library_ms=None)
+        late_march = lambda: marching._march_cuda(o, d, binaries, aabb, rcfg, capacity,
+                                                  alive_late, cursor, None, mip)
+        view_sites = {
+            "view, first round": dict(ms=time_ms(march), device_ms=device_ms(march),
+                                      plain_ms=time_ms(plain), samples=n_valid),
+            "view, late round": dict(ms=time_ms(late_march), device_ms=device_ms(late_march),
+                                     samples=int(late.valid.sum()))}
+        records["march"] = dict(view_sites["view, first round"], max_abs_err=0.0, bound_ms=b,
+                                bound_by=by, library_ms=None, sites=view_sites)
         log(f"[K4 march] rays={chunk} capacity={capacity} samples={n_valid}"
             f" truncated={bool(got.truncated)} coarse_tests={n_coarse} mip_cells={n_mip}"
-            f" fine_tests={n_fine} voxels={n_vox} exact ms={records['march']['ms']:.4f}"
-            f" plain_ms={records['march']['plain_ms']:.4f} bound_ms={b:.5f}")
+            f" fine_tests={n_fine} voxels={n_vox}: every field, the per-ray outputs and the"
+            f" padding exact at the first and a late round; ms={records['march']['ms']:.4f}"
+            f" device_ms={records['march']['device_ms']:.4f}"
+            f" plain_ms={records['march']['plain_ms']:.4f} bound_ms={b:.5f}; late round"
+            f" ({view_sites['view, late round']['samples']} samples)"
+            f" ms={view_sites['view, late round']['ms']:.4f}"
+            f" device_ms={view_sites['view, late round']['device_ms']:.4f}")
 
         # K1 at the first round's sample positions, normalized to [0,1]^3
         pos, _ = marching.sample_positions(got, o, d)
@@ -1553,7 +1720,7 @@ def main() -> int:
 
     # ---- 4. the main path: one full 800x800 view through render_image,
     # timed on its second render (the first warms cuBLAS and the allocator)
-    serving = ("grid_encode", "compact", "march", "volrend")
+    serving = ("grid_encode", "march", "volrend")
     render_with = lambda fld, grid, **kw: renderer.render_image(
         fld, mcfg, rcfg, aabb, grid, rays.origins, rays.viewdirs, bkgd, device=dev, **kw)
     render_view = lambda **kw: render_with(field, binaries, **kw)
@@ -1574,6 +1741,9 @@ def main() -> int:
         raise AssertionError("main path: output has the wrong shape or is not finite")
     if not all(launches[k] > 0 for k in serving):
         raise AssertionError(f"main path: a kernel was not launched: {launches}")
+    # the march compacts its own samples, three launches a round; no K3
+    if not (launches["compact"] == 0 and launches["march"] == 3 * stats["rounds"]):
+        raise AssertionError(f"main path: the march's launches are not 3 a round: {launches}")
     with torch.no_grad():
         gt = torch.cat([scenes.render_gt_rays(scene, oo, dd, 512)[0] for oo, dd in zip(
             rays.origins.reshape(-1, 3).split(16384), rays.viewdirs.reshape(-1, 3).split(16384))])
@@ -1631,13 +1801,15 @@ def main() -> int:
     tr.fit(TRAIN_WARM_STEPS - 1, log_every=0, step_callback=on_step)
     records.update(check_training_kernels(torch, tr, enc, marching, volrend, rf, gen))
     records["grid_encode"]["sites"]["xyz train"] = records.pop("grid_encode_train")
+    records["march"]["sites"]["training march"] = records.pop("march_train")
 
     torch.cuda.synchronize()
     kernels.reset_launches()
     run_s, scores = fit_and_read(kernels, tr, TRAIN_STEPS, test_set, on_step, "[train] ")
     train_launches = dict(kernels.launches)
     n_run = TRAIN_STEPS - TRAIN_WARM_STEPS
-    training = ("grid_encode", "grid_encode_bwd", "compact", "march", "volrend", "volrend_bwd")
+    # (K3 runs in the occupancy update, every 16 steps, not in each step)
+    training = ("grid_encode", "grid_encode_bwd", "march", "volrend", "volrend_bwd")
     if tr.step != TRAIN_STEPS or len(history) != TRAIN_STEPS:
         raise AssertionError(f"[train] ran {tr.step} steps, not {TRAIN_STEPS}")
     if not all(train_launches[k] >= n_run for k in training):
@@ -1744,6 +1916,7 @@ def main() -> int:
     records["pack_mask_bits"] = dict(check_pack(torch, enc, occ_cache),
                                      launches_per_refresh=n_pack)
     del occ_cache
+    check_order_faults(cops, dev, f"[rate] after {RATE_WARM_STEPS} steps:")
     records.update(check_rate_kernels(torch, trr, rf, cops, enc, gen))
     check_rate_gradient(torch, trr, rf, cops, enc, ent_ops, f"step {RATE_WARM_STEPS}")
     kernels.launches.update(counted_so_far)     # comparison launches do not count
@@ -1751,14 +1924,16 @@ def main() -> int:
     rate_s, rate_scores = fit_and_read(kernels, trr, RATE_STEPS, test_set, on_rate_step, "[rate] ")
     rate_launches = dict(kernels.launches)
     n_rate = RATE_STEPS - RATE_WARM_STEPS
-    rate_kernels = ("vertex_tables", "footprint", "pack_mask_bits", "segment_pool",
-                    "segment_pool_bwd", "pn_hist", "grid_encode_v", "grid_encode_v_bwd", "compact",
-                    "grid_encode", "grid_encode_bwd", "march", "volrend", "volrend_bwd")
+    rate_kernels = ("vertex_tables", "footprint", "pack_mask_bits", "segment_mean",
+                    "segment_mean_bwd", "segment_pool", "segment_pool_bwd", "pn_hist",
+                    "grid_encode_v", "grid_encode_v_bwd", "compact", "grid_encode",
+                    "grid_encode_bwd", "march", "volrend", "volrend_bwd")
     if trr.step != RATE_STEPS or len(rate_hist) != RATE_STEPS:
         raise AssertionError(f"[rate] ran {trr.step} steps, not {RATE_STEPS}")
     if not all(rate_launches[k] > 0 for k in rate_kernels):
         raise AssertionError(f"[rate] a kernel of the rate path was not launched: {rate_launches}")
     per_step = {k: (rate_launches[k] - counted_so_far[k]) / n_rate for k in rate_kernels}
+    rate_per_step = per_step
     # the table build runs once, the footprints and the packing once per
     # refresh; every other kernel of the path runs in each step
     once = ("vertex_tables", "footprint", "pack_mask_bits")
@@ -1796,6 +1971,7 @@ def main() -> int:
     if not rate_scores["psnr"] > RATE_PSNR_MIN:
         raise AssertionError(f"[rate] test psnr {rate_scores['psnr']} <= {RATE_PSNR_MIN}")
 
+    check_order_faults(cops, dev, f"[rate] after {RATE_STEPS} steps:")
     check_rate_gradient(torch, trr, rf, cops, enc, ent_ops, f"step {RATE_STEPS}")
 
     def one_rate_step():
@@ -1822,6 +1998,7 @@ def main() -> int:
     if not (pn_launches["pn_hist_bwd"] > 0 and all(math.isfinite(b) for b in pn_bits)):
         raise AssertionError(f"[rate, pn_frac_grad] the backward kernel did not launch:"
                              f" {pn_launches}")
+    check_order_faults(cops, dev, "[rate, pn_frac_grad]")
     del tr_pn, entropy_pn
 
     # ---- 10. [codec]
@@ -1835,7 +2012,7 @@ def main() -> int:
     meta = {
         "grid_encode": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:104", "view"),
         "grid_encode_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "train"),
-        "compact": ("compact.cu", "cnc_tpu/ops/scatter_ops.py:146", "view"),
+        "compact": ("compact.cu", "cnc_tpu/ops/scatter_ops.py:146", "rate"),
         "march": ("march.cu", "cnc_tpu/render/marching.py:112", "view"),
         "volrend": ("volrend.cu", "cnc_tpu/render/volrend.py:71", "view"),
         "volrend_bwd": ("volrend.cu", "cnc_tpu/render/volrend.py:43", "train"),
@@ -1843,8 +2020,13 @@ def main() -> int:
         "lane_gather": ("probe.cu", "tools/pallas_probe.py:79", "probe"),
         "grid_encode_v": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:211", "rate"),
         "grid_encode_v_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "rate"),
-        "segment_pool": ("segment_pool.cu", "cnc_tpu/models/context_models.py:123", "rate"),
-        "segment_pool_bwd": ("segment_pool.cu", "cnc_tpu/models/context_models.py:123", "rate"),
+        # segment_gather's backward and forward: cnc_tpu's pg_arr[clev] and its
+        # scatter-add
+        "segment_pool": ("segment_pool.cu", "cnc_tpu/models/context_models.py:1335", "rate"),
+        "segment_pool_bwd": ("segment_pool.cu", "cnc_tpu/models/context_models.py:1335", "rate"),
+        # one call site's pair of cnc_tpu's _segment_tail_values, clamp and divide
+        "segment_mean": ("segment_pool.cu", "cnc_tpu/models/context_models.py:1346", "rate"),
+        "segment_mean_bwd": ("segment_pool.cu", "cnc_tpu/models/context_models.py:1346", "rate"),
         "pn_hist": ("pn_hist.cu", "cnc_tpu/models/context_models.py:783", "rate"),
         "pn_hist_bwd": ("pn_hist.cu", "cnc_tpu/models/context_models.py:62", "rate_pn_grad"),
         "footprint": ("footprint.cu", "cnc_tpu/models/context_models.py:1415", "rate"),
@@ -1869,7 +2051,8 @@ def main() -> int:
                         max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r.get("device_ms"),
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"], sites=r.get("sites"),
-                        launches_per_refresh=r.get("launches_per_refresh")))
+                        launches_per_refresh=r.get("launches_per_refresh"),
+                        rate_launches_per_step=rate_per_step.get(name)))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

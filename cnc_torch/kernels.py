@@ -39,12 +39,15 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 # integer kernels: int_encode, int_mlp_pool, int_pq (csrc/int_context.cu) and
 # pn_hist_int (the integer mode of csrc/pn_hist.cu), counted apart from pn_hist;
 # pack_mask_bits: the packing of the encode's occupancy masks (once per cache
-# refresh, csrc/grid_encode.cu)
+# refresh, csrc/grid_encode.cu); segment_pool / segment_pool_bwd: the backward
+# and the forward of segment_gather; segment_mean / segment_mean_bwd: one call
+# site's pooled mean (both csrc/segment_pool.cu)
 launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
             "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
             "grid_encode_v_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0, "pn_hist": 0,
             "pn_hist_bwd": 0, "footprint": 0, "vertex_tables": 0, "int_encode": 0,
-            "int_mlp_pool": 0, "int_pq": 0, "pn_hist_int": 0, "pack_mask_bits": 0}
+            "int_mlp_pool": 0, "int_pq": 0, "pn_hist_int": 0, "pack_mask_bits": 0,
+            "segment_mean": 0, "segment_mean_bwd": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # host int arrays
@@ -57,19 +60,19 @@ _SIGNATURES = {
     "cnc_pack_mask_bits": ((_P, _LL, _LL, _P, _P), _I),
     "cnc_compact_scratch": ((_LL,), _I),
     "cnc_compact_mask": ((_P, _LL, _I, _P, _P, _P, _P), _I),
-    "cnc_march_coarse": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P,
-                          _P, _P), _I),
-    "cnc_march_fine": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P, _P), _I),
-    "cnc_march_finish": ((_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P),
-                         _I),
+    "cnc_march_ints": ((_I,), _LL),
+    "cnc_march": ((_P,) * 7 + (_I, _P) + (_I,) * 7 + (_F,) * 5 + (_P,) * 12, _I),
     "cnc_volrend_forward": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
                             _I),
     "cnc_volrend_backward": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                               _P), _I),
     "cnc_scatter_add": ((_P, _P, _P, _LL, _I, _I, _P), _I),
     "cnc_lane_gather": ((_P, _P, _P, _I, _I, _LL, _P), _I),
-    "cnc_segment_pool": ((_P, _P, _P, _P, _LL, _I, _I, _P), _I),
-    "cnc_segment_pool_backward": ((_P, _P, _P, _P, _LL, _I, _I, _P), _I),
+    "cnc_segment_pool": ((_P, _P, _P, _P, _LL, _I, _P), _I),
+    "cnc_segment_pool_backward": ((_P, _P, _P, _P, _LL, _I, _P), _I),
+    "cnc_segment_mean_scratch": ((_LL, _I), _LL),
+    "cnc_segment_mean": ((_P, _P, _P, _P, _LL, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P), _I),
+    "cnc_segment_mean_backward": ((_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P, _P), _I),
     "cnc_pn_hist": ((_P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "cnc_pn_hist_backward": ((_P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "cnc_footprint": ((_P, _I, _I, _I, _P, _P, _P, _P, _P), _I),

@@ -99,13 +99,6 @@ class Level2DTable(NamedTuple):
     e_max: int
 
 
-def _segment_tail_values(x: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
-                         num_segments: int) -> torch.Tensor:
-    """Per-segment sums of x (masked by valid) over sorted contiguous seg ids;
-    [num_segments, ...], zero where no valid element (K6)."""
-    return cops.segment_pool(x, seg, valid, num_segments)
-
-
 def _window_slices(a: Mapping[str, torch.Tensor], names, v_off: int, start_v: int, end_v: int,
                    w: int, v_total: int):
     """Slice [start_v, start_v+w) of each named level buffer, end-safe.
@@ -835,13 +828,9 @@ class ContextModels:
                                                      occ_bits=mask2d_bits))
         feats.append(pg_n.reshape(1, 1).expand(rows, 1))
         mean = self.apply_ctx2d(ent_params.ctx2d, level, torch.cat(feats, dim=-1))
-        if cap is not None and cap < w:
-            cnt = _segment_tail_values(cnt_src.float(), slots, cvalid, n_e)
-        else:
-            cnt = _segment_tail_values(cnt_src.float(), slots, torch.ones_like(occ_block), n_e)
-        msum = _segment_tail_values(mean, slots, pool_valid, n_e)
-        pooled = msum / torch.clamp(cnt, min=1.0)[:, None]
-        covered = cnt > 0
+        # the mean over each entry's pooled rows (K6m): the count is the sum
+        # of cnt_src over them, which is 1 on every pooled row
+        pooled, covered = cops.segment_mean(mean, cnt_src.float(), slots, pool_valid, n_e, 1.0)
         values_q = tbl2.index_select(0, t.offset + evals.long())
         return pooled, covered, values_q
 
@@ -896,16 +885,15 @@ class ContextModels:
         mean = self.apply_ctx3d(ent_params.ctx3d, ctx)
 
         slots = torch.clamp(slots, 0, n_e - 1)
-        wgt = torch.where(mask, ovl_w, 0.0)
-        wsum = _segment_tail_values(wgt, slots, valid, n_e)
+        # K6m: the overlap-weighted mean (the weight is 0 off the mask), or
+        # the plain mean over the masked rows; either way an entry is covered
+        # where a masked row lands, as where the weights' sum is positive
         if cfg.use_overlap_area_pool:
-            pooled = _segment_tail_values(mean * wgt[:, None], slots, valid, n_e)
-            pooled = pooled / torch.clamp(wsum, min=1e-9)[:, None]
+            wgt = torch.where(mask, ovl_w, 0.0)
+            pooled, covered = cops.segment_mean(mean, wgt, slots, valid, n_e, 1e-9,
+                                                weighted=True)
         else:
-            mcnt = _segment_tail_values(mask.float(), slots, valid, n_e)
-            pooled = _segment_tail_values(mean, slots, mask, n_e)
-            pooled = pooled / torch.clamp(mcnt, min=1.0)[:, None]
-        covered = wsum > 0
+            pooled, covered = cops.segment_mean(mean, mask.float(), slots, mask, n_e, 1.0)
         values_q = tbl3.index_select(0, t.offset + evals.long())
         return pooled, covered, values_q
 
@@ -1091,20 +1079,19 @@ class ContextModels:
         ctx = torch.cat([ctx, pg_rows[:, None]], dim=-1)
         mean = self.apply_ctx3d(ent_params.ctx3d, ctx)
 
-        # pool directly in the COMPACTED layout: src enumerates exactly the
-        # kept (masked, in-budget) vertices in ascending window order, so
-        # slot[src] stays sorted-contiguous per entry
+        # pool directly in the COMPACTED layout (K6m, as in pool_3d_level):
+        # src enumerates exactly the kept (masked, in-budget) vertices in
+        # ascending window order, so slot[src] stays sorted-contiguous per
+        # entry over the live rows (the padding past the count repeats
+        # slot[src[0]] on rows that are not live); the weights are >= 1 on
+        # the kept rows
         cslot = slot[src]
-        cw = torch.where(cvalid, ovl_w[src], 0.0)
-        wsum = _segment_tail_values(cw, cslot, cvalid, e_total)
         if cfg.use_overlap_area_pool:
-            pooled = _segment_tail_values(mean * cw[:, None], cslot, cvalid, e_total)
-            pooled = pooled / torch.clamp(wsum, min=1e-9)[:, None]
+            cw = torch.where(cvalid, ovl_w[src], 0.0)
+            pooled, exist = cops.segment_mean(mean, cw, cslot, cvalid, e_total, 1e-9,
+                                              weighted=True)
         else:
-            mcnt = _segment_tail_values(cvalid.float(), cslot, cvalid, e_total)
-            pooled = _segment_tail_values(mean, cslot, cvalid, e_total)
-            pooled = pooled / torch.clamp(mcnt, min=1.0)[:, None]
-        exist = wsum > 0
+            pooled, exist = cops.segment_mean(mean, cvalid.float(), cslot, cvalid, e_total, 1.0)
 
         evals = torch.cat([p["entry_values"].long() + self.tables3d[p["level"]].offset
                            for p in parts])

@@ -1,4 +1,5 @@
-"""The rate estimate's kernels: context pooling (K6), the sign histogram (K7),
+"""The rate estimate's kernels: context pooling (K6m, one call site's pooled
+mean in one launch, and K6, segment_gather's backward), the sign histogram (K7),
 the footprint grids (K8) and the vertex->entry tables (K10).
 
 Each function here replaces one XLA composition of
@@ -37,65 +38,30 @@ def _segment_pool_plain(x, seg, valid, num_segments):
 
 def _check_segment_args(name, x, seg, valid):
     kernels.require_cuda(name, x, seg, valid)
-    f = 1 if x.dim() == 1 else x.shape[1]
     if x.dtype != torch.float32 or seg.dtype != torch.int32 or valid.dtype != torch.bool:
         raise ValueError(f"{name}: the kernel takes float32 rows, int32 ids and a bool mask")
-    if f not in (1, 2, 4):
-        raise ValueError(f"{name}: the kernel takes rows of 1, 2 or 4 floats, got {f}")
-    return f
+    if x.dim() != 1:
+        raise ValueError(f"{name}: the kernel takes one float a row, got {tuple(x.shape)}")
 
 
 def _segment_pool_cuda(x, seg, valid, num_segments):
-    f = _check_segment_args("segment_pool", x, seg, valid)
-    out = torch.zeros((num_segments,) + x.shape[1:], dtype=torch.float32, device=x.device)
+    """K6: out[seg[i]] += x[i] over the live rows, x [N]."""
+    _check_segment_args("segment_pool", x, seg, valid)
+    out = torch.zeros(num_segments, dtype=torch.float32, device=x.device)
     kernels.call("cnc_segment_pool", kernels.ptr(x), kernels.ptr(seg), kernels.ptr(valid),
-                 kernels.ptr(out), x.shape[0], f, num_segments)
+                 kernels.ptr(out), x.shape[0], num_segments)
     kernels.launches["segment_pool"] += 1
     return out
 
 
-def _segment_pool_backward_cuda(g, seg, valid, x_shape):
-    f = _check_segment_args("segment_pool_bwd", g, seg, valid)
-    d_x = torch.empty(x_shape, dtype=torch.float32, device=g.device)
+def _segment_pool_backward_cuda(g, seg, valid):
+    """K6's gather: d_x[i] = g[seg[i]] on the live rows, else 0; g [S]."""
+    _check_segment_args("segment_pool_bwd", g, seg, valid)
+    d_x = torch.empty(seg.shape, dtype=torch.float32, device=g.device)
     kernels.call("cnc_segment_pool_backward", kernels.ptr(g), kernels.ptr(seg),
-                 kernels.ptr(valid), kernels.ptr(d_x), seg.shape[0], f, g.shape[0])
+                 kernels.ptr(valid), kernels.ptr(d_x), seg.shape[0], g.shape[0])
     kernels.launches["segment_pool_bwd"] += 1
     return d_x
-
-
-class _SegmentPoolCuda(torch.autograd.Function):
-    """K6 forward; the backward kernel gathers each row's segment gradient."""
-
-    @staticmethod
-    def forward(ctx, x, seg, valid, num_segments):
-        ctx.save_for_backward(seg, valid)
-        ctx.x_shape = x.shape
-        return _segment_pool_cuda(x, seg, valid, num_segments)
-
-    @staticmethod
-    def backward(ctx, g):
-        seg, valid = ctx.saved_tensors
-        d_x = _segment_pool_backward_cuda(g.contiguous(), seg, valid, ctx.x_shape)
-        return d_x, None, None, None
-
-
-def segment_pool(x: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
-    """Per-segment sums of the rows of x where `valid`, over sorted segment
-    ids: out[seg[i]] += x[i].
-
-    x [N] or [N, F] float32; seg [N] integers; valid [N] bool.  Rows that are
-    not valid, or whose id lies outside [0, num_segments), are dropped.
-    Returns [num_segments(, F)], zero where no row landed.  Only `x` gets a
-    gradient.  CPU tensors take the plain twin, CUDA tensors the kernels of
-    csrc/segment_pool.cu.
-    """
-    if seg.shape != x.shape[:1] or valid.shape != seg.shape or x.dim() not in (1, 2):
-        raise ValueError("segment_pool expects x [N(, F)], seg [N] and valid [N]")
-    if x.is_cuda:
-        return _SegmentPoolCuda.apply(x.contiguous(), seg.to(torch.int32).contiguous(),
-                                      valid.contiguous(), num_segments)
-    return _segment_pool_plain(x, seg, valid, num_segments)
 
 
 def _segment_gather_plain(values, seg, valid):
@@ -105,15 +71,14 @@ def _segment_gather_plain(values, seg, valid):
 
 
 class _SegmentGatherCuda(torch.autograd.Function):
-    """The adjoint pair of K6, the other way round: the forward is K6's
-    backward kernel (a gather of each row's segment value), the backward is
-    K6 (the per-segment sums of the row gradients)."""
+    """K6's pair: the forward gathers each row's segment value, the backward
+    is K6 (the per-segment sums of the row gradients)."""
 
     @staticmethod
     def forward(ctx, values, seg, valid):
         ctx.save_for_backward(seg, valid)
         ctx.num_segments = values.shape[0]
-        return _segment_pool_backward_cuda(values, seg, valid, seg.shape + values.shape[1:])
+        return _segment_pool_backward_cuda(values, seg, valid)
 
     @staticmethod
     def backward(ctx, g):
@@ -123,9 +88,10 @@ class _SegmentGatherCuda(torch.autograd.Function):
 
 def segment_gather(values: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """out[i] = values[seg[i]] where `valid` (and the id lies in range), else
-    0: each row's segment value, the transpose of `segment_pool`.
+    0: each row's segment value.
 
-    values [S] or [S, F] float32; seg [N] integers in runs; valid [N] bool.
+    values [S] float32 ([S, F] on the CPU); seg [N] integers in runs; valid
+    [N] bool.
     `values` gets the per-segment sums of the row gradients, through K6's
     warp-aggregated adds (a plain gather's backward would queue every row of
     a segment on one address).  CPU tensors take the plain twin.
@@ -134,6 +100,161 @@ def segment_gather(values: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor)
         return _SegmentGatherCuda.apply(values.contiguous(), seg.to(torch.int32).contiguous(),
                                         valid.contiguous())
     return _segment_gather_plain(values, seg, valid)
+
+
+def _check_live_order(seg, valid, num_segments):
+    """segment_mean's precondition: the ids of the live rows do not decrease."""
+    ids = seg[_live_rows(seg, valid, num_segments)]
+    if ids.numel() > 1 and bool((ids[1:] < ids[:-1]).any()):
+        raise ValueError("segment_mean: the ids of the live rows decrease")
+
+
+def _segment_mean_plain(x, den, seg, valid, num_segments, min_den, weighted):
+    _check_live_order(seg, valid, num_segments)
+    den_sum = _segment_pool_plain(den, seg, valid, num_segments)
+    num = x * den[:, None] if weighted else x
+    pooled = _segment_pool_plain(num, seg, valid, num_segments)
+    return pooled / torch.clamp(den_sum, min=min_den)[:, None], den_sum > 0
+
+
+class _SegmentMeanWork:
+    """Per device and stream: the kernel's block records (as many as its
+    largest grid needs) and its finish counter (the kernel leaves it 0).
+    The launches that share them, being on one stream, run one at a time."""
+
+    def __init__(self, device):
+        words = kernels.lib().cnc_segment_mean_scratch(1 << 62, 4)
+        self.scratch = torch.empty(words, dtype=torch.int32, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+_mean_work: Dict[Tuple[torch.device, int], _SegmentMeanWork] = {}
+# per device: the word every segment_mean launch there sets when live ids
+# decrease (set only, so launches on any stream may share it)
+_fault_words: Dict[torch.device, torch.Tensor] = {}
+
+
+def _cuda_device(device) -> torch.device:
+    key = torch.device(device)
+    return key if key.index is not None else torch.device(key.type, torch.cuda.current_device())
+
+
+def _segment_mean_work(device) -> _SegmentMeanWork:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    work = _mean_work.get(key)
+    if work is None:
+        work = _mean_work[key] = _SegmentMeanWork(device)
+    return work
+
+
+def _fault_word(device) -> torch.Tensor:
+    device = _cuda_device(device)
+    word = _fault_words.get(device)
+    if word is None:
+        word = _fault_words[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return word
+
+
+def segment_order_faults(device) -> int:
+    """1 if a segment_mean launch on the CUDA `device` met live ids that
+    decrease since the last `clear_segment_order_faults`, else 0 (one host
+    sync, on the current stream)."""
+    return int(_fault_word(device)[0])
+
+
+def clear_segment_order_faults(device) -> None:
+    _fault_word(device).zero_()
+
+
+def _check_mean_args(x, den, seg, valid):
+    kernels.require_cuda("segment_mean", x, den, seg, valid)
+    if (x.dtype != torch.float32 or den.dtype != torch.float32 or seg.dtype != torch.int32
+            or valid.dtype != torch.bool):
+        raise ValueError("segment_mean: the kernel takes float32 rows and den, int32 ids and a"
+                         " bool mask")
+    if x.shape[1] not in (1, 2, 4):
+        raise ValueError(f"segment_mean: the kernel takes rows of 1, 2 or 4 floats, got"
+                         f" {x.shape[1]}")
+
+
+def _segment_mean_cuda(x, den, seg, valid, num_segments, min_den, weighted):
+    """(pooled, covered, den_sum) through K6m, one launch."""
+    _check_mean_args(x, den, seg, valid)
+    n, f = x.shape
+    work = _segment_mean_work(x.device)
+    fault = _fault_word(x.device)
+    pooled = torch.empty(num_segments, f, dtype=torch.float32, device=x.device)
+    covered = torch.empty(num_segments, dtype=torch.bool, device=x.device)
+    den_sum = torch.empty(num_segments, dtype=torch.float32, device=x.device)
+    p = kernels.ptr
+    kernels.call("cnc_segment_mean", p(x), p(den), p(seg), p(valid), n, f, num_segments,
+                 min_den, int(weighted), p(pooled), p(covered), p(den_sum), p(work.scratch),
+                 p(work.counter), p(fault))
+    kernels.launches["segment_mean"] += 1
+    return pooled, covered, den_sum
+
+
+def _segment_mean_backward_cuda(g, den, seg, valid, den_sum, min_den, weighted):
+    _check_mean_args(g, den_sum, seg, valid)
+    d_x = torch.empty(seg.shape[0], g.shape[1], dtype=torch.float32, device=g.device)
+    p = kernels.ptr
+    kernels.call("cnc_segment_mean_backward", p(g), p(den), p(seg), p(valid), p(den_sum),
+                 seg.shape[0], g.shape[1], g.shape[0], min_den, int(weighted), p(d_x))
+    kernels.launches["segment_mean_bwd"] += 1
+    return d_x
+
+
+class _SegmentMeanCuda(torch.autograd.Function):
+    """K6m forward; its backward kernel scales each live row's segment
+    gradient by w_i / max(D_s, min_den)."""
+
+    @staticmethod
+    def forward(ctx, x, den, seg, valid, num_segments, min_den, weighted):
+        pooled, covered, den_sum = _segment_mean_cuda(x, den, seg, valid, num_segments, min_den,
+                                                      weighted)
+        ctx.save_for_backward(den, seg, valid, den_sum)
+        ctx.min_den, ctx.weighted = min_den, weighted
+        ctx.mark_non_differentiable(covered)
+        return pooled, covered
+
+    @staticmethod
+    def backward(ctx, g, _):
+        den, seg, valid, den_sum = ctx.saved_tensors
+        d_x = _segment_mean_backward_cuda(g.contiguous(), den, seg, valid, den_sum, ctx.min_den,
+                                          ctx.weighted)
+        return d_x, None, None, None, None, None, None
+
+
+def segment_mean(x: torch.Tensor, den: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
+                 num_segments: int, min_den: float, weighted: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call site's context pooling: per segment s, over its live rows i
+    (valid, id in [0, num_segments)),
+
+        pooled[s] = sum_i w_i x[i] / max(sum_i den[i], min_den),
+        covered[s] = sum_i den[i] > 0,
+
+    with w_i = den[i] when `weighted` (the overlap-weighted pooling) and 1
+    otherwise.  Segments without a live row read 0 and False.
+
+    x [N, F] float32 (F in 1, 2, 4 on the card); den [N] float32, which takes
+    no gradient; seg [N] integers whose live rows' ids do not decrease (the
+    twin raises where they do; the kernel sets the word that
+    `segment_order_faults` reads); valid [N] bool.  Only x gets a gradient.
+    CPU tensors take the plain twin, CUDA tensors the kernels of
+    csrc/segment_pool.cu (one launch forward, one backward).
+    """
+    if (x.dim() != 2 or seg.shape != x.shape[:1] or valid.shape != seg.shape
+            or den.shape != seg.shape):
+        raise ValueError("segment_mean expects x [N, F], den [N], seg [N] and valid [N]")
+    if den.requires_grad:
+        raise ValueError("segment_mean: den takes no gradient")
+    min_den = float(np.float32(min_den))
+    if x.is_cuda:
+        return _SegmentMeanCuda.apply(x.contiguous(), den.contiguous(),
+                                      seg.to(torch.int32).contiguous(), valid.contiguous(),
+                                      num_segments, min_den, bool(weighted))
+    return _segment_mean_plain(x, den, seg, valid, num_segments, min_den, weighted)
 
 
 # ------------------------------------------------------------------ K7

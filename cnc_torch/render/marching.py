@@ -1,4 +1,4 @@
-"""Occupancy-guided ray marching with static-size compaction (K4 + K3).
+"""Occupancy-guided ray marching with static-size compaction (K4).
 
 Port of `cnc_tpu/render/marching.py`, with its structure and buffers, so the
 sample sets are identical to cnc_tpu's, truncation included:
@@ -15,11 +15,13 @@ The training march shifts each ray's lattice by a stratified near jitter,
 `tmin += u*dt` with u uniform in [0, 1) per ray: cnc_tpu draws u from its
 `key` argument, here the caller passes the uniforms (`jitter`), so a test can
 hand both packages the same ones.  Without it the march is the deterministic
-eval march.
+eval march.  Besides the buffer, the march returns each ray's kept hit count
+and its last kept t_mid, which the eval loop's cursors need.
 
 `march_rays` dispatches on the device of `rays_o`: a CPU tensor takes the
 plain twin (`_march_plain`, with K3's plain twin between the passes), a CUDA
-tensor the kernels of csrc/march.cu with K3 between the passes.
+tensor the three kernels of csrc/march.cu (a per-ray warp march that does
+its own ordered compaction; no K3).
 
 Float rounding follows cnc_tpu exactly: JAX rounds weak-typed Python scalars
 (b*dt, (step+0.5)*dt, 1-1e-6) to f32 before the multiply, so both paths here
@@ -29,6 +31,7 @@ contraction.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -51,6 +54,9 @@ class RaySamples(NamedTuple):
     truncated: Optional[torch.Tensor] = None   # 0-dim bool: a buffer overflowed
     resume_ray: Optional[torch.Tensor] = None  # 0-dim int32: first ray whose
     # samples may be incomplete (== n_rays when nothing truncated)
+    ray_hits: Optional[torch.Tensor] = None    # [R] int32: valid slots per ray
+    ray_last_t: Optional[torch.Tensor] = None  # [R] f32: each ray's last valid
+    # t_mid, -inf where it has none
 
 
 def _f32(x: float) -> float:
@@ -118,6 +124,7 @@ class _Plan(NamedTuple):
     clip_hi: float
 
 
+@functools.lru_cache(maxsize=64)
 def _plan(cfg: RenderConfig, capacity: int, mres: int, max_steps: Optional[int]) -> _Plan:
     s = max_steps or cfg.max_march_steps
     b = _coarse_block(cfg, mres)
@@ -127,12 +134,10 @@ def _plan(cfg: RenderConfig, capacity: int, mres: int, max_steps: Optional[int])
                  clip_hi=_f32(1.0 - 1e-6))
 
 
-def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start, max_steps,
-                 mip, jitter=None) -> RaySamples:
-    r = rays_o.shape[0]
+def _coarse_candidates(rays_o, rays_d, aabb, pl: _Plan, ray_mask, t_start, mip, jitter=None):
+    """The twin's coarse pass: (tmin, tmax, cand [R, NB] bool), the block
+    midpoints in the dilated mip, for the rays that hit the box."""
     dev = rays_o.device
-    pl = _plan(cfg, capacity, mip.shape[0], max_steps)
-
     tmin, tmax = ray_aabb_intersect(rays_o, rays_d, aabb)
     tmin = torch.clamp(tmin, min=pl.near)
     tmax = torch.clamp(tmax, max=pl.far)
@@ -144,7 +149,6 @@ def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_star
     if ray_mask is not None:
         hit = hit & ray_mask
 
-    # ---- coarse pass: dilated-mip test per (ray, block) midpoint
     mres = mip.shape[0]
     lo, hi = aabb[:3], aabb[3:]
     blk_i = torch.arange(pl.nb, dtype=torch.float32, device=dev)
@@ -155,7 +159,18 @@ def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_star
     vox = (x01 * float(mres)).to(torch.int64)
     cand = mip.reshape(-1)[(vox[..., 0] * mres + vox[..., 1]) * mres + vox[..., 2]]
     blk_start = tmin[:, None] + blk_i[None, :] * pl.bdt
-    cand = cand & (blk_start < tmax[:, None]) & hit[:, None]
+    return tmin, tmax, cand & (blk_start < tmax[:, None]) & hit[:, None]
+
+
+def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start, max_steps,
+                 mip, jitter=None) -> RaySamples:
+    r = rays_o.shape[0]
+    dev = rays_o.device
+    pl = _plan(cfg, capacity, mip.shape[0], max_steps)
+
+    # ---- coarse pass: dilated-mip test per (ray, block) midpoint
+    tmin, tmax, cand = _coarse_candidates(rays_o, rays_d, aabb, pl, ray_mask, t_start, mip,
+                                          jitter)
 
     src_c, total_c = scatter_ops._compact_plain(cand.reshape(-1), pl.cap_c)
     slots_c = torch.arange(pl.cap_c, device=dev)
@@ -189,9 +204,39 @@ def _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_star
     resume_ray = torch.where(
         total_f > capacity, ray_id[capacity - 1],
         torch.where(total_c > pl.cap_c, c_ray[pl.cap_c - 1].to(torch.int32), no_cut))
+    # per ray: the valid slots and the last valid t_mid
+    seg = ray_id.long()
+    ray_hits = torch.zeros(r, dtype=torch.int32, device=dev).index_add_(
+        0, seg, fvalid.to(torch.int32))
+    ray_last_t = torch.full((r,), -torch.inf, device=dev).scatter_reduce_(
+        0, seg, torch.where(fvalid, t_mid, -torch.inf), reduce="amax")
     return RaySamples(ray_id=ray_id, t_mid=t_mid, dt=pl.dt, valid=fvalid,
                       num_samples=est.to(torch.int32), truncated=truncated,
-                      resume_ray=resume_ray)
+                      resume_ray=resume_ray, ray_hits=ray_hits, ray_last_t=ray_last_t)
+
+
+class _Workspace(NamedTuple):
+    tmin: torch.Tensor     # [R] f32
+    tmax: torch.Tensor     # [R] f32
+    ints: torch.Tensor     # per ray and per group of rays (csrc/march.cu), int32
+    hits: torch.Tensor     # [R * nb] uint8
+
+
+_workspaces: dict = {}
+
+
+def _workspace(dev, r: int, nb: int) -> _Workspace:
+    """The march's scratch, kept per (device, stream, rays, blocks): every
+    launch writes it in full before reading it, and the launches that share
+    it, being on one stream, run one at a time."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream, r, nb)
+    if key not in _workspaces:
+        _workspaces[key] = _Workspace(
+            tmin=torch.empty(r, dtype=torch.float32, device=dev),
+            tmax=torch.empty(r, dtype=torch.float32, device=dev),
+            ints=torch.empty(kernels.lib().cnc_march_ints(r), dtype=torch.int32, device=dev),
+            hits=torch.empty(r * nb, dtype=torch.uint8, device=dev))
+    return _workspaces[key]
 
 
 def _march_cuda(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start, max_steps,
@@ -207,34 +252,27 @@ def _march_cuda(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start
     dev = rays_o.device
     mres, res = mip.shape[0], binaries.shape[0]
     pl = _plan(cfg, capacity, mres, max_steps)
+    if r == 0 or not 0 < pl.b < 255:
+        raise ValueError(f"march_rays: the kernel takes at least one ray and blocks of 1 to"
+                         f" 254 steps, got {r} rays and {pl.b} steps")
+    ws = _workspace(dev, r, pl.nb)
     p = kernels.ptr
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-
-    tmin, tmax = torch.empty(r, **f32), torch.empty(r, **f32)
-    cand = torch.empty(r * pl.nb, dtype=torch.bool, device=dev)
-    kernels.call("cnc_march_coarse", p(rays_o), p(rays_d), p(aabb), p(t_start), p(ray_mask),
-                 p(jitter), p(mip), mres, r, pl.nb, pl.bdt, pl.dt, pl.near, pl.far, pl.clip_hi,
-                 p(tmin), p(tmax), p(cand))
-    kernels.launches["march"] += 1
-    src_c, total_c = scatter_ops.compact_mask_indices(cand, pl.cap_c)
-
-    bits = torch.empty(pl.cap_c * pl.b, dtype=torch.bool, device=dev)
-    kernels.call("cnc_march_fine", p(rays_o), p(rays_d), p(aabb), p(tmin), p(tmax), p(src_c),
-                 p(total_c), pl.cap_c, pl.nb, pl.b, pl.s, pl.dt, p(binaries), res, p(bits))
-    kernels.launches["march"] += 1
-    src_f, total_f = scatter_ops.compact_mask_indices(bits, capacity)
-
-    ray_id, t_mid = torch.empty(capacity, **i32), torch.empty(capacity, **f32)
+    ray_id = torch.empty(capacity, dtype=torch.int32, device=dev)
+    t_mid = torch.empty(capacity, dtype=torch.float32, device=dev)
     valid = torch.empty(capacity, dtype=torch.bool, device=dev)
-    scalars = torch.empty(3, **i32)
-    kernels.call("cnc_march_finish", p(tmin), p(src_c), p(total_c), pl.cap_c, p(src_f),
-                 p(total_f), capacity, pl.nb, pl.b, r, pl.dt, p(ray_id), p(t_mid), p(valid),
-                 p(scalars))
-    kernels.launches["march"] += 1
+    scalars = torch.empty(2, dtype=torch.int32, device=dev)
+    truncated = torch.empty((), dtype=torch.bool, device=dev)
+    ray_hits = torch.empty(r, dtype=torch.int32, device=dev)
+    ray_last_t = torch.empty(r, dtype=torch.float32, device=dev)
+    kernels.call("cnc_march", p(rays_o), p(rays_d), p(aabb), p(t_start), p(ray_mask),
+                 p(jitter), p(mip), mres, p(binaries), res, r, pl.nb, pl.b, pl.s, pl.cap_c,
+                 capacity, pl.bdt, pl.dt, pl.near, pl.far, pl.clip_hi, p(ws.tmin), p(ws.tmax),
+                 p(ws.ints), p(ws.hits), p(ray_id), p(t_mid), p(valid), p(truncated), p(scalars),
+                 p(ray_hits), p(ray_last_t))
+    kernels.launches["march"] += 3        # count, scan, write
     return RaySamples(ray_id=ray_id, t_mid=t_mid, dt=pl.dt, valid=valid,
-                      num_samples=scalars[2], truncated=scalars[0].bool(),
-                      resume_ray=scalars[1])
+                      num_samples=scalars[1], truncated=truncated, resume_ray=scalars[0],
+                      ray_hits=ray_hits, ray_last_t=ray_last_t)
 
 
 def march_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, binaries: torch.Tensor,
@@ -257,7 +295,8 @@ def march_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, binaries: torch.Tenso
       jitter: optional [R] float32 uniforms in [0, 1), the stratified near
         jitter of the training march (None = deterministic eval march).
     Returns:
-      RaySamples in (ray, t) order.
+      RaySamples in (ray, t) order, with each ray's kept hit count and last
+      kept t_mid (`ray_hits`, `ray_last_t`).
     """
     if mip is None:
         mip = build_march_mip(binaries)

@@ -149,14 +149,11 @@ def render_rays_eval(field: rf.RadianceField, mcfg: ModelConfig, rcfg: RenderCon
 
         # advance cursors: rays whose hits all fit are done this round;
         # the first possibly-incomplete ray resumes after its last sample
-        seg = samples.ray_id.long()
-        hits_per_ray = torch.zeros(r, dtype=torch.int32, device=dev).index_add_(
-            0, seg, samples.valid.to(torch.int32))
-        last_t = torch.full((r,), -torch.inf, device=dev).scatter_reduce_(
-            0, seg, torch.where(samples.valid, samples.t_mid, -torch.inf), reduce="amax")
+        # (the march returns each ray's kept hits and last kept t_mid)
         ray_done = ray_index < samples.resume_ray
-        cursor = torch.where(hits_per_ray > 0,
-                             torch.maximum(cursor, last_t + samples.dt * 0.5), cursor)
+        cursor = torch.where(samples.ray_hits > 0,
+                             torch.maximum(cursor, samples.ray_last_t + samples.dt * 0.5),
+                             cursor)
         alive = alive & ~ray_done & (opacity[:, 0] <= opc_thre)
     rgb = rgb + render_bkgd * (1.0 - opacity)
     depth = depth / torch.clamp(opacity, min=1e-10)

@@ -14,8 +14,9 @@ truncation regimes of the march, padding in the composite; for the backward
 kernels: both feature widths, one level, points all out of range, rays
 without samples, an all-padding buffer, a carried transmittance; the
 scatter-add with every row dropped; a few training steps on the card.  For
-the rate estimate's kernels: the pooling with all rows invalid, one segment,
-a segment without a valid row and both ranks of x; the sign histogram with
+the rate estimate's kernels: the pooling (segment_gather's backward) with
+all rows invalid, one segment, a segment without a valid row and the 3D
+context's dozen runs over 2^21 rows; the sign histogram with
 empty bins and more rows than the cap; the footprint grids on an empty and a
 full occupancy in 2D and 3D; the masked encode with every corner masked and
 the mixed-level encode with its first level at both ends; the encode's edge
@@ -28,7 +29,18 @@ codec's integer kernels (K9a-K9c, K7i), held to their twins with
 torch.equal: odd widths, an empty chunk, a chunk of uncovered rows, weights
 at +-W_MAX with inputs at the clip, saturated and zero probabilities; the
 wrappers' refusals; and a tiny encode on the card whose streams equal the
-same encode through the twins on the CPU, decoded back on the card.
+same encode through the twins on the CPU, decoded back on the card.  For the
+per-ray march (every field equal to the twin's, the per-ray hit counts and
+last t_mid and the padding slots included): a coarse cut inside a ray, a
+capacity cut inside a ray, no candidate block, candidate blocks without a
+hit, more than 32 blocks a ray, every ray masked, a jittered training march
+at 327,680 slots, two runs bit-equal.  For the one-launch pooled mean
+(segment_mean): runs across one and several tile edges, one segment over
+the whole input, no rows, several tiles per block with an empty tail after
+a live last row, F of 1, 2 and 4, both weightings, empty segments
+at the start, middle and end, padding rows with smaller ids, two runs
+bit-equal, launches on two streams at once, and the fault word set by ids
+that decrease.
 """
 
 import dataclasses
@@ -110,6 +122,16 @@ def _march_inputs(dev):
             rays.viewdirs.reshape(-1, 3).contiguous())
 
 
+MARCH_FIELDS = ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples", "ray_hits",
+                "ray_last_t")
+
+
+def _assert_march_equal(got, want):
+    for name in MARCH_FIELDS:
+        assert torch.equal(getattr(got, name).to(getattr(want, name).dtype),
+                           getattr(want, name)), name
+
+
 @pytest.mark.parametrize("capacity,masked", [(1 << 16, False), (2048, False), (1 << 16, True)],
                          ids=["fits", "truncated", "cursor_and_mask"])
 def test_march_kernel(dev, capacity, masked):
@@ -123,11 +145,117 @@ def test_march_kernel(dev, capacity, masked):
                                mip)
     want = marching._march_plain(o, d, binaries, aabb, RCFG, capacity, ray_mask, t_start,
                                  None, mip)
-    for name in ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples"):
-        assert torch.equal(getattr(got, name).to(getattr(want, name).dtype),
-                           getattr(want, name)), name
+    _assert_march_equal(got, want)
     assert int(got.valid.sum()) > 100
     assert bool(got.truncated) == (capacity == 2048)
+
+
+def _march_pair(o, d, binaries, aabb, rcfg, capacity, ray_mask=None, t_start=None, mip=None,
+                jitter=None):
+    mip = marching.build_march_mip(binaries) if mip is None else mip
+    args = (o, d, binaries, aabb, rcfg, capacity, ray_mask, t_start, None, mip, jitter)
+    return marching._march_cuda(*args), marching._march_plain(*args)
+
+
+def _cut_inside_a_ray(o, d, binaries, aabb, rcfg, cut):
+    """A capacity whose cut falls inside a ray with samples on both sides of
+    it.  cut "coarse": the candidate budget (capacity // 4) after the ray's
+    first candidate block, the buffer holding the kept hits; "capacity": with
+    every candidate kept, the buffer after the ray's first sample; "both":
+    the buffer there and the candidate budget short too (the buffer's cut
+    names resume_ray)."""
+    mip = marching.build_march_mip(binaries)
+    full = marching._march_plain(o, d, binaries, aabb, rcfg, 1 << 20, None, None, None, mip)
+    pl = marching._plan(rcfg, 1 << 20, mip.shape[0], None)
+    n_cand = marching._coarse_candidates(o, d, aabb, pl, None, None, mip)[2].sum(1)
+    c_start = torch.cumsum(n_cand, 0) - n_cand
+    f_start = torch.cumsum(full.ray_hits, 0) - full.ray_hits
+    total_c = int(n_cand.sum())
+    for r in range(o.shape[0]):
+        if full.ray_hits[r] < 2 or n_cand[r] < 2:
+            continue
+        cap = 4 * (int(c_start[r]) + 1) if cut == "coarse" else int(f_start[r]) + 1
+        budget = max(256, cap // 4)
+        if cap // 4 < 256 or (cut == "capacity") != (budget >= total_c):
+            continue
+        got = marching._march_plain(o, d, binaries, aabb, rcfg, cap, None, None, None, mip)
+        fits = int(got.valid.sum()) < cap
+        if (int(got.resume_ray) == r and fits == (cut == "coarse")
+                and 0 < int(got.ray_hits[r]) < int(full.ray_hits[r])):
+            return cap
+    raise AssertionError(f"no capacity cuts inside a ray ({cut})")
+
+
+@pytest.mark.parametrize("cut", ["coarse", "capacity", "both"])
+def test_march_kernel_cut_inside_a_ray(dev, cut):
+    """The ray that straddles the candidate budget keeps only a prefix of its
+    candidate blocks (and only their hits count); the one that straddles the
+    buffer keeps a prefix of its samples, and resume_ray names it, before a
+    coarse cut."""
+    binaries, o, d = _march_inputs(dev)
+    aabb = torch.tensor(RCFG.aabb, device=dev)
+    # steps of 0.01: more hits per candidate block, so the buffer can
+    # overflow with every candidate kept
+    rcfg = RCFG if cut == "coarse" else dataclasses.replace(RCFG, render_step_size=0.01)
+    cap = _cut_inside_a_ray(o, d, binaries, aabb, rcfg, cut)
+    got, want = _march_pair(o, d, binaries, aabb, rcfg, cap)
+    _assert_march_equal(got, want)
+    assert bool(got.truncated)
+
+
+@pytest.mark.parametrize("case", ["empty_grid", "no_hits", "all_masked"])
+def test_march_kernel_padding(dev, case):
+    """No sample to write: every slot is padding, parked on the last ray with
+    cnc_tpu's t_mid (ray 0's first step without a candidate block, the first
+    candidate block's first step with candidates but no hit)."""
+    binaries, o, d = _march_inputs(dev)
+    aabb = torch.tensor(RCFG.aabb, device=dev)
+    mip, mask = None, None
+    if case == "empty_grid":
+        binaries = torch.zeros_like(binaries)
+    elif case == "no_hits":
+        mip = torch.ones_like(marching.build_march_mip(binaries))
+        binaries = torch.zeros_like(binaries)
+    else:
+        mask = torch.zeros(o.shape[0], dtype=torch.bool, device=dev)
+    got, want = _march_pair(o, d, binaries, aabb, RCFG, 4096, ray_mask=mask, mip=mip)
+    _assert_march_equal(got, want)
+    assert not bool(got.valid.any()) and not bool(got.ray_hits.any())
+    assert bool((got.ray_id == o.shape[0] - 1).all())
+
+
+def test_march_kernel_more_than_32_blocks(dev):
+    """At a step of 0.002 a ray has 41 blocks of 64 steps: the warp loops."""
+    binaries, o, d = _march_inputs(dev)
+    aabb = torch.tensor(RCFG.aabb, device=dev)
+    rcfg = dataclasses.replace(RCFG, render_step_size=0.002)
+    assert marching._plan(rcfg, 1 << 16, 16, None).nb > 32
+    for cap in (1 << 16, 5000):
+        got, want = _march_pair(o, d, binaries, aabb, rcfg, cap)
+        _assert_march_equal(got, want)
+        assert int(got.valid.sum()) > 100
+
+
+def test_march_kernel_training_size(dev):
+    """A jittered march of 16,384 rays into 327,680 slots at the flagship's
+    render config on the blocks scene; run twice, bit-equal."""
+    rcfg = RenderConfig()
+    binaries = scenes.occupancy_from_scene(scenes.make_scene("blocks"), rcfg.occ_resolution,
+                                           rcfg.render_step_size, device=dev)
+    ds = scenes.ProceduralDataset("blocks", n_images=4, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rays, _ = ds.fetch_rays(g, 16384)
+    o, d = rays.origins.contiguous(), rays.viewdirs.contiguous()
+    u = torch.rand(16384, generator=g, device=dev)
+    aabb = torch.tensor(rcfg.aabb, device=dev)
+    got, want = _march_pair(o, d, binaries, aabb, rcfg, rcfg.sample_capacity, jitter=u)
+    _assert_march_equal(got, want)
+    assert int(got.valid.sum()) > rcfg.sample_capacity // 4
+    again, _ = _march_pair(o, d, binaries, aabb, rcfg, rcfg.sample_capacity, jitter=u)
+    _assert_march_equal(again, got)
+    kernels.reset_launches()
+    marching.march_rays(o, d, binaries, aabb, rcfg, rcfg.sample_capacity, jitter=u)
+    assert kernels.launches["march"] == 3 and kernels.launches["compact"] == 0
 
 
 @pytest.mark.parametrize("prefix,alpha_thre", [(False, 0.0), (True, 0.0), (True, 0.05)])
@@ -159,9 +287,7 @@ def test_march_kernel_with_jitter(dev):
                                    u)
         want = marching._march_plain(o, d, binaries, aabb, RCFG, capacity, None, None, None,
                                      mip, u)
-        for name in ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples"):
-            assert torch.equal(getattr(got, name).to(getattr(want, name).dtype),
-                               getattr(want, name)), name
+        _assert_march_equal(got, want)
     plain = marching.march_rays(o, d, binaries, aabb, RCFG, 2048)
     assert not torch.equal(plain.t_mid, got.t_mid)
 
@@ -312,8 +438,9 @@ def test_trainer_steps_on_the_card(dev):
     kernels.reset_launches()
     losses = []
     tr.fit(40, log_every=0, step_callback=lambda s, aux: losses.append(float(aux["mse"])))
-    for name in ("grid_encode", "grid_encode_bwd", "compact", "march", "volrend",
-                 "volrend_bwd"):
+    # (the march compacts its own samples; K3 serves the occupancy update,
+    # which draws from the compacted grid only after its warm-up)
+    for name in ("grid_encode", "grid_encode_bwd", "march", "volrend", "volrend_bwd"):
         assert kernels.launches[name] > 0, kernels.launches
     assert np.isfinite(losses).all() and np.mean(losses[-5:]) < np.mean(losses[:5])
     # the same step through the plain twins on the CPU gives the same gradients
@@ -344,8 +471,10 @@ def test_render_image_card_matches_cpu(dev):
     kernels.reset_launches()
     gpu = renderer.render_image(field, *args, binaries, o.reshape(32, 32, 3),
                                 d.reshape(32, 32, 3), torch.ones(3), device=dev)
-    assert all(kernels.launches[k] > 0 for k in ("grid_encode", "compact", "march",
+    assert all(kernels.launches[k] > 0 for k in ("grid_encode", "march",
                                                  "volrend")), kernels.launches
+    # the march compacts its own samples: a view needs no K3
+    assert kernels.launches["compact"] == 0, kernels.launches
     field_cpu = rf.RadianceField(SMALL, device="cpu")
     field_cpu.load_state_dict({k: v.cpu() for k, v in field.state_dict().items()})
     cpu = renderer.render_image(field_cpu, *args, binaries.cpu(), o.cpu().reshape(32, 32, 3),
@@ -376,13 +505,18 @@ def _sorted_segments(n, num_segments, g, dev):
 
 
 @pytest.mark.parametrize("case", ["mixed", "all_invalid", "one_segment", "empty_segment",
-                                  "out_of_range"])
-@pytest.mark.parametrize("f", [None, 2, 4])
-def test_segment_pool_kernel(dev, case, f):
-    """K6 and its backward: 1e-5 of the largest sum (f32 adds in another
-    order), the backward (a gather) exactly."""
+                                  "out_of_range", "level_runs"])
+def test_segment_pool_kernel(dev, case):
+    """K6 (segment_gather's backward) within 1e-5 of the largest sum of the
+    twin in float64 (f32 adds in another order; the f32 twin adds a long
+    run's rows one at a time and lands further off) and the gather (its
+    forward) exactly, each one launch.  "level_runs": the 3D context's
+    layout, 2^21 rows in a dozen runs, most of them in the last, then
+    padding that repeats the first id."""
     g = torch.Generator(device=dev).manual_seed(7)
     n, num = 10_007, 1 if case == "one_segment" else 311
+    if case == "level_runs":
+        n, num = 1 << 21, 12
     seg = _sorted_segments(n, num, g, dev)
     valid = torch.rand(n, generator=g, device=dev) < 0.7
     if case == "all_invalid":
@@ -392,29 +526,181 @@ def test_segment_pool_kernel(dev, case, f):
     if case == "out_of_range":
         seg[:40] = -3
         seg[-40:] = num + 2
-    x = torch.randn((n,) if f is None else (n, f), generator=g, device=dev)
-    leaf = x.clone().requires_grad_()
-    got = cops.segment_pool(leaf, seg, valid, num)
-    twin_leaf = x.clone().requires_grad_()
-    want = cops._segment_pool_plain(twin_leaf, seg, valid, num)
-    assert got.shape == want.shape == ((num,) if f is None else (num, f))
-    torch.testing.assert_close(got, want, atol=1e-5 * max(1.0, float(want.abs().max())), rtol=0)
+    if case == "level_runs":
+        # three quarters of the rows on the finest level, as the context's
+        seg = torch.where(torch.rand(n, generator=g, device=dev) < 0.75, num - 1, seg)
+        seg = torch.sort(seg).values.to(torch.int32)
+        seg[-100_000:] = seg[0]
+        valid[:] = True
+    x = torch.randn(n, generator=g, device=dev)
+    want = cops._segment_pool_plain(x.double(), seg, valid, num)
+    vals = torch.randn(num, generator=g, device=dev)
+    gather_leaf = vals.clone().requires_grad_()
+    kernels.reset_launches()
+    rows = cops.segment_gather(gather_leaf, seg, valid)
+    assert kernels.launches["segment_pool_bwd"] == 1
+    live = cops._live_rows(seg, valid, num)
+    assert torch.equal(rows, torch.where(live, vals[torch.where(live, seg.long(), 0)], 0.0))
+    rows.backward(x)
+    assert kernels.launches["segment_pool"] == 1
+    torch.testing.assert_close(gather_leaf.grad.double(), want, rtol=0,
+                               atol=1e-5 * max(1.0, float(want.abs().max())))
     if case == "empty_segment":
-        assert not bool(got[17].any())
-    cot = torch.randn(want.shape, generator=g, device=dev)
+        assert not bool(gather_leaf.grad[17].any())
+
+
+def test_segment_pool_kernel_takes_one_float_a_row(dev):
+    seg = torch.zeros(8, dtype=torch.int32, device=dev)
+    valid = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="one float"):
+        cops._segment_pool_cuda(torch.zeros(8, 2, device=dev), seg, valid, 4)
+    with pytest.raises(ValueError, match="one float"):
+        cops.segment_gather(torch.zeros(4, 2, device=dev), seg, valid)
+
+
+def _mean_inputs(dev, case, f, weighted):
+    """Rows sorted by id with dead rows between (and some padding at the end
+    carrying a small id, as the compacted 3D site's), integer den as every
+    call site has."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    n, num = 20_011, 523
+    seg = _sorted_segments(n, num, g, dev)
+    if case == "cut_at_budget":
+        # several tiles per block, the ids stopping short of the last segment
+        # with the last row live: the empty tail is written by every block
+        n, num = 1_200_000, 150_000
+        seg = _sorted_segments(n, 100_000, g, dev)
+    if case == "tile_edges":
+        # one run across the edge at 2048, one across the edges 4096..16384
+        seg = torch.cat([torch.full((2000,), 3), torch.full((100,), 4), torch.full((1900,), 5),
+                         torch.full((13000,), 9), torch.full((n - 17000,), 400)]).to(dev)
+    elif case == "one_segment":
+        seg = torch.full((n,), 7, device=dev)
+    elif case == "empty":
+        n = 0
+        seg = seg[:0]
+    elif case == "edges_empty":
+        seg = seg.clamp(30, num - 40)
+    seg = seg.to(torch.int32)
+    valid = torch.rand(n, generator=g, device=dev) < 0.7
+    if case == "edges_empty":
+        valid &= (seg < 200) | (seg > 260)       # an empty stretch in the middle
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "padded":
+        valid[-3000:] = False
+        seg[-3000:] = 2
+    if case == "cut_at_budget":
+        valid[-1] = True
+    den = torch.randint(1, 1000, (n,), generator=g, device=dev).float()
+    if not weighted:
+        den = valid.float()
+    x = torch.randn(n, f, generator=g, device=dev)
+    return x, den, seg, valid, num
+
+
+MEAN_CASES = ["mixed", "tile_edges", "one_segment", "empty", "edges_empty", "all_invalid",
+              "padded", "cut_at_budget"]
+
+
+@pytest.mark.parametrize("case", MEAN_CASES)
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_mean_kernel(dev, case, f, weighted):
+    """K6m against its twin: pooled within 1e-5 of max |pooled| (sums in
+    another order), covered exact, the gradient within 1e-6; two runs of the
+    kernel bit-equal (no atomics); one launch each way."""
+    x, den, seg, valid, num = _mean_inputs(dev, case, f, weighted)
+    min_den = 1e-9 if weighted else 1.0
+    cops.clear_segment_order_faults(dev)
+    leaf = x.clone().requires_grad_()
+    kernels.reset_launches()
+    got, cov = cops.segment_mean(leaf, den, seg, valid, num, min_den, weighted)
+    assert kernels.launches["segment_mean"] == 1 and kernels.launches["segment_pool"] == 0
+    twin_leaf = x.clone().requires_grad_()
+    want, want_cov = cops._segment_mean_plain(twin_leaf, den, seg, valid, num,
+                                              float(np.float32(min_den)), weighted)
+    assert got.shape == want.shape == (num, f)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * max(1e-30, float(want.abs().max())))
+    assert torch.equal(cov, want_cov)
+    again, cov2 = cops.segment_mean(x, den, seg, valid, num, min_den, weighted)
+    assert torch.equal(again, got) and torch.equal(cov2, cov)
+    cot = torch.randn(num, f, device=dev)
     got.backward(cot)
     want.backward(cot)
-    assert torch.equal(leaf.grad, twin_leaf.grad)
-    # the transpose: a gather forward (exact), K6 in the backward
-    vals = torch.randn(want.shape, generator=g, device=dev)
-    gather_leaf = vals.clone().requires_grad_()
-    rows = cops.segment_gather(gather_leaf, seg, valid)
-    live = cops._live_rows(seg, valid, num)
-    picked = vals[torch.where(live, seg.long(), 0)]
-    assert torch.equal(rows, torch.where(live if f is None else live[:, None], picked, 0.0))
-    rows.backward(x)
-    torch.testing.assert_close(gather_leaf.grad, want.detach(), rtol=0,
-                               atol=1e-5 * max(1.0, float(want.abs().max())))
+    assert kernels.launches["segment_mean_bwd"] == 1
+    torch.testing.assert_close(leaf.grad, twin_leaf.grad, rtol=1e-6, atol=0)
+    assert cops.segment_order_faults(dev) == 0
+    if case == "edges_empty":
+        assert not bool(cov[:30].any()) and not bool(cov[-39:].any())
+        assert not bool(cov[201:260].any()) and not bool(got[201:260].any())
+    if case == "cut_at_budget":
+        assert not bool(cov[100_000:].any()) and not bool(got[100_000:].any())
+
+
+def test_segment_mean_on_two_streams(dev):
+    """Launches queued on two streams at once each take their stream's block
+    records and finish counter: every result equals the default stream's,
+    bit for bit."""
+    x, den, seg, valid, num = _mean_inputs(dev, "cut_at_budget", 4, True)
+    want, want_cov = cops.segment_mean(x, den, seg, valid, num, 1e-9, True)
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize(dev)
+    outs = []
+    for s in streams * 4:
+        with torch.cuda.stream(s):
+            outs.append(cops.segment_mean(x, den, seg, valid, num, 1e-9, True))
+    torch.cuda.synchronize(dev)
+    for got, cov in outs:
+        assert torch.equal(got, want) and torch.equal(cov, want_cov)
+    works = {id(cops._mean_work[(x.device, s.cuda_stream)]) for s in streams}
+    assert len(works) == 2
+
+
+def test_march_kernel_on_two_streams(dev):
+    """Marches queued on two streams at once each take their stream's
+    workspace: every field equals the twin's."""
+    binaries, o, d = _march_inputs(dev)
+    aabb = torch.tensor(RCFG.aabb, device=dev)
+    mip = marching.build_march_mip(binaries)
+    args = (o, d, binaries, aabb, RCFG, 1 << 16, None, None, None, mip)
+    want = marching._march_plain(*args)
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize(dev)
+    outs = []
+    for s in streams * 4:
+        with torch.cuda.stream(s):
+            outs.append(marching._march_cuda(*args))
+    torch.cuda.synchronize(dev)
+    for got in outs:
+        _assert_march_equal(got, want)
+
+
+def test_segment_mean_flags_ids_that_decrease(dev):
+    """Live ids that fall (inside a tile, and across a tile's edge) set the
+    fault word; the twin raises."""
+    for where in (100, 2048, 6000):
+        x, den, seg, valid, num = _mean_inputs(dev, "mixed", 4, False)
+        valid[where] = True
+        seg[where] = 0
+        seg[where - 1] = num - 1
+        valid[where - 1] = True
+        cops.clear_segment_order_faults(dev)
+        cops.segment_mean(x, den, seg, valid, num, 1.0)
+        assert cops.segment_order_faults(dev) == 1, where
+        with pytest.raises(ValueError, match="decrease"):
+            cops._segment_mean_plain(x, den, seg, valid, num, 1.0, False)
+    cops.clear_segment_order_faults(dev)
+    assert cops.segment_order_faults(dev) == 0
+
+
+def test_segment_mean_refuses_what_the_kernel_does_not_take(dev):
+    x, den, seg, valid, num = _mean_inputs(dev, "mixed", 4, False)
+    with pytest.raises(ValueError):
+        cops.segment_mean(torch.zeros(seg.shape[0], 3, device=dev), den, seg, valid, num, 1.0)
+    with pytest.raises(ValueError, match="den"):
+        cops.segment_mean(x, den.clone().requires_grad_(), seg, valid, num, 1.0)
 
 
 @pytest.mark.parametrize("f", [2, 4])
@@ -740,7 +1026,7 @@ def test_trainer_rate_steps_on_the_card(dev):
         (float(aux["mse"]), float(aux["bits_per_param"]), float(aux["ctx_util"]))))
     assert len(seen) == 20 and np.all(np.isfinite(np.asarray(seen)))
     for k in ("grid_encode_v", "grid_encode_v_bwd", "segment_pool", "segment_pool_bwd", "pn_hist",
-              "footprint", "compact"):
+              "footprint", "compact", "segment_mean", "segment_mean_bwd"):
         assert kernels.launches[k] > 0, k
 
 
