@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
      their device work alone, without the wrapper's host time: `device_ms`;
      the encode's forward must equal the twin bit for bit, and every field of
      the march, its padding slots and its per-ray hit counts and last t_mid
-     included, at the view's first and a late round);
+     included, at the view's first and a late round; K5 within 1e-4 relative
+     with the visible counts equal, at both rounds);
   4. the serving path: render one 800x800 view of a full-width field
      (ModelConfig(), RenderConfig(), random weights from seed 0) through
      `render_image`, over the procedural `blocks` scene's 128^3 occupancy,
@@ -30,9 +31,9 @@ Phases (any failure raises and the script exits non-zero):
      lmbda=0, ProceduralDataset("blocks")).fit`.  After the first 16 steps
      the training kernels are held against their twins at one real training
      march's buffer: K4 with jitter (exact, timed), K1 on the xyz table, [K2] the
-     encode backward on the xyz table and one plane, [K5b] the composite
-     backward at the full and
-     at a half-padded buffer.  Then the counts are set to 0, `fit` runs on
+     encode backward on the xyz table and one plane, [K5] the composite, [K5b]
+     its backward at the full and at a half-padded buffer (two runs
+     bit-equal).  Then the counts are set to 0, `fit` runs on
      to TRAIN_STEPS, and the counts are read: every training kernel must
      have launched, the loss must have fallen, and the test views' PSNR must
      exceed TRAIN_PSNR_MIN (each phase reads the test views five times from
@@ -78,7 +79,11 @@ Phases (any failure raises and the script exits non-zero):
      most 1e-3 dB; then `save_bundle` and `decode_bundle` in a fresh python3
      process, whose tables and render of test view 0 must equal this
      process's;
- 11. print the kernels line, the card line and the final JSON line.
+ 11. [bundle 20k] cnc_tpu's committed 20,000-step bundle (BUNDLE_20K) through
+     `decode_bundle` on the card, test view 0 of the 256x256 `blocks` test
+     set through `render_image`, its PSNR within BUNDLE_20K_DB of the CPU
+     figure; decode and render seconds and their launches logged;
+ 12. print the kernels line, the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
 run outside the repository (cnc_torch missing).
@@ -161,6 +166,13 @@ RATE_GRAD_BANDS = (0.0, 4e-6, 1e-3)
 MARCH_FIELDS = ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples", "ray_hits",
                 "ray_last_t")
 RATE_GRAD_BAND, RATE_GRAD_TOL = 1e-3, 1e-4
+# [bundle 20k]: cnc_tpu's committed 20,000-step bundle, test view 0 of the
+# 256x256 blocks test set as tools/rd_sweep_depth.py scored it, and the PSNR
+# the port's plain path reads on the CPU (40.09655 dB; cnc_tpu's own decode and
+# render on JAX's CPU backend read 40.09657, its TPU run recorded 40.0573).
+# The card must read within BUNDLE_20K_DB of it.
+BUNDLE_20K = "runs_20k/bitstreams/l0.002_k4"
+BUNDLE_20K_PSNR_CPU, BUNDLE_20K_DB = 40.09655, 0.01
 
 
 def log(msg: str) -> None:
@@ -270,6 +282,28 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
         f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f}"
         f" plain_ms={rec['plain_ms']:.4f} bound_ms={b:.4f}")
     return rec
+
+
+def volrend_bound(n_valid: int, n_rays: int, prefix: bool, backward: bool = False):
+    """K5's (backward: K5b's) bound on one buffer: each valid sample read
+    once (sigma 4, rgb 12, t_mid 4, valid 1, ray_id 4; padding needs only its
+    ray id and flag, left out), prefix_trans and each ray's outputs (K5b: its
+    output gradients) once, K5b's 16 B of gradient a sample written once;
+    16 operations a sample (K5b 40)."""
+    per_sample = 25 + (16 if backward else 0)
+    n_bytes = n_valid * per_sample + n_rays * (20 + (4 if prefix else 0)) + 4
+    return bound_ms(n_bytes, n_valid * (40 if backward else 16))
+
+
+def footprint_bound(cops, occ, resolution: int, with_overlap: bool):
+    """K8's bound for one launch: the occupancy read once, one bool (and the
+    overlap's float) written per corner; per occupied-box cell one operation
+    for the mask, about 10 for the overlap (a multiply-add per axis)."""
+    d, n = occ.dim(), resolution ** occ.dim()
+    bd = cops.footprint_bounds(resolution, occ.shape[0])
+    cells = float((bd.hi.astype("int64") - bd.lo + 1).sum()) ** d
+    return bound_ms(occ.numel() + n * (5 if with_overlap else 1),
+                    cells * (10 if with_overlap else 1))[0]
 
 
 def bound_ms_int(n_bytes: float, n_ops: float):
@@ -592,6 +626,16 @@ def check_order_faults(cops, dev, where: str) -> None:
     log(f"{where} segment_mean's order-fault word is clear")
 
 
+def check_walk_faults(volrend, dev, where: str) -> None:
+    """The word K5/K5b's table pass sets when a sample buffer breaks their
+    precondition (valid samples first in each ray, ids ascending) must be
+    clear: every buffer the process composited so far kept it."""
+    if volrend.walk_order_faults(dev):
+        raise AssertionError(f"{where} a composite launch met a buffer that breaks its"
+                             f" precondition")
+    log(f"{where} the composite's order-fault word is clear")
+
+
 def march_work(torch, marching, scatter_ops, o, d, binaries, aabb, rcfg, capacity, alive,
                cursor, mip):
     """What the march needs on these rays, with the twin's formulas: the
@@ -743,9 +787,39 @@ def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", *
     return rec
 
 
+def check_volrend(torch, volrend, smp, n_rays, rgb, sig, pt, rcfg, label):
+    """K5 against its twin on one sample buffer (max relative error within
+    1e-4, visible counts equal), timed with its wrapper and by device ms;
+    returns the kernel record fields."""
+    args = (rgb, sig, smp, n_rays, rcfg.early_stop_eps, pt, rcfg.alpha_thre)
+    comp = lambda: volrend._composite_cuda(*args)
+    comp_plain = lambda: volrend._composite_plain(*args)
+    a, b_ = comp(), comp_plain()
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for x, y in zip(a[:3], b_[:3]):
+        diff = (x - y).abs()
+        err = max(err, diff.max().item())
+        rel = max(rel, (diff / y.abs().clamp(min=1e-3)).max().item())
+    if not (rel <= 1e-4 and int(a[3]) == int(b_[3])):
+        raise AssertionError(f"K5 {label}: max rel err {rel} > 1e-4 or visible counts"
+                             f" differ ({int(a[3])} against {int(b_[3])})")
+    n_valid = int(smp.valid.sum())
+    b, by = volrend_bound(n_valid, n_rays, pt is not None)
+    rec = dict(max_abs_err=err, ms=time_ms(comp), device_ms=device_ms(comp),
+               plain_ms=time_ms(comp_plain), bound_ms=b, bound_by=by, library_ms=None,
+               samples=n_valid, slots=smp.ray_id.shape[0], rays=n_rays)
+    log(f"[K5 volrend {label}] slots={rec['slots']} valid={n_valid} rays={n_rays}"
+        f" visible={int(a[3])} (the twin's too) max_abs_err={err:.3g}"
+        f" max_rel_err={rel:.3g} ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f}"
+        f" plain_ms={rec['plain_ms']:.4f} bound_ms={b:.5f}")
+    return rec
+
+
 def check_volrend_bwd(torch, volrend, smp, n_rays, rcfg, gen, label):
     """K5b against its twin (autograd of `_composite_plain`) on one sample
-    buffer; returns the kernel record fields."""
+    buffer, and a second run bit-equal to the first; returns the kernel
+    record fields."""
     dev = smp.ray_id.device
     n = smp.ray_id.shape[0]
     sig = torch.empty(n, device=dev).exponential_(1 / 40.0, generator=gen)
@@ -758,22 +832,23 @@ def check_volrend_bwd(torch, volrend, smp, n_rays, rcfg, gen, label):
     r_leaf, s_leaf = rgb.clone().requires_grad_(), sig.clone().requires_grad_()
     outs = volrend._composite_plain(r_leaf, s_leaf, *args)[:3]
     twin = lambda: torch.autograd.grad(outs, (r_leaf, s_leaf), cots, retain_graph=True)
-    got, want = kernel(), twin()
+    got, again, want = kernel(), kernel(), twin()
     torch.cuda.synchronize()
     errs = [rel_err(g, w) for g, w in zip(got, want)]
     if not max(errs) <= K5B_REL_TOL:
         raise AssertionError(f"[K5b] {label}: rel err {errs} > {K5B_REL_TOL}")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"[K5b] {label}: two runs differ")
     n_valid = int(smp.valid.sum())
-    # bytes: each valid sample read once, its gradients written once; each
-    # ray's output gradients read once
-    n_bytes = n_valid * (4 + 12 + 4 + 1 + 4 + 16) + n_rays * 20
-    b, by = bound_ms(n_bytes, n_valid * 40)
+    b, by = volrend_bound(n_valid, n_rays, False, backward=True)
     rec = dict(max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
-               ms=time_ms(kernel), plain_ms=time_ms(twin, iters=10), bound_ms=b, bound_by=by,
-               library_ms=None)
+               ms=time_ms(kernel), device_ms=device_ms(kernel),
+               plain_ms=time_ms(twin, iters=10), bound_ms=b, bound_by=by, library_ms=None,
+               samples=n_valid, slots=n, rays=n_rays)
     log(f"[K5b volrend_bwd {label}] slots={n} valid={n_valid} rays={n_rays}"
-        f" rel_err d_rgbs={errs[0]:.3g} d_sigmas={errs[1]:.3g} (limit {K5B_REL_TOL})"
-        f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={b:.5f}")
+        f" rel_err d_rgbs={errs[0]:.3g} d_sigmas={errs[1]:.3g} (limit"
+        f" {K5B_REL_TOL}), two runs bit-equal; ms={rec['ms']:.4f}"
+        f" device_ms={rec['device_ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={b:.5f}")
     return rec
 
 
@@ -837,10 +912,17 @@ def check_training_kernels(torch, tr, enc, marching, volrend, rf, gen):
     records["grid_encode_bwd"] = dict(k2_xyz, max_abs_err=max(k2_xyz["max_abs_err"],
                                                                k2_xy["max_abs_err"]),
                                       sites={"xyz": k2_xyz, "xy": k2_xy})
+    with torch.no_grad():
+        sig = torch.empty(cap, device=dev).exponential_(1 / 40.0, generator=gen)
+        rgb = torch.rand(cap, 3, generator=gen, device=dev)
+        records["volrend_train"] = check_volrend(torch, volrend, got, bucket, rgb, sig, None,
+                                                 cfg.render, "training march")
     k5b = {label: check_volrend_bwd(torch, volrend, smp, bucket, cfg.render, gen, label)
-           for label, smp in (("full", got), ("padded", padded))}
-    records["volrend_bwd"] = dict(k5b["full"], max_abs_err=max(v["max_abs_err"]
-                                                               for v in k5b.values()))
+           for label, smp in (("training march", got), ("training march, half the rays",
+                                                        padded))}
+    records["volrend_bwd"] = dict(k5b["training march"],
+                                  max_abs_err=max(v["max_abs_err"] for v in k5b.values()),
+                                  sites=k5b)
     return records
 
 
@@ -1549,6 +1631,52 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
 
 
 
+def check_bundle_20k(torch, kernels, dev) -> None:
+    """[bundle 20k]: decode cnc_tpu's 20,000-step bundle with the kernels,
+    render test view 0 through render_image and hold its PSNR to the CPU
+    figure; the counts are set to 0 just before and read just after."""
+    from cnc_torch.data import scenes
+    from cnc_torch.render import renderer
+    from cnc_torch.train import driver
+    from cnc_torch.utils import metrics
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    field, binaries, cfg = driver.decode_bundle(BUNDLE_20K, device=dev, log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    decode_launches = {k: v for k, v in kernels.launches.items() if v}
+    test = scenes.ProceduralDataset("blocks", 8, 256, 256, "test", device=dev)
+    rays, gt = test.image_and_rays(0)
+    aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=dev)
+    render = lambda: renderer.render_image(field, cfg.model, cfg.render, aabb, binaries,
+                                           rays.origins, rays.viewdirs, torch.ones(3, device=dev),
+                                           device=dev)
+    render()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    rgb = render()[0]
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    render_launches = {k: v for k, v in kernels.launches.items() if v}
+    psnr = float(metrics.psnr(rgb, gt))
+    diff = psnr - BUNDLE_20K_PSNR_CPU
+    log(f"[bundle 20k] {BUNDLE_20K}: decode_bundle {decode_s:.2f} s (launches"
+        f" {json.dumps(decode_launches)}); test view 0 (256x256) rendered in {render_s:.3f} s"
+        f" (launches {json.dumps(render_launches)}), psnr {psnr:.5f} dB, ssim"
+        f" {float(metrics.ssim(rgb, gt)):.6f}; the CPU plain path {BUNDLE_20K_PSNR_CPU:.5f},"
+        f" difference {diff:+.6f} dB (limit {BUNDLE_20K_DB})")
+    if not all(decode_launches.get(k, 0) > 0 for k in ("int_encode", "int_mlp_pool", "int_pq")):
+        raise AssertionError(f"[bundle 20k] the decode did not go through the codec kernels:"
+                             f" {decode_launches}")
+    if not all(render_launches.get(k, 0) > 0 for k in ("grid_encode", "march", "volrend")):
+        raise AssertionError(f"[bundle 20k] the render did not go through the kernels:"
+                             f" {render_launches}")
+    if not abs(diff) <= BUNDLE_20K_DB:
+        raise AssertionError(f"[bundle 20k] psnr {psnr} is {diff:+.6f} dB from the CPU's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1688,35 +1816,11 @@ def main() -> int:
         sig = torch.empty(capacity, device=dev).exponential_(1 / 40.0, generator=gen)
         rgb = torch.rand(capacity, 3, generator=gen, device=dev)
         pt = torch.rand(chunk, generator=gen, device=dev) * 0.9 + 0.1
-        k5 = {}
-        for label, smp in (("full", got), ("late", late)):
-            comp = lambda: volrend._composite_cuda(rgb, sig, smp, chunk, rcfg.early_stop_eps,
-                                                   pt, rcfg.alpha_thre)
-            comp_plain = lambda: volrend._composite_plain(rgb, sig, smp, chunk,
-                                                          rcfg.early_stop_eps, pt,
-                                                          rcfg.alpha_thre)
-            a, b_ = comp(), comp_plain()
-            torch.cuda.synchronize()
-            err, rel = 0.0, 0.0
-            for x, y in zip(a[:3], b_[:3]):
-                diff = (x - y).abs()
-                err = max(err, diff.max().item())
-                rel = max(rel, (diff / y.abs().clamp(min=1e-3)).max().item())
-            if not (rel <= 1e-4 and int(a[3]) == int(b_[3])):
-                raise AssertionError(f"K5 {label}: max rel err {rel} > 1e-4 or visible counts"
-                                     " differ")
-            n_valid = int(smp.valid.sum())
-            # bytes: each valid sample read once (padding needs only its
-            # segment bounds), each ray written once
-            n_bytes = n_valid * (4 + 12 + 4 + 1 + 4) + chunk * 4 + chunk * 20 + 4
-            b, by = bound_ms(n_bytes, n_valid * 16)
-            k5[label] = dict(max_abs_err=err, ms=time_ms(comp), plain_ms=time_ms(comp_plain),
-                             bound_ms=b, bound_by=by, library_ms=None)
-            log(f"[K5 volrend {label}] slots={capacity} valid={n_valid} rays={chunk}"
-                f" max_abs_err={err:.3g} max_rel_err={rel:.3g} ms={k5[label]['ms']:.4f}"
-                f" plain_ms={k5[label]['plain_ms']:.4f} bound_ms={b:.5f}")
-        records["volrend"] = dict(k5["late"], max_abs_err=max(v["max_abs_err"]
-                                                              for v in k5.values()))
+        k5 = {label: check_volrend(torch, volrend, smp, chunk, rgb, sig, pt, rcfg, label)
+              for label, smp in (("view, first round", got), ("view, late round", late))}
+        records["volrend"] = dict(k5["view, late round"],
+                                  max_abs_err=max(v["max_abs_err"] for v in k5.values()),
+                                  sites=k5)
 
     # ---- 4. the main path: one full 800x800 view through render_image,
     # timed on its second render (the first warms cuBLAS and the allocator)
@@ -1744,6 +1848,7 @@ def main() -> int:
     # the march compacts its own samples, three launches a round; no K3
     if not (launches["compact"] == 0 and launches["march"] == 3 * stats["rounds"]):
         raise AssertionError(f"main path: the march's launches are not 3 a round: {launches}")
+    check_walk_faults(volrend, dev, "[main]")
     with torch.no_grad():
         gt = torch.cat([scenes.render_gt_rays(scene, oo, dd, 512)[0] for oo, dd in zip(
             rays.origins.reshape(-1, 3).split(16384), rays.viewdirs.reshape(-1, 3).split(16384))])
@@ -1802,6 +1907,9 @@ def main() -> int:
     records.update(check_training_kernels(torch, tr, enc, marching, volrend, rf, gen))
     records["grid_encode"]["sites"]["xyz train"] = records.pop("grid_encode_train")
     records["march"]["sites"]["training march"] = records.pop("march_train")
+    records["volrend"]["sites"]["training march"] = records.pop("volrend_train")
+    records["volrend"]["max_abs_err"] = max(v["max_abs_err"]
+                                            for v in records["volrend"]["sites"].values())
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1905,14 +2013,28 @@ def main() -> int:
     occ_grid = tr.occ_state.binaries        # the grid the lambda = 0 run ended with
     records["footprint"] = check_footprint(torch, cops, entropy, occ_grid)
     n_fp, n_pack = kernels.launches["footprint"], kernels.launches["pack_mask_bits"]
-    occ_cache = entropy.refresh_cache(occ_grid)
+    fp_calls, footprint = [], cops._footprint_cuda
+
+    def recording(*args, **kw):
+        fp_calls.append((args, kw))
+        return footprint(*args, **kw)
+
+    with swapped((cops, "_footprint_cuda", recording)):
+        occ_cache = entropy.refresh_cache(occ_grid)
     n_fp = kernels.launches["footprint"] - n_fp
     n_pack = kernels.launches["pack_mask_bits"] - n_pack
     refresh_ms = time_ms(lambda: entropy.refresh_cache(occ_grid), iters=3, warmup=1)
+    # each of the refresh's footprint launches again, by its device work alone
+    fp_ms = [device_ms(lambda a=a, k=k: footprint(*a, **k), iters=3) for a, k in fp_calls]
+    fp_bound = sum(footprint_bound(cops, *a[:3]) for a, _ in fp_calls)
+    records["footprint"].update(launches_per_refresh=n_fp, refresh_device_ms=sum(fp_ms),
+                                refresh_bound_ms=fp_bound, refresh_ms=refresh_ms)
     log(f"[K8] refresh_cache on the trained occupancy grid ({int(occ_grid.sum())} cells):"
         f" {refresh_ms:.2f} ms for {n_fp} footprint launches, {n_pack} mask packings and the"
         f" pn coord lists (a compaction and three stable sorts of"
-        f" {rate_cfg.entropy.pn_coords_cap} rows)")
+        f" {rate_cfg.entropy.pn_coords_cap} rows); the footprint launches' device ms"
+        f" {sum(fp_ms):.4f} in all (their bounds {fp_bound:.4f}), the largest"
+        f" {max(fp_ms):.4f}")
     records["pack_mask_bits"] = dict(check_pack(torch, enc, occ_cache),
                                      launches_per_refresh=n_pack)
     del occ_cache
@@ -1972,6 +2094,7 @@ def main() -> int:
         raise AssertionError(f"[rate] test psnr {rate_scores['psnr']} <= {RATE_PSNR_MIN}")
 
     check_order_faults(cops, dev, f"[rate] after {RATE_STEPS} steps:")
+    check_walk_faults(volrend, dev, f"[train, rate] after {RATE_STEPS} rate steps:")
     check_rate_gradient(torch, trr, rf, cops, enc, ent_ops, f"step {RATE_STEPS}")
 
     def one_rate_step():
@@ -2005,7 +2128,11 @@ def main() -> int:
     enc_launches, dec_launches, codec_launches = run_codec(
         torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, records)
 
-    # ---- 11. report: `launches` is the count over the path named beside it
+    # ---- 11. cnc_tpu's 20,000-step bundle, decoded and rendered on the card
+    check_bundle_20k(torch, kernels, dev)
+    check_walk_faults(volrend, dev, "[bundle 20k]")
+
+    # ---- 12. report: `launches` is the count over the path named beside it
     # (one view, the lambda = 0 training run, the probe's one drive, the rate
     # path from the model's build to the run's last step, the three
     # pn_frac_grad steps, or the codec path: int cache, encode and decode)
@@ -2052,6 +2179,8 @@ def main() -> int:
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"], sites=r.get("sites"),
                         launches_per_refresh=r.get("launches_per_refresh"),
+                        refresh_device_ms=r.get("refresh_device_ms"),
+                        refresh_bound_ms=r.get("refresh_bound_ms"),
                         rate_launches_per_step=rate_per_step.get(name)))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -41,7 +41,9 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 # pack_mask_bits: the packing of the encode's occupancy masks (once per cache
 # refresh, csrc/grid_encode.cu); segment_pool / segment_pool_bwd: the backward
 # and the forward of segment_gather; segment_mean / segment_mean_bwd: one call
-# site's pooled mean (both csrc/segment_pool.cu)
+# site's pooled mean (both csrc/segment_pool.cu); volrend / volrend_bwd: two
+# per composite, forward or backward (the walk table, then the scan;
+# csrc/volrend.cu)
 launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
             "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
             "grid_encode_v_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0, "pn_hist": 0,
@@ -62,10 +64,8 @@ _SIGNATURES = {
     "cnc_compact_mask": ((_P, _LL, _I, _P, _P, _P, _P), _I),
     "cnc_march_ints": ((_I,), _LL),
     "cnc_march": ((_P,) * 7 + (_I, _P) + (_I,) * 7 + (_F,) * 5 + (_P,) * 12, _I),
-    "cnc_volrend_forward": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P),
-                            _I),
-    "cnc_volrend_backward": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
-                              _P), _I),
+    "cnc_volrend_forward": ((_P,) * 6 + (_I, _I, _F, _F, _F) + (_P,) * 7, _I),
+    "cnc_volrend_backward": ((_P,) * 9 + (_I, _I, _F, _F, _F) + (_P,) * 5, _I),
     "cnc_scatter_add": ((_P, _P, _P, _LL, _I, _I, _P), _I),
     "cnc_lane_gather": ((_P, _P, _P, _I, _I, _LL, _P), _I),
     "cnc_segment_pool": ((_P, _P, _P, _P, _LL, _I, _P), _I),
@@ -161,10 +161,13 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def call(name: str, *args) -> None:
-    """Call a library function on the current stream; raise on a CUDA error."""
+def call(name: str, *args, stream: int | None = None) -> None:
+    """Call a library function on `stream` (a raw CUDA stream handle; the
+    current stream when None); raise on a CUDA error."""
     handle = lib()
-    rc = getattr(handle, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(handle, name)(*args, stream)
     if rc != 0:
         msg = handle.cnc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} failed: CUDA error {rc} ({msg})")

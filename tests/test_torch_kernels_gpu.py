@@ -40,7 +40,13 @@ the whole input, no rows, several tiles per block with an empty tail after
 a live last row, F of 1, 2 and 4, both weightings, empty segments
 at the start, middle and end, padding rows with smaller ids, two runs
 bit-equal, launches on two streams at once, and the fault word set by ids
-that decrease.
+that decrease.  For the composite's per-ray warp scans (K5, K5b;
+tests/volrend_buffers.py): rays longer than a pass and than 1,024 samples,
+empty rays between full ones, a buffer of padding only, one ray holding the
+buffer, padding alone on the last ray; prefix_trans and alpha_thre; the walk
+table left zero; K5b's two runs bit-equal and its null output gradients; the
+fault word set by buffers that break the precondition, and the walk table
+dropped by a call that raises.
 """
 
 import dataclasses
@@ -62,6 +68,7 @@ from cnc_torch.ops import encoding as enc
 from cnc_torch.ops import scatter_ops
 from cnc_torch.render import marching, renderer, volrend
 from cnc_torch.train.trainer import Trainer
+from volrend_buffers import BROKEN, DT, LAYOUTS, broken_buffer, segment_buffer
 
 pytestmark = pytest.mark.gpu
 
@@ -396,6 +403,101 @@ def test_composite_backward_all_padding_and_no_rays(dev):
     with pytest.raises(ValueError, match="prefix_trans"):
         volrend.composite(rgb, sig, s, r, prefix_trans=torch.ones(r, device=dev,
                                                                   requires_grad=True))
+
+
+def _segment_samples(layout, dev):
+    ray_id, valid, t_mid, sig, rgb, n_rays = segment_buffer(layout)
+    s = marching.RaySamples(ray_id=torch.from_numpy(ray_id).to(dev),
+                            t_mid=torch.from_numpy(t_mid).to(dev), dt=float(DT),
+                            valid=torch.from_numpy(valid).to(dev),
+                            num_samples=torch.tensor(int(valid.sum()), device=dev))
+    return s, torch.from_numpy(sig).to(dev), torch.from_numpy(rgb).to(dev), n_rays
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_composite_kernels_on_segment_edges(dev, layout):
+    """K5 and K5b on rays longer than a pass and than 1,024 samples, empty
+    rays, padding alone or after the last ray's samples, one ray holding the
+    buffer; with and without prefix_trans and alpha_thre.  The walk table is
+    left zero, the fault word clear; K5b's two runs are bit-equal."""
+    s, sig, rgb, r = _segment_samples(layout, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    pt = torch.rand(r, generator=g, device=dev) * 0.9 + 0.1
+    cots = (torch.randn(r, 3, generator=g, device=dev), torch.randn(r, generator=g, device=dev),
+            torch.randn(r, generator=g, device=dev))
+    volrend.clear_walk_order_faults(dev)
+    for prefix, alpha_thre in ((None, 0.0), (pt, 0.0), (pt, 0.05)):
+        got = volrend._composite_cuda(rgb, sig, s, r, 1e-4, prefix, alpha_thre)
+        want = volrend._composite_plain(rgb, sig, s, r, 1e-4, prefix, alpha_thre)
+        for a, b in zip(got[:3], want[:3]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert int(got[3]) == int(want[3])
+        grads = [volrend._composite_backward_cuda(rgb, sig, s, r, 1e-4, prefix, alpha_thre,
+                                                  *cots) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
+        rr, ss = rgb.clone().requires_grad_(), sig.clone().requires_grad_()
+        out = volrend._composite_plain(rr, ss, s, r, 1e-4, prefix, alpha_thre)
+        want = torch.autograd.grad(out[:3], (rr, ss), cots)
+        for a, b in zip(grads[0], want):
+            torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
+        assert not grads[0][1][~s.valid].any() and not grads[0][0][~s.valid].any()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not volrend._walk_tables[(sig.device, stream)].any()
+    assert volrend.walk_order_faults(dev) == 0
+
+
+@pytest.mark.parametrize("kind", BROKEN)
+def test_composite_fault_word_on_broken_buffers(dev, kind):
+    """A buffer that breaks the precondition sets the fault word, in the
+    forward and in the backward, as the twin says; the walk table is still
+    left zero."""
+    ray_id, valid, t_mid, sig, rgb, r = broken_buffer(kind)
+    s = marching.RaySamples(ray_id=torch.from_numpy(ray_id).to(dev),
+                            t_mid=torch.from_numpy(t_mid).to(dev), dt=float(DT),
+                            valid=torch.from_numpy(valid).to(dev), num_samples=None)
+    sig, rgb = torch.from_numpy(sig).to(dev), torch.from_numpy(rgb).to(dev)
+    assert volrend._walk_order_faults_plain(s.ray_id, s.valid, r) == 1
+    cots = (torch.ones(r, 3, device=dev), None, None)
+    for run in (lambda: volrend._composite_cuda(rgb, sig, s, r, 1e-4, None, 0.0),
+                lambda: volrend._composite_backward_cuda(rgb, sig, s, r, 1e-4, None, 0.0,
+                                                         *cots)):
+        volrend.clear_walk_order_faults(dev)
+        run()
+        assert volrend.walk_order_faults(dev) == 1
+    volrend.clear_walk_order_faults(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not volrend._walk_tables[(sig.device, stream)].any()
+
+
+def test_composite_drops_its_walk_table_when_a_call_raises(dev, monkeypatch):
+    s, sig, rgb, r = _segment_samples("long_rays", dev)
+    volrend._composite_cuda(rgb, sig, s, r, 1e-4, None, 0.0)
+    key = (sig.device, torch.cuda.current_stream(dev).cuda_stream)
+    assert key in volrend._walk_tables
+
+    def fail(*args, **kw):
+        raise RuntimeError("cnc_volrend_forward failed")
+
+    monkeypatch.setattr(volrend.kernels, "call", fail)
+    with pytest.raises(RuntimeError):
+        volrend._composite_cuda(rgb, sig, s, r, 1e-4, None, 0.0)
+    assert key not in volrend._walk_tables
+    monkeypatch.undo()
+    got = volrend._composite_cuda(rgb, sig, s, r, 1e-4, None, 0.0)
+    want = volrend._composite_plain(rgb, sig, s, r, 1e-4, None, 0.0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+def test_composite_backward_with_absent_output_gradients(dev):
+    """Through autograd with only the rgb used: K5b gets null pointers for
+    d_opacity and d_depth."""
+    s, sig, rgb, r = _segment_samples("long_rays", dev)
+    rr, ss = rgb.clone().requires_grad_(), sig.clone().requires_grad_()
+    volrend.composite(rr, ss, s, r).rgb.square().sum().backward()
+    r2, s2 = rgb.clone().requires_grad_(), sig.clone().requires_grad_()
+    volrend._composite_plain(r2, s2, s, r, 1e-4, None, 0.0)[0].square().sum().backward()
+    for a, b in ((rr.grad, r2.grad), (ss.grad, s2.grad)):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
 
 
 @pytest.mark.parametrize("f,dtype", [(1, torch.int32), (4, torch.int64), (8, torch.int32)])
