@@ -48,22 +48,26 @@ Phases (any failure raises and the script exits non-zero):
      "blocks"), entropy=...)` with the default lmbda = 2e-3.  After 16 steps
      the rate kernels are held against their twins at that step's real
      shapes ([K8] and [pack], the packing of the masks, on the lambda = 0
-     run's trained occupancy grid; [K6] segment_gather's gather and its
+     run's trained occupancy grid, with each of a refresh's footprint
+     launches by its device ms and bound; [K6] segment_gather's gather and its
      backward's sums at the 3D context, [K6m] segment_mean at each pooling site (the 3D context, the 2D windows:
      within K6_REL_TOL, covered exact, two runs bit-equal, its backward), [K3]
-     at the 3D context compaction, [K7], and [K1v], [K2v] at each call site
+     at the 3D context compaction, [K7] the step's three frac planes (each
+     equal to the plain plane, one launch and one allocation a plane, the
+     backward against float64), and [K1v], [K2v] at each call site
      (the 3D mixed-level context, the 2D windows, the frac planes) with its
      launches per step, on the arguments one rate estimate gives them);
      those launches are taken out of the counts again.  `fit` then runs on to RATE_STEPS and
      the counts are read: every rate kernel must have launched (the step's
-     kernels in every step), bits_per_param must be finite and lower than at
-     step 16, and the test views' PSNR must exceed RATE_PSNR_MIN.  At step 16
+     kernels in every step, the frac plane's three times a step),
+     bits_per_param must be finite and lower than at step 16, and the test
+     views' PSNR must exceed RATE_PSNR_MIN.  At step 16
      and at the end, one whole rate estimate's gradients (the four tables, the
      context MLPs) through the kernels are held against the same estimate
      through the twins on the card in float64, beside the float32 twins' own
      distance from it (check_rate_gradient).  One more step runs under
      torch.profiler (chiprun_out/profile_rate.txt).  A three-step run with
-     `pn_frac_grad=True` drives the sign histogram's backward kernel, which
+     `pn_frac_grad=True` drives the frac plane's backward kernel, which
      the default configuration does not reach.  After each of these rate
      phases the word segment_mean sets when live ids decrease must be clear;
  10. [codec] the lambda = 2e-3 run's binarized tables through the codec, with
@@ -1060,16 +1064,16 @@ def check_footprint(torch, cops, entropy, binaries):
 
 def capture_rate_calls(torch, tr, rf, cops, enc):
     """The arguments one real rate step gives the rate kernels (the pooled
-    means, the level-probability gather, the sign histograms, the encodes and
+    means, the level-probability gather, the frac planes, the encodes and
     the compactions): the wrappers
     are swapped for recorders while one rate estimate runs on the trainer's
     current tables, cache and freshly drawn windows.  The tables are made
     with their gradient, as a step makes them, so a recorded encode's table
     requires one where the step's backward runs K2v on it."""
     from cnc_torch.ops import scatter_ops
-    calls = {"segment_mean": [], "segment_gather": [], "pn_hist": [], "encode": [],
+    calls = {"segment_mean": [], "segment_gather": [], "pn_frac_plane": [], "encode": [],
              "compact": []}
-    originals = (cops.segment_mean, cops.segment_gather, cops.pn_hist, enc._encode,
+    originals = (cops.segment_mean, cops.segment_gather, cops.pn_frac_plane, enc._encode,
                  scatter_ops.compact_mask_indices)
 
     def recorder(key, fn):
@@ -1080,7 +1084,7 @@ def capture_rate_calls(torch, tr, rf, cops, enc):
 
     cops.segment_mean = recorder("segment_mean", originals[0])
     cops.segment_gather = recorder("segment_gather", originals[1])
-    cops.pn_hist = recorder("pn_hist", originals[2])
+    cops.pn_frac_plane = recorder("pn_frac_plane", originals[2])
     enc._encode = recorder("encode", originals[3])
     scatter_ops.compact_mask_indices = recorder("compact", originals[4])
     try:
@@ -1089,7 +1093,7 @@ def capture_rate_calls(torch, tr, rf, cops, enc):
             starts = tr.entropy.draw_starts(tr.generator)
             tr.entropy.rate_estimate(tr.ent_params, tables, starts, tr._last_ent_cache)
     finally:
-        (cops.segment_mean, cops.segment_gather, cops.pn_hist, enc._encode,
+        (cops.segment_mean, cops.segment_gather, cops.pn_frac_plane, enc._encode,
          scatter_ops.compact_mask_indices) = originals
     return calls
 
@@ -1130,9 +1134,99 @@ def encode_args(torch, a):
     return a["points"].detach().contiguous(), a["table"].detach().contiguous(), levels, kw
 
 
+def check_frac_planes(torch, kernels, cops, calls, gen, dev):
+    """K7 on the three frac planes of one real rate step: each plane through
+    the kernel equal to the plain plane (torch.equal); one plane's launches
+    and allocations through the public wrapper; its backward (taken with
+    pn_frac_grad) against the twin run in float64."""
+    planes = [(args[0].detach().contiguous(),) + tuple(args[1:]) for args, _ in
+              calls["pn_frac_plane"]]
+    for i, args in enumerate(planes):
+        if not torch.equal(cops._pn_frac_plane_cuda(*args), cops._pn_frac_plane_plain(*args)):
+            raise AssertionError(f"[K7] plane {i}: the frac plane differs from the twin's")
+    args = planes[0]
+    table, fine_offset, eidx, bounds, n, pn_res, sample_cap = args
+    plane = lambda: cops.pn_frac_plane(*args)
+    torch.cuda.synchronize()
+    launched, key = dict(kernels.launches), "allocation.all.allocated"
+    before = torch.cuda.memory_stats()[key]
+    plane()
+    allocations = torch.cuda.memory_stats()[key] - before
+    launched = {k: v - launched[k] for k, v in kernels.launches.items() if v != launched[k]}
+    if launched != {"pn_frac_plane": 1} or allocations != 1:
+        raise AssertionError(f"[K7] a plane took launches {launched} and {allocations}"
+                             f" allocations, not one each")
+    # the rows the plane counts, for the bound and the library call
+    sel, row_valid, bnd = cops._pn_rows(eidx, bounds, n, sample_cap)
+    f, bins, rows = table.shape[1], bnd.shape[0] - 1, sel.shape[0]
+    n_valid = int(row_valid.sum())
+    n_entries = torch.unique(sel[row_valid]).numel()
+    # bytes: an entry word a counted row, a table row a distinct entry, the
+    # boundaries, the count and the plane written once; operations: a compare
+    # a counted value, a divide a bin's value
+    b, by = bound_ms(n_valid * 4 + n_entries * 4 * f + (bins + 1) * 4 + 4
+                     + pn_res * pn_res * 4 * f, (n_valid + bins) * f)
+    bin_of_row = (torch.searchsorted(bnd, torch.arange(rows, device=dev, dtype=torch.int32),
+                                     right=True) - 1).clamp(0, bins - 1).long()
+    ind = torch.where(row_valid[:, None], (table[fine_offset + sel.long()] > 0.9).float(), 0.0)
+    library = lambda: torch.zeros(bins, f, device=dev).index_add_(0, bin_of_row, ind)
+    pos = cops._pn_hist_plain(table, fine_offset, sel, row_valid, bnd)
+    if not torch.equal(library(), pos):
+        raise AssertionError("[K7] index_add_ of the indicator rows differs from the twin")
+    records = {"pn_frac_plane": dict(
+        max_abs_err=0.0, ms=time_ms(plane), device_ms=device_ms(plane),
+        plain_ms=time_ms(lambda: cops._pn_frac_plane_plain(*args)), bound_ms=b, bound_by=by,
+        library_ms=time_ms(library), launches_per_plane=1, allocations_per_plane=allocations,
+        planes_per_step=len(planes))}
+    # the backward through autograd against the twin's in float64: that
+    # differences reverse cumulative sums over all rows, which float32 rounds
+    # at 1e-3 of the result, so the float32 twin's own distance is printed
+    cot = torch.randn(pn_res * pn_res, f, generator=gen, device=dev)
+    leaf = table.clone().requires_grad_()
+    (got_dt,) = torch.autograd.grad(cops.pn_frac_plane(leaf, *args[1:]), leaf, cot)
+    (want_dt,) = torch.autograd.grad(cops._pn_frac_plane_plain(leaf, *args[1:]), leaf, cot)
+    leaf64 = table.double().requires_grad_()
+    (exact_dt,) = torch.autograd.grad(cops._pn_frac_plane_plain(leaf64, *args[1:]), leaf64,
+                                      cot.double())
+    exact_dt = exact_dt.float()
+    bwd_err, twin_err = rel_err(got_dt, exact_dt), rel_err(want_dt, exact_dt)
+    if not bwd_err <= K7B_REL_TOL:
+        raise AssertionError(f"[K7] backward rel err {bwd_err} > {K7B_REL_TOL}")
+    del leaf64
+    cnt = (bnd[1:] - bnd[:-1]).float()[:, None]
+    g_bins = (torch.randn(bins, f, generator=gen, device=dev) / (cnt + 1e-6)).contiguous()
+    flat = ((fine_offset + sel.long())[:, None] * f
+            + torch.arange(f, device=dev)[None, :]).reshape(-1)
+    vals = (g_bins[bin_of_row] * ind).reshape(-1)
+    bb, bby = bound_ms(rows * 5 + 2 * n_entries * 4 * f + (bins + 1) * 4 + bins * 4 * f,
+                       int(ind.sum()))
+    backward = lambda: cops._pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd,
+                                                   g_bins)
+    records["pn_hist_bwd"] = dict(
+        max_abs_err=float((got_dt - exact_dt).abs().max()), ms=time_ms(backward, iters=10),
+        device_ms=device_ms(backward),
+        plain_ms=time_ms(lambda: torch.autograd.grad(
+            cops._pn_frac_plane_plain(leaf, *args[1:]), leaf, cot), iters=5, warmup=1),
+        bound_ms=bb, bound_by=bby,
+        library_ms=time_ms(lambda: torch.zeros(table.numel(), device=dev).index_add_(
+            0, flat, vals), iters=10))
+    r = records["pn_frac_plane"]
+    log(f"[K7 pn_frac_plane] {len(planes)} planes in the step, each equal to the twin's;"
+        f" pn_res={pn_res} F={f} sample_cap={sample_cap} rows={rows} counted={n_valid}"
+        f" bins={bins} distinct_entries={n_entries}; one plane: {r['launches_per_plane']}"
+        f" launch, {allocations} allocation, ms={r['ms']:.4f} device_ms={r['device_ms']:.4f}"
+        f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (index_add_ of the"
+        f" indicator rows: the counts alone) bound_ms={b:.5f} ({by}); backward rel_err"
+        f" {bwd_err:.3g} against the twin in float64 (limit {K7B_REL_TOL}; the float32 twin"
+        f" against it {twin_err:.3g}), its kernel ms={records['pn_hist_bwd']['ms']:.4f}"
+        f" device_ms={records['pn_hist_bwd']['device_ms']:.4f}")
+    return records
+
+
 def check_rate_kernels(torch, tr, rf, cops, enc, gen):
-    """K6, K6m, K3, K7, K1v and K2v against their twins at the shapes of one
+    """K6, K6m, K3, K7 (check_frac_planes), K1v and K2v against their twins at the shapes of one
     real rate step of the trainer."""
+    from cnc_torch import kernels
     from cnc_torch.ops import scatter_ops
     calls = capture_rate_calls(torch, tr, rf, cops, enc)
     dev = tr.device
@@ -1194,70 +1288,8 @@ def check_rate_kernels(torch, tr, rf, cops, enc, gen):
     records["compact"] = check_compact_mask(torch, scatter_ops, mask.contiguous(), cap,
                                             "3D context")
 
-    # ---- K7: one plane's sign histogram
-    table, fine_offset, sel, row_valid, bnd = calls["pn_hist"][0][0]
-    table, sel = table.contiguous(), sel.to(torch.int32).contiguous()
-    bnd = bnd.to(torch.int32).contiguous()
-    got = cops._pn_hist_cuda(table, fine_offset, sel, row_valid, bnd)
-    want = cops._pn_hist_plain(table, fine_offset, sel, row_valid, bnd)
-    if not torch.equal(got, want):
-        raise AssertionError("[K7] the histogram differs from the twin")
-    f, bins, rows = table.shape[1], bnd.shape[0] - 1, sel.shape[0]
-    n_valid = int(row_valid.sum())
-    n_entries = torch.unique(sel[row_valid]).numel()
-    bin_of_row = (torch.searchsorted(bnd, torch.arange(rows, device=dev, dtype=torch.int32),
-                                     right=True) - 1).clamp(0, bins - 1).long()
-    ind = torch.where(row_valid[:, None], (table[fine_offset + sel.long()] > 0.9).float(), 0.0)
-    library = lambda: torch.zeros(bins, f, device=dev).index_add_(0, bin_of_row, ind)
-    if not torch.equal(library(), want):
-        raise AssertionError("[K7] index_add_ of the indicator rows differs from the twin")
-    b, by = bound_ms(rows * 5 + n_entries * 4 * f + (bins + 1) * 4 + bins * 4 * f, n_valid * f)
-    # the backward kernel (taken with pn_frac_grad) against the twin's
-    # autograd.  That differences reverse cumulative sums over all rows, which
-    # float32 rounds at 1e-3 of the result, so the kernel is held to the twin
-    # run in float64 and the float32 twin's own distance is printed
-    cot = torch.randn(bins, f, generator=gen, device=dev)
-    leaf = table.clone().requires_grad_()
-    (want_dt,) = torch.autograd.grad(cops._pn_hist_plain(leaf, fine_offset, sel, row_valid, bnd),
-                                     leaf, cot)
-    leaf64 = table.double().requires_grad_()
-    (exact_dt,) = torch.autograd.grad(
-        cops._pn_hist_plain(leaf64, fine_offset, sel, row_valid, bnd), leaf64, cot.double())
-    exact_dt = exact_dt.float()
-    got_dt = cops._pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd, cot)
-    bwd_err, twin_err = rel_err(got_dt, exact_dt), rel_err(want_dt, exact_dt)
-    if not bwd_err <= K7B_REL_TOL:
-        raise AssertionError(f"[K7] backward rel err {bwd_err} > {K7B_REL_TOL}")
-    del leaf64
-    records["pn_hist"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: cops._pn_hist_cuda(table, fine_offset, sel, row_valid, bnd)),
-        plain_ms=time_ms(lambda: cops._pn_hist_plain(table, fine_offset, sel, row_valid, bnd)),
-        bound_ms=b, bound_by=by, library_ms=time_ms(library))
-    grad_rows = ind.reshape(-1)
-    flat = ((fine_offset + sel.long())[:, None] * f
-            + torch.arange(f, device=dev)[None, :]).reshape(-1)
-    vals = (cot[bin_of_row] * ind).reshape(-1)
-    bb, bby = bound_ms(rows * 5 + 2 * n_entries * 4 * f + (bins + 1) * 4 + bins * 4 * f,
-                       int(grad_rows.sum()))
-    records["pn_hist_bwd"] = dict(
-        max_abs_err=float((got_dt - exact_dt).abs().max()),
-        ms=time_ms(lambda: cops._pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd,
-                                                       cot), iters=10),
-        plain_ms=time_ms(lambda: torch.autograd.grad(
-            cops._pn_hist_plain(leaf, fine_offset, sel, row_valid, bnd), leaf, cot), iters=5,
-            warmup=1),
-        bound_ms=bb, bound_by=bby,
-        library_ms=time_ms(lambda: torch.zeros(table.numel(), device=dev).index_add_(
-            0, flat, vals), iters=10))
-    r = records["pn_hist"]
-    log(f"[K7 pn_hist] rows={rows} valid={n_valid} bins={bins} distinct_entries={n_entries} F={f}"
-        f" ({len(calls['pn_hist'])} calls in the step) exact ms={r['ms']:.4f}"
-        f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms={b:.4f};"
-        f" backward rel_err {bwd_err:.3g} against the twin in float64 (limit {K7B_REL_TOL};"
-        f" the float32 twin against it {twin_err:.3g})"
-        f" ms={records['pn_hist_bwd']['ms']:.4f}")
-    del ind, vals, flat, bin_of_row, leaf
+    # ---- K7: the step's three frac planes
+    records.update(check_frac_planes(torch, kernels, cops, calls, gen, dev))
 
     # ---- K1v / K2v at each call site of the step (see encode_sites); the
     # largest call of each site is checked and timed
@@ -1389,7 +1421,7 @@ def check_rate_gradient(torch, tr, rf, cops, enc, ent_ops, label):
     twins = ((cops, "segment_mean", lambda x, den, seg, valid, num, min_den, weighted=False:
               cops._segment_mean_plain(x, den, seg, valid, num, min_den, weighted)),
              (cops, "segment_gather", cops._segment_gather_plain),
-             (cops, "pn_hist", cops._pn_hist_plain),
+             (cops, "pn_frac_plane", cops._pn_frac_plane_plain),
              (enc, "_encode", lambda pts, table, res, offs, mask=None, moffs=None, bits=None,
               ids=None, n_calc=None:
               enc._encode_plain(pts.detach(), table, res, offs, mask,
@@ -2026,15 +2058,23 @@ def main() -> int:
     refresh_ms = time_ms(lambda: entropy.refresh_cache(occ_grid), iters=3, warmup=1)
     # each of the refresh's footprint launches again, by its device work alone
     fp_ms = [device_ms(lambda a=a, k=k: footprint(*a, **k), iters=3) for a, k in fp_calls]
-    fp_bound = sum(footprint_bound(cops, *a[:3]) for a, _ in fp_calls)
+    fp_bounds = [footprint_bound(cops, *a[:3]) for a, _ in fp_calls]
+    fp_bound = sum(fp_bounds)
+    per_launch = [dict(d=a[0].dim(), r=a[1], overlap=bool(a[2]), device_ms=t, bound_ms=b)
+                  for (a, _), t, b in zip(fp_calls, fp_ms, fp_bounds)]
     records["footprint"].update(launches_per_refresh=n_fp, refresh_device_ms=sum(fp_ms),
-                                refresh_bound_ms=fp_bound, refresh_ms=refresh_ms)
+                                refresh_bound_ms=fp_bound, refresh_ms=refresh_ms,
+                                refresh_launches=per_launch)
     log(f"[K8] refresh_cache on the trained occupancy grid ({int(occ_grid.sum())} cells):"
         f" {refresh_ms:.2f} ms for {n_fp} footprint launches, {n_pack} mask packings and the"
         f" pn coord lists (a compaction and three stable sorts of"
         f" {rate_cfg.entropy.pn_coords_cap} rows); the footprint launches' device ms"
         f" {sum(fp_ms):.4f} in all (their bounds {fp_bound:.4f}), the largest"
-        f" {max(fp_ms):.4f}")
+        f" {max(fp_ms):.4f}; each launch (D, r, overlap: device ms / bound ms): "
+        + "; ".join(f"{p['d']}D r={p['r']}{' ovl' if p['overlap'] else ''}:"
+                    f" {p['device_ms']:.4f} / {p['bound_ms']:.4f}" for p in per_launch))
+    if n_fp > 24:
+        raise AssertionError(f"[K8] a refresh made {n_fp} footprint launches, more than 24")
     records["pack_mask_bits"] = dict(check_pack(torch, enc, occ_cache),
                                      launches_per_refresh=n_pack)
     del occ_cache
@@ -2047,7 +2087,7 @@ def main() -> int:
     rate_launches = dict(kernels.launches)
     n_rate = RATE_STEPS - RATE_WARM_STEPS
     rate_kernels = ("vertex_tables", "footprint", "pack_mask_bits", "segment_mean",
-                    "segment_mean_bwd", "segment_pool", "segment_pool_bwd", "pn_hist",
+                    "segment_mean_bwd", "segment_pool", "segment_pool_bwd", "pn_frac_plane",
                     "grid_encode_v", "grid_encode_v_bwd", "compact", "grid_encode",
                     "grid_encode_bwd", "march", "volrend", "volrend_bwd")
     if trr.step != RATE_STEPS or len(rate_hist) != RATE_STEPS:
@@ -2061,6 +2101,10 @@ def main() -> int:
     once = ("vertex_tables", "footprint", "pack_mask_bits")
     if not all(per_step[k] >= 1 for k in rate_kernels if k not in once):
         raise AssertionError(f"[rate] a kernel was not launched every step: {per_step}")
+    # one launch a frac plane, three planes a step
+    if per_step["pn_frac_plane"] != 3:
+        raise AssertionError(f"[rate] {per_step['pn_frac_plane']} frac-plane launches per step,"
+                             f" not 3")
     bpp16 = rate_hist[RATE_WARM_STEPS][2]
     bpp_end = statistics.mean(h[2] for h in rate_hist[-10:])
     if not (all(math.isfinite(h[1]) and math.isfinite(h[2]) for h in rate_hist)
@@ -2105,7 +2149,7 @@ def main() -> int:
     one_rate_step()
     profile_view(torch, one_rate_step, "profile_rate")
 
-    # the sign histogram's backward kernel: three steps with pn_frac_grad on
+    # the frac plane's backward kernel: three steps with pn_frac_grad on
     entropy_pn = copy.copy(entropy)
     entropy_pn.cfg = dataclasses.replace(entropy.cfg, pn_frac_grad=True)
     tr_pn = Trainer(dataclasses.replace(rate_cfg, entropy=entropy_pn.cfg), train_set,
@@ -2117,7 +2161,8 @@ def main() -> int:
     torch.cuda.synchronize()
     pn_launches = dict(kernels.launches)
     log(f"[rate, pn_frac_grad] 3 steps, bits_per_param {pn_bits}; launches"
-        f" pn_hist {pn_launches['pn_hist']} pn_hist_bwd {pn_launches['pn_hist_bwd']}")
+        f" pn_frac_plane {pn_launches['pn_frac_plane']} pn_hist_bwd"
+        f" {pn_launches['pn_hist_bwd']}")
     if not (pn_launches["pn_hist_bwd"] > 0 and all(math.isfinite(b) for b in pn_bits)):
         raise AssertionError(f"[rate, pn_frac_grad] the backward kernel did not launch:"
                              f" {pn_launches}")
@@ -2154,7 +2199,8 @@ def main() -> int:
         # one call site's pair of cnc_tpu's _segment_tail_values, clamp and divide
         "segment_mean": ("segment_pool.cu", "cnc_tpu/models/context_models.py:1346", "rate"),
         "segment_mean_bwd": ("segment_pool.cu", "cnc_tpu/models/context_models.py:1346", "rate"),
-        "pn_hist": ("pn_hist.cu", "cnc_tpu/models/context_models.py:783", "rate"),
+        # the whole plane: sampling, histogram, divide, border and layout
+        "pn_frac_plane": ("pn_hist.cu", "cnc_tpu/models/context_models.py:756", "rate"),
         "pn_hist_bwd": ("pn_hist.cu", "cnc_tpu/models/context_models.py:62", "rate_pn_grad"),
         "footprint": ("footprint.cu", "cnc_tpu/models/context_models.py:1415", "rate"),
         "vertex_tables": ("vertex_tables.cu", "cnc_tpu/models/context_models.py:269", "rate"),
@@ -2181,6 +2227,7 @@ def main() -> int:
                         launches_per_refresh=r.get("launches_per_refresh"),
                         refresh_device_ms=r.get("refresh_device_ms"),
                         refresh_bound_ms=r.get("refresh_bound_ms"),
+                        refresh_launches=r.get("refresh_launches"),
                         rate_launches_per_step=rate_per_step.get(name)))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

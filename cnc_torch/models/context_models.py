@@ -621,44 +621,14 @@ class ContextModels:
         """Positive-sign fraction plane [pn_res**2, F] (x-fastest flat).
 
         get_pn_embed_frac (utils_bpp_acc.py:515-530): histogram the signs of
-        the finest-level entries at the cached coords, per projected bin
-        (K7); frac = pos/(pos+neg+1e-6); zero border ring.  With
-        `sample_cap`, a stride-sampled subset estimates the fraction
-        (training speed knob; the codec always passes None).
+        the finest-level entries at the cached coords, per projected bin;
+        frac = pos/(pos+neg+1e-6); zero border ring (K7, one launch on the
+        card: `ops/context_ops.pn_frac_plane`).  With `sample_cap`, a
+        stride-sampled subset estimates the fraction (training speed knob;
+        the codec always passes None).
         """
-        scale = self.pn_res - 2
-        f = self.cfg.n_features
-        eidx = pn_ax["entry_idx"]
-        bounds = pn_ax["bounds"]
-        n = pn_ax["n"]
-        cap = eidx.shape[0]
-        dev = eidx.device
-
-        if sample_cap is not None and sample_cap < cap:
-            m = torch.clamp(n, max=cap)
-            take = torch.clamp(m, max=sample_cap)
-            # stride sample j -> floor(j*m/take) in float32 (as cnc_tpu: int
-            # products would overflow int32); the bin boundary map is derived
-            # from the same j->src formula via searchsorted, so sampling
-            # stays self-consistent
-            stride = m.to(torch.float32) / torch.clamp(take, min=1).to(torch.float32)
-            j = torch.arange(sample_cap, dtype=torch.int32, device=dev)
-            src = torch.floor(j.to(torch.float32) * stride).to(torch.int32)
-            src = torch.minimum(src, torch.clamp(m - 1, min=0))
-            bmap = torch.searchsorted(src, bounds).to(torch.int32)
-            bmap = torch.minimum(bmap, take)
-            sel = eidx[torch.clamp(src, max=cap - 1).long()]
-            pos = cops.pn_hist(table3d_q, self.fine_offset, sel, j < take, bmap)
-            cnt = (bmap[1:] - bmap[:-1]).to(torch.float32)[:, None]
-        else:
-            row_valid = torch.arange(cap, device=dev) < torch.clamp(n, max=cap)
-            pos = cops.pn_hist(table3d_q, self.fine_offset, eidx, row_valid, bounds)
-            cnt = (bounds[1:] - bounds[:-1]).to(torch.float32)[:, None]
-        frac = pos / (cnt + 1e-6)
-        plane = nn.functional.pad(frac.reshape(scale, scale, f), (0, 0, 1, 1, 1, 1))
-        # x-fastest flat layout to match dense grid indexing (see
-        # ops/encoding.grid_encode_given_table)
-        return plane.transpose(0, 1).reshape(-1, f)
+        return cops.pn_frac_plane(table3d_q, self.fine_offset, pn_ax["entry_idx"],
+                                  pn_ax["bounds"], pn_ax["n"], self.pn_res, sample_cap)
 
     # ---------------------------------------------------------- entry windows
     def draw_starts(self, generator: torch.Generator) -> Dict:

@@ -1,5 +1,5 @@
 """The rate estimate's kernels: context pooling (K6m, one call site's pooled
-mean in one launch, and K6, segment_gather's backward), the sign histogram (K7),
+mean in one launch, and K6, segment_gather's backward), the frac plane (K7),
 the footprint grids (K8) and the vertex->entry tables (K10).
 
 Each function here replaces one XLA composition of
@@ -17,6 +17,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.nn import functional as nn_functional
 
 from .. import kernels
 from . import hash_ops, scatter_ops
@@ -298,17 +299,6 @@ def _check_pn_args(name, table, sel, row_valid, bnd):
     return f
 
 
-def _pn_hist_cuda(table, fine_offset, sel, row_valid, bnd):
-    f = _check_pn_args("pn_hist", table, sel, row_valid, bnd)
-    n_bins = bnd.shape[0] - 1
-    pos = torch.empty(n_bins, f, dtype=torch.float32, device=table.device)
-    kernels.call("cnc_pn_hist", kernels.ptr(table), fine_offset, table.shape[0], kernels.ptr(sel),
-                 kernels.ptr(row_valid), kernels.ptr(bnd), kernels.ptr(pos), n_bins, sel.shape[0],
-                 f)
-    kernels.launches["pn_hist"] += 1
-    return pos
-
-
 def _pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd, g):
     f = _check_pn_args("pn_hist_bwd", table, sel, row_valid, bnd)
     kernels.require_cuda("pn_hist_bwd", g)
@@ -320,40 +310,113 @@ def _pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd, g):
     return d_table
 
 
-class _PnHistCuda(torch.autograd.Function):
-    """K7 forward; the backward kernel is the indicator's straight-through
-    rule scattered into the table."""
+def _pn_rows(entry_idx, bounds, n, sample_cap):
+    """The rows a frac plane counts, as cnc_tpu's pn_frac_plane forms them:
+    (sel [rows] entry indices, row_valid [rows], bnd [bins + 1] the bins'
+    row boundaries).  With `sample_cap` below the list's capacity, row j is
+    the stride sample src(j) = floor(j * m / take) of the m = min(n, cap)
+    listed rows (in float32, as cnc_tpu: int products would overflow int32),
+    and the boundaries map through the same formula by searchsorted, so the
+    sampling stays self-consistent."""
+    cap = entry_idx.shape[0]
+    dev = entry_idx.device
+    if sample_cap is not None and sample_cap < cap:
+        m = torch.clamp(n, max=cap)
+        take = torch.clamp(m, max=sample_cap)
+        stride = m.to(torch.float32) / torch.clamp(take, min=1).to(torch.float32)
+        j = torch.arange(sample_cap, dtype=torch.int32, device=dev)
+        src = torch.floor(j.to(torch.float32) * stride).to(torch.int32)
+        src = torch.minimum(src, torch.clamp(m - 1, min=0))
+        bmap = torch.minimum(torch.searchsorted(src, bounds).to(torch.int32), take)
+        return entry_idx[torch.clamp(src, max=cap - 1).long()], j < take, bmap
+    return entry_idx, torch.arange(cap, device=dev) < torch.clamp(n, max=cap), bounds
+
+
+def _pn_frac_plane_plain(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap=None):
+    sel, row_valid, bnd = _pn_rows(entry_idx, bounds, n, sample_cap)
+    pos = _pn_hist_plain(table, fine_offset, sel, row_valid, bnd)
+    cnt = (bnd[1:] - bnd[:-1]).to(torch.float32)[:, None]
+    scale, f = pn_res - 2, table.shape[1]
+    plane = nn_functional.pad((pos / (cnt + 1e-6)).reshape(scale, scale, f), (0, 0, 1, 1, 1, 1))
+    # x-fastest flat layout to match dense grid indexing (see
+    # ops/encoding.grid_encode_given_table)
+    return plane.transpose(0, 1).reshape(-1, f)
+
+
+def _check_plane_args(table, entry_idx, bounds, n, pn_res):
+    kernels.require_cuda("pn_frac_plane", table, entry_idx, bounds, n)
+    if (table.dtype != torch.float32 or entry_idx.dtype != torch.int32
+            or bounds.dtype != torch.int32 or n.dtype != torch.int32 or n.numel() != 1):
+        raise ValueError("pn_frac_plane: the kernel takes a float32 table, int32 entry_idx and "
+                         "bounds and a one-element int32 count")
+    f = table.shape[1]
+    if f not in (2, 4) or table.data_ptr() % (4 * f):
+        raise ValueError(f"pn_frac_plane: the kernel takes {4 * f}-byte aligned rows of 2 or 4 "
+                         "floats")
+    if pn_res < 3 or entry_idx.dim() != 1 or bounds.shape != ((pn_res - 2) ** 2 + 1,):
+        raise ValueError("pn_frac_plane: entry_idx must be [cap], bounds [(pn_res - 2)**2 + 1]")
+    return f
+
+
+def _pn_frac_plane_cuda(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap=None):
+    """K7: the whole plane in one launch, one allocation."""
+    f = _check_plane_args(table, entry_idx, bounds, n, pn_res)
+    cap = entry_idx.shape[0]
+    sampled = sample_cap is not None and sample_cap < cap
+    if sampled and sample_cap < 1:
+        raise ValueError("pn_frac_plane: sample_cap must be positive")
+    plane = torch.empty(pn_res * pn_res, f, dtype=torch.float32, device=table.device)
+    kernels.call("cnc_pn_frac_plane", kernels.ptr(table), fine_offset, table.shape[0],
+                 kernels.ptr(entry_idx), kernels.ptr(bounds), kernels.ptr(n), cap,
+                 int(sample_cap) if sampled else 0, pn_res, f, kernels.ptr(plane))
+    kernels.launches["pn_frac_plane"] += 1
+    return plane
+
+
+class _PnFracPlaneCuda(torch.autograd.Function):
+    """K7 forward; the backward (taken only with pn_frac_grad) forms the rows
+    and boundaries by the plain index math and scatters the indicator's
+    straight-through gradient with the backward kernel."""
 
     @staticmethod
-    def forward(ctx, table, fine_offset, sel, row_valid, bnd):
-        ctx.save_for_backward(table, sel, row_valid, bnd)
-        ctx.fine_offset = fine_offset
-        return _pn_hist_cuda(table, fine_offset, sel, row_valid, bnd)
+    def forward(ctx, table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap):
+        ctx.save_for_backward(table, entry_idx, bounds, n)
+        ctx.args = (fine_offset, pn_res, sample_cap)
+        return _pn_frac_plane_cuda(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap)
 
     @staticmethod
     def backward(ctx, g):
-        table, sel, row_valid, bnd = ctx.saved_tensors
-        return (_pn_hist_backward_cuda(table, ctx.fine_offset, sel, row_valid, bnd,
-                                       g.contiguous()), None, None, None, None)
+        table, entry_idx, bounds, n = ctx.saved_tensors
+        fine_offset, pn_res, sample_cap = ctx.args
+        sel, row_valid, bnd = _pn_rows(entry_idx, bounds, n, sample_cap)
+        f = table.shape[1]
+        cnt = (bnd[1:] - bnd[:-1]).to(torch.float32)[:, None]
+        g_bins = g.reshape(pn_res, pn_res, f)[1:-1, 1:-1].transpose(0, 1).reshape(-1, f)
+        d_table = _pn_hist_backward_cuda(table, fine_offset, sel.contiguous(), row_valid, bnd,
+                                         (g_bins / (cnt + 1e-6)).contiguous())
+        return d_table, None, None, None, None, None, None
 
 
-def pn_hist(table: torch.Tensor, fine_offset: int, sel: torch.Tensor, row_valid: torch.Tensor,
-            bnd: torch.Tensor) -> torch.Tensor:
-    """Per-bin counts of positive entries: pos[b, f] is the number of rows r
-    in [bnd[b], bnd[b+1]) with row_valid[r] and
-    table[fine_offset + sel[r], f] > 0.9.
+def pn_frac_plane(table: torch.Tensor, fine_offset: int, entry_idx: torch.Tensor,
+                  bounds: torch.Tensor, n: torch.Tensor, pn_res: int,
+                  sample_cap: Optional[int] = None) -> torch.Tensor:
+    """The positive-sign fraction plane of the finest level at the cached
+    coords: [pn_res**2, F] float32, x fastest, with a zero border ring.
 
-    table [T, F] float32; sel [rows] entry indices of the finest level;
-    row_valid [rows] bool; bnd [bins + 1] ascending row positions.  Returns
-    [bins, F] float32.  `table` gets the straight-through gradient of the
+    table [T, F] float32 (the 3D table; the finest level starts at
+    `fine_offset`); entry_idx [cap] int32 bin-sorted finest-level entries,
+    bounds [(pn_res - 2)**2 + 1] their bins' row boundaries, n the 0-dim
+    int32 count of listed rows (the refresh's pn coord list of one axis).
+    pos[b] counts the valid rows of bin b whose entry is > 0.9 (a stride
+    sample of at most `sample_cap` rows when that is below cap), frac =
+    pos / (cnt + 1e-6).  `table` gets the straight-through gradient of the
     indicator.  CPU tensors take the plain twin, CUDA tensors the kernels of
-    csrc/pn_hist.cu.
+    csrc/pn_hist.cu (one launch; the backward kernel with a gradient).
     """
     if table.is_cuda:
-        return _PnHistCuda.apply(table.contiguous(), int(fine_offset),
-                                 sel.to(torch.int32).contiguous(), row_valid.contiguous(),
-                                 bnd.to(torch.int32).contiguous())
-    return _pn_hist_plain(table, fine_offset, sel, row_valid, bnd)
+        return _PnFracPlaneCuda.apply(table.contiguous(), int(fine_offset), entry_idx, bounds, n,
+                                      int(pn_res), sample_cap)
+    return _pn_frac_plane_plain(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap)
 
 
 # ------------------------------------------------------------------ K8
@@ -426,12 +489,23 @@ def _footprint_plain(occ: torch.Tensor, resolution: int, with_overlap: bool):
 
 @functools.lru_cache(maxsize=None)
 def _bounds_on_device(resolution: int, rb: int, device: str):
+    """The kernel's per-coordinate table, [R, 8] int32: lo, hi, a_fr, b_fr
+    (f32 bit patterns), then for a corner's last coordinate lo, hi and the
+    f32 weights of cells lo and hi (the cells between weigh 1); and the
+    largest span hi - lo + 1.  The kernel weighs cells lo and hi by the
+    continuous ends, so it needs them to fall there."""
     bd = footprint_bounds(resolution, rb)
     if not (np.all(bd.lo >= 0) and np.all(bd.lo <= bd.hi) and np.all(bd.hi < rb)):
         raise ValueError("footprint: bounds fall outside the occupancy grid")
-    ints = torch.from_numpy(np.stack([bd.lo, bd.hi, bd.a_i, bd.b_i])).to(device)
-    floats = torch.from_numpy(np.stack([bd.a_fr, bd.b_fr])).to(device)
-    return ints.contiguous(), floats.contiguous()
+    if not (np.array_equal(bd.a_i, bd.lo) and np.array_equal(bd.b_i, bd.hi)):
+        raise ValueError("footprint: the box's continuous ends fall outside cells lo and hi")
+    w_lo = np.where(bd.lo < bd.hi, np.float32(1.0), bd.b_fr) - bd.a_fr   # float32, as the kernel
+    w_hi = np.where(bd.hi > bd.lo, bd.b_fr, np.float32(0.0))
+    table = np.stack([bd.lo, bd.hi, bd.a_fr.view(np.int32), bd.b_fr.view(np.int32), bd.lo,
+                      bd.hi, w_lo.astype(np.float32).view(np.int32), w_hi.view(np.int32)],
+                     axis=1)
+    return (torch.from_numpy(np.ascontiguousarray(table)).to(device),
+            int((bd.hi - bd.lo).max()) + 1)
 
 
 def _footprint_cuda(occ, resolution, with_overlap, mask_out=None):
@@ -446,10 +520,13 @@ def _footprint_cuda(occ, resolution, with_overlap, mask_out=None):
                          "bool output of resolution**D")
     if with_overlap and d != 3:
         raise ValueError("footprint: the overlap volume is computed in 3D only")
-    ints, floats = _bounds_on_device(resolution, rb, str(occ.device))
+    if rb % 16 or not 16 <= rb <= 512 or occ.data_ptr() % 16:
+        raise ValueError("footprint: the kernel takes a 16-byte aligned occupancy grid of 16 to "
+                         "512 cells a side, a multiple of 16")
+    table, max_span = _bounds_on_device(resolution, rb, str(occ.device))
     ovl = torch.empty(n, dtype=torch.float32, device=occ.device) if with_overlap else None
-    kernels.call("cnc_footprint", kernels.ptr(occ), rb, d, resolution, kernels.ptr(ints),
-                 kernels.ptr(floats), kernels.ptr(mask_out), kernels.ptr(ovl))
+    kernels.call("cnc_footprint", kernels.ptr(occ), rb, d, resolution, kernels.ptr(table),
+                 max_span, kernels.ptr(mask_out), kernels.ptr(ovl))
     kernels.launches["footprint"] += 1
     return mask_out, ovl
 

@@ -1,0 +1,97 @@
+"""Frac-plane inputs at the edges of the kernel's index math, shared by the CPU
+tests (tests/test_torch_pn_frac.py, against cnc_tpu) and the GPU tests
+(tests/test_torch_kernels_gpu.py, the kernel against its twin).
+
+Each case is one axis's pn coord list as the cache refresh leaves it: `cap`
+rows sorted by bin, the first min(n, cap) listed (their bins ascending, each
+row's finest-level entry), the rest parked past the last bin with entry 0;
+`bounds` the bins' row boundaries (searchsorted of the sorted bins), a sign
+table whose finest level holds +-1 and values at the 0.9 threshold, and the
+stride-sampling cap.  numpy only, seeded.
+"""
+
+import numpy as np
+
+# name: (pn_res, cap, n, sample_cap, bins occupied: "all" or "middle")
+CASES = {
+    "n0": (18, 4096, 0, 1024, "all"),
+    "n1": (18, 4096, 1, 1024, "all"),
+    "n_below_sample_cap": (23, 4096, 300, 1024, "all"),
+    "n_at_cap": (23, 4096, 4096, 1024, "all"),
+    "overflowed": (18, 4096, 4096 + 777, 1024, "all"),
+    "sample_cap_at_cap": (18, 4096, 3000, 4096, "all"),
+    "sample_cap_above_cap": (18, 4096, 3000, 8192, "all"),
+    "take_not_dividing": (23, 4096, 1000, 300, "all"),
+    "empty_end_bins": (66, 8192, 6000, 2000, "middle"),
+    "unsampled": (66, 8192, 6000, None, "all"),
+    # the earlier histogram test's cases: many rows a bin, most bins empty,
+    # and a listed count below the list's capacity
+    "dense": (66, 50_000, 50_000, None, "all"),
+    "empty_bins": (66, 50_000, 50_000, None, "few"),
+    "masked_tail": (66, 50_000, 25_000, 20_000, "all"),
+}
+
+
+def pn_case(name: str, f: int, seed: int = 0) -> dict:
+    """One case's inputs as numpy arrays (int32 lists, float32 table) and
+    ints: table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap."""
+    pn_res, cap, n, sample_cap, occupied = CASES[name]
+    rng = np.random.default_rng([seed, f, sum(map(ord, name))])
+    scale = pn_res - 2
+    n_bins = scale * scale
+    listed = min(n, cap)
+    if occupied == "middle":         # the first and last 10% of the bins stay empty
+        lo, hi = n_bins // 10, n_bins - n_bins // 10
+    else:
+        lo, hi = 0, n_bins
+    if occupied == "few":            # 200 distinct bins: most hold no row
+        choice = np.sort(rng.choice(np.arange(lo, hi), size=200, replace=False))
+        bins = np.sort(rng.choice(choice, size=listed))
+    else:
+        bins = np.sort(rng.integers(lo, hi, size=listed))
+    bins = np.concatenate([bins, np.full(cap - listed, n_bins)])
+    bounds = np.searchsorted(bins, np.arange(n_bins + 1), side="left").astype(np.int32)
+    fine_offset, fine_size = 37, 1 << 12
+    entry_idx = np.zeros(cap, np.int32)
+    entry_idx[:listed] = rng.integers(0, fine_size, size=listed)
+    table = np.where(rng.random((fine_offset + fine_size, f)) > 0.4, 1.0, -1.0).astype(np.float32)
+    edge = rng.random(table.shape) < 0.05          # at and just above the threshold
+    table[edge] = np.where(rng.random(int(edge.sum())) < 0.5, np.float32(0.9),
+                           np.nextafter(np.float32(0.9), np.float32(1.0)))
+    return dict(table=table, fine_offset=fine_offset, entry_idx=entry_idx, bounds=bounds, n=n,
+                pn_res=pn_res, sample_cap=sample_cap)
+
+
+def sampled_map(bounds: np.ndarray, n: int, cap: int, sample_cap: int) -> np.ndarray:
+    """The kernel's boundary map in the sampled mode (csrc/pn_hist.cu
+    `sample_map`), step for step in float32: m = min(n, cap), take =
+    min(m, sample_cap), stride = f32(m) / f32(max(take, 1)), src(j) =
+    min(floor(f32(j) * stride), max(m - 1, 0)); for each boundary v, the
+    first j in [0, take] with j == take or src(j) >= v: 0 for v <= 0, take
+    for v past the last src, else ceil(f32(v) * f32(1 / stride)) clamped to [0, take]
+    and moved down while src(j - 1) >= v, then up while src(j) < v.  src is
+    never materialised."""
+    m = min(n, cap)
+    take = min(m, sample_cap)
+    stride = np.float32(m) / np.float32(max(take, 1))
+    src_max = max(m - 1, 0)
+
+    def src(j):
+        return np.minimum(np.floor(j.astype(np.float32) * stride).astype(np.int64), src_max)
+
+    v = np.asarray(bounds, np.int64)
+    inner = (v > 0) & (v <= src_max)          # the kernel estimates only these
+    with np.errstate(divide="ignore", invalid="ignore"):   # stride is 0 when m is
+        est = np.ceil(v.astype(np.float32) * (np.float32(1.0) / stride))
+    j = np.clip(np.where(inner, est, 0).astype(np.int64), 0, take)
+    while True:
+        down = inner & (j > 0) & (src(np.maximum(j - 1, 0)) >= v)
+        if not down.any():
+            break
+        j = np.where(down, j - 1, j)
+    while True:
+        up = inner & (j < take) & (src(j) < v)
+        if not up.any():
+            break
+        j = np.where(up, j + 1, j)
+    return np.where(v <= 0, 0, np.where(v > src_max, take, j))

@@ -184,6 +184,30 @@ def test_footprint_twin_matches_cnc_tpu(resolution, d):
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jm).reshape(-1))
 
 
+@pytest.mark.parametrize("d,resolution", [(3, 18), (3, 24), (3, 33), (3, 44), (2, 130)])
+def test_footprint_twin_matches_cnc_tpu_at_rb_128(d, resolution):
+    """The flagship's occupancy resolution (Rb = 128) and its smallest
+    lattices: the 3D levels 18-44 with the overlap, the first plane level.
+    The mask exactly; the overlap within 1e-5 of the level's largest value:
+    both packages difference float32 cumulative sums over 128 cells, each
+    summing in its own order (XLA's scan is not sequential), which at this
+    size moves single values by up to about 2e-6 of the largest."""
+    b = asymmetric_occupancy(seed=resolution, rb=128)
+    occ = b if d == 3 else b.any(axis=1)
+    mask, ovl = cops.footprint_grids(torch.from_numpy(occ), resolution, with_overlap=d == 3)
+    if d == 3:
+        jm, jo = jcm._dense_mask_overlap_grids(jnp.asarray(occ), resolution, 128)
+        jo = np.asarray(jo).reshape(-1)
+        assert jo.max() > 1.0
+        np.testing.assert_allclose(ovl.numpy(), jo, rtol=0, atol=1e-5 * jo.max())
+    else:
+        jm = jcm._dense_mask_grid(jnp.asarray(occ), resolution, 128)
+        assert ovl is None
+    jm = np.asarray(jm).reshape(-1)
+    assert 0 < jm.sum() < jm.size
+    np.testing.assert_array_equal(mask.numpy(), jm)
+
+
 def test_refresh_refuses_another_grid_size(pair):
     _, tctx = pair
     with pytest.raises(ValueError, match="Rb"):

@@ -16,9 +16,14 @@ without samples, an all-padding buffer, a carried transmittance; the
 scatter-add with every row dropped; a few training steps on the card.  For
 the rate estimate's kernels: the pooling (segment_gather's backward) with
 all rows invalid, one segment, a segment without a valid row and the 3D
-context's dozen runs over 2^21 rows; the sign histogram with
-empty bins and more rows than the cap; the footprint grids on an empty and a
-full occupancy in 2D and 3D; the masked encode with every corner masked and
+context's dozen runs over 2^21 rows; the frac plane in one launch and one
+allocation, bit-equal to its twin at the edges of tests/pn_frac_cases.py
+(nothing listed, one row, fewer rows than the sample, full and overflowed
+lists, sample caps at and above the list's, empty bins at both ends, many
+rows a bin, most bins empty), its backward against the twin in float64;
+the footprint grids on an empty and a full occupancy in 2D and 3D, and at
+Rb = 128 with rows of 18 to 2,050 corners, boxes several threads share and
+mask_out at byte offsets 1-3; the masked encode with every corner masked and
 the mixed-level encode with its first level at both ends; the encode's edge
 cases (whole warps on one row, lanes alternating between two rows, a level
 change within a warp, 1, 31, 33 and a tile plus one points, every corner
@@ -38,8 +43,9 @@ at 327,680 slots, two runs bit-equal.  For the one-launch pooled mean
 (segment_mean): runs across one and several tile edges, one segment over
 the whole input, no rows, several tiles per block with an empty tail after
 a live last row, F of 1, 2 and 4, both weightings, empty segments
-at the start, middle and end, padding rows with smaller ids, two runs
-bit-equal, launches on two streams at once, and the fault word set by ids
+at the start, middle and end, padding rows with smaller ids (the mean held
+to the twin run in float64), two runs bit-equal, launches on two streams at
+once, and the fault word set by ids
 that decrease.  For the composite's per-ray warp scans (K5, K5b;
 tests/volrend_buffers.py): rays longer than a pass and than 1,024 samples,
 empty rays between full ones, a buffer of padding only, one ray holding the
@@ -68,6 +74,8 @@ from cnc_torch.ops import encoding as enc
 from cnc_torch.ops import scatter_ops
 from cnc_torch.render import marching, renderer, volrend
 from cnc_torch.train.trainer import Trainer
+from pn_frac_cases import CASES as PN_CASES
+from pn_frac_cases import pn_case
 from volrend_buffers import BROKEN, DT, LAYOUTS, broken_buffer, segment_buffer
 
 pytestmark = pytest.mark.gpu
@@ -709,9 +717,12 @@ MEAN_CASES = ["mixed", "tile_edges", "one_segment", "empty", "edges_empty", "all
 @pytest.mark.parametrize("f", [1, 2, 4])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_segment_mean_kernel(dev, case, f, weighted):
-    """K6m against its twin: pooled within 1e-5 of max |pooled| (sums in
-    another order), covered exact, the gradient within 1e-6; two runs of the
-    kernel bit-equal (no atomics); one launch each way."""
+    """K6m against its twin: pooled within 1e-5 of max |pooled| against the
+    twin run in float64 (on the card the twin sums with index_add's float
+    atomics, whose order varies: in float32 a segment of ~14,000 rows that
+    cancels to a small mean rounds by as much as the bound itself), covered
+    exact, the gradient within 1e-6; two runs of the kernel bit-equal (no
+    atomics); one launch each way."""
     x, den, seg, valid, num = _mean_inputs(dev, case, f, weighted)
     min_den = 1e-9 if weighted else 1.0
     cops.clear_segment_order_faults(dev)
@@ -723,8 +734,10 @@ def test_segment_mean_kernel(dev, case, f, weighted):
     want, want_cov = cops._segment_mean_plain(twin_leaf, den, seg, valid, num,
                                               float(np.float32(min_den)), weighted)
     assert got.shape == want.shape == (num, f)
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=1e-5 * max(1e-30, float(want.abs().max())))
+    exact, _ = cops._segment_mean_plain(x.double(), den.double(), seg, valid, num, min_den,
+                                        weighted)
+    torch.testing.assert_close(got.double(), exact, rtol=0,
+                               atol=1e-5 * max(1e-30, float(exact.abs().max())))
     assert torch.equal(cov, want_cov)
     again, cov2 = cops.segment_mean(x, den, seg, valid, num, min_den, weighted)
     assert torch.equal(again, got) and torch.equal(cov2, cov)
@@ -806,33 +819,55 @@ def test_segment_mean_refuses_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize("f", [2, 4])
-@pytest.mark.parametrize("case", ["dense", "empty_bins", "masked_tail"])
-def test_pn_hist_kernel(dev, f, case):
-    """K7 (exact: counts of 0/1 in f32) and its backward, within 1e-4 of the
-    largest entry: the kernel adds each row's bin gradient directly, the
-    twin's autograd differences reverse cumulative sums over all rows."""
-    g = torch.Generator(device=dev).manual_seed(11)
-    rows, bins, fine_offset, fine_size = 50_000, 4096, 1000, 1 << 12
-    table = torch.where(torch.rand(fine_offset + fine_size, f, generator=g, device=dev) > 0.4,
-                        1.0, -1.0)
-    sel = torch.randint(0, fine_size, (rows,), generator=g, device=dev, dtype=torch.int32)
-    cuts, _ = torch.sort(torch.randint(0, rows + 1, (bins - 1,), generator=g, device=dev))
-    if case == "empty_bins":         # 200 distinct cuts: most bins hold no row
-        cuts = (cuts // (rows // 200)) * (rows // 200)
-    bnd = torch.cat([torch.zeros(1, device=dev, dtype=torch.int64), cuts,
-                     torch.full((1,), rows, device=dev)]).to(torch.int32)
-    row_valid = torch.ones(rows, dtype=torch.bool, device=dev)
-    if case == "masked_tail":        # more rows than the count: the tail is not valid
-        row_valid[rows // 2:] = False
-    leaf, twin_leaf = table.clone().requires_grad_(), table.clone().requires_grad_()
-    got = cops.pn_hist(leaf, fine_offset, sel, row_valid, bnd)
-    want = cops._pn_hist_plain(twin_leaf, fine_offset, sel, row_valid, bnd)
-    assert got.shape == (bins, f) and torch.equal(got, want)
-    cot = torch.randn(bins, f, generator=g, device=dev)
+@pytest.mark.parametrize("name", list(PN_CASES))
+def test_pn_frac_plane_kernel(dev, f, name):
+    """K7, the whole frac plane in one launch and one allocation, equal to
+    the plain plane bit for bit (tests/pn_frac_cases.py: nothing listed, one
+    row, fewer rows than the sample, full and overflowed lists, sample caps at
+    and above the list's, a sample that does not divide it, empty bins at both
+    ends, many rows a bin, most bins empty, a listed count below the cap); its
+    backward within 1e-4 of the largest entry of the twin's run in float64
+    (the kernel adds each row's bin gradient directly; the twin's autograd
+    differences reverse cumulative sums over all rows, where an empty bin's
+    gradient, divided by its 0 + 1e-6 rows, is 1e6 times the plane's and
+    cancels: in float32 that leaves errors of 1e-2 of the result)."""
+    case = pn_case(name, f)
+    table = torch.from_numpy(case["table"]).to(dev)
+    eidx, bounds = (torch.from_numpy(case[k]).to(dev) for k in ("entry_idx", "bounds"))
+    n = torch.tensor(case["n"], dtype=torch.int32, device=dev)
+    args = (case["fine_offset"], eidx, bounds, n, case["pn_res"], case["sample_cap"])
+    leaf, twin_leaf = table.clone().requires_grad_(), table.double().requires_grad_()
+    torch.cuda.synchronize(dev)
+    kernels.reset_launches()
+    before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    got = cops.pn_frac_plane(leaf, *args)
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] - before == 1
+    assert kernels.launches["pn_frac_plane"] == 1 and sum(kernels.launches.values()) == 1
+    want = cops._pn_frac_plane_plain(table, *args)
+    assert got.shape == (case["pn_res"] ** 2, f) and torch.equal(got, want)
+    cot = torch.randn(got.shape, generator=torch.Generator(device=dev).manual_seed(11),
+                      device=dev)
     got.backward(cot)
-    want.backward(cot)
-    torch.testing.assert_close(leaf.grad, twin_leaf.grad, rtol=0,
-                               atol=1e-4 * float(twin_leaf.grad.abs().max()))
+    cops._pn_frac_plane_plain(twin_leaf, *args).backward(cot.double())
+    assert kernels.launches["pn_hist_bwd"] == 1
+    torch.testing.assert_close(leaf.grad.double(), twin_leaf.grad, rtol=0,
+                               atol=1e-4 * max(float(twin_leaf.grad.abs().max()), 1e-30))
+
+
+def test_pn_frac_plane_refuses_what_the_kernel_does_not_take(dev):
+    case = pn_case("unsampled", 4)
+    table = torch.from_numpy(case["table"]).to(dev)
+    eidx, bounds = (torch.from_numpy(case[k]).to(dev) for k in ("entry_idx", "bounds"))
+    n = torch.tensor(case["n"], dtype=torch.int32, device=dev)
+    res = case["pn_res"]
+    with pytest.raises(ValueError):
+        cops.pn_frac_plane(table, 37, eidx, bounds[:-1], n, res)
+    with pytest.raises(ValueError):
+        cops.pn_frac_plane(table, 37, eidx, bounds, n.long(), res)
+    with pytest.raises(ValueError):
+        cops.pn_frac_plane(table[:, :3].contiguous(), 37, eidx, bounds, n, res)
+    with pytest.raises(ValueError):
+        cops.pn_frac_plane(table, 37, eidx, bounds, n, res, sample_cap=0)
 
 
 @pytest.mark.parametrize("d,r", [(3, 10), (3, 34), (3, 66), (2, 18), (2, 130)])
@@ -859,6 +894,61 @@ def test_footprint_kernel(dev, d, r, fill):
                                    atol=1e-5 * max(float(want_ovl.max()), 1e-3))
     else:
         assert ovl is None
+
+
+def _overlap_float64(occ, r):
+    """The overlap summed in float64 (the twin's separable pools)."""
+    bd = cops.footprint_bounds(r, occ.shape[0])
+    o = occ.double()
+    for _ in range(3):
+        s = torch.cat([torch.zeros_like(o[:1]), torch.cumsum(o, dim=0)])
+
+        def lerp(i0, fr):
+            i0 = torch.from_numpy(i0).long().to(o.device)
+            fr = torch.from_numpy(fr).double().to(o.device).reshape(-1, 1, 1)
+            return s[i0] * (1.0 - fr) + s[i0 + 1] * fr
+
+        o = torch.movedim(lerp(bd.b_i, bd.b_fr) - lerp(bd.a_i, bd.a_fr), 0, -1)
+    return o.reshape(-1)
+
+
+@pytest.mark.parametrize("d,r,rb,off", [
+    (3, 18, 128, 1), (3, 44, 128, 2), (3, 148, 128, 3), (3, 514, 128, 1), (3, 34, 48, 2),
+    (2, 18, 128, 3), (2, 130, 128, 3), (2, 1026, 128, 2), (2, 2050, 128, 1)])
+def test_footprint_kernel_at_rb_128(dev, d, r, rb, off):
+    """K8 at the flagship's occupancy resolution: rows of 18 to 2,050
+    corners (shorter than a block's 1,024 and longer), boxes that several
+    warps share (r = 18, 44) and one warp each, mask_out at byte offsets 1-3,
+    an Rb that is not a multiple of 32.  The mask exactly, the overlap within
+    1e-5 of the level's largest value against the twin summed in float64 and
+    within 1e-4 against the float32 twin (whose differences of cumulative
+    sums over 128 cells round more coarsely); two runs bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(r)
+    occ = torch.rand((rb,) * d, generator=g, device=dev) < 0.15
+    occ[..., rb // 2:] &= torch.rand((rb,) * (d - 1) + (rb - rb // 2,), generator=g,
+                                     device=dev) < 0.3
+    occ[: rb // 4] = False
+    n = r ** d
+    buf = torch.zeros(n + 8, dtype=torch.bool, device=dev)
+    mask, ovl = cops.footprint_grids(occ, r, with_overlap=d == 3, mask_out=buf[off:off + n])
+    want_mask, want_ovl = cops._footprint_plain(occ, r, d == 3)
+    assert torch.equal(mask, want_mask) and 0 < int(mask.sum()) < n
+    assert not bool(buf[:off].any()) and not bool(buf[off + n:].any())
+    if d == 3:
+        top = float(want_ovl.max())
+        assert (ovl.double() - _overlap_float64(occ, r)).abs().max() <= 1e-5 * top
+        torch.testing.assert_close(ovl, want_ovl, rtol=0, atol=1e-4 * top)
+        again = cops.footprint_grids(occ, r, with_overlap=True)[1]
+        assert torch.equal(again, ovl)
+
+
+def test_footprint_refuses_what_the_kernel_does_not_take(dev):
+    """Grids whose side is not a multiple of 16 cells, or not 16-byte aligned."""
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cops.footprint_grids(torch.zeros(24, 24, 24, dtype=torch.bool, device=dev), 18)
+    flat = torch.zeros(16 ** 3 + 1, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        cops.footprint_grids(flat[1:].reshape(16, 16, 16), 18)
 
 
 def _masked_encode_inputs(dev, d, f, all_masked=False):
@@ -1127,8 +1217,8 @@ def test_trainer_rate_steps_on_the_card(dev):
     tr.fit(max_steps=19, log_every=0, step_callback=lambda s, aux: seen.append(
         (float(aux["mse"]), float(aux["bits_per_param"]), float(aux["ctx_util"]))))
     assert len(seen) == 20 and np.all(np.isfinite(np.asarray(seen)))
-    for k in ("grid_encode_v", "grid_encode_v_bwd", "segment_pool", "segment_pool_bwd", "pn_hist",
-              "footprint", "compact", "segment_mean", "segment_mean_bwd"):
+    for k in ("grid_encode_v", "grid_encode_v_bwd", "segment_pool", "segment_pool_bwd",
+              "pn_frac_plane", "footprint", "compact", "segment_mean", "segment_mean_bwd"):
         assert kernels.launches[k] > 0, k
 
 
