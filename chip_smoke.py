@@ -8,6 +8,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build the kernels from cnc_torch/csrc (nvcc, sm_90a);
   3. hold each serving kernel (K1, K4, K5; K3 at random masks) against its
      plain PyTorch twin on the card, at the shapes the serving path gives it,
+     and count the device operations of one K3 call at each of its sites'
+     shapes and of one mask packing at each refresh site's (the process's
+     first profile: one each),
      and time both with CUDA events (the encode kernels and the march also by
      their device work alone, without the wrapper's host time: `device_ms`;
      the encode's forward must equal the twin bit for bit, and every field of
@@ -52,7 +55,9 @@ Phases (any failure raises and the script exits non-zero):
      launches by its device ms and bound; [K6] segment_gather's gather and its
      backward's sums at the 3D context, [K6m] segment_mean at each pooling site (the 3D context, the 2D windows:
      within K6_REL_TOL, covered exact, two runs bit-equal, its backward), [K3]
-     at the 3D context compaction, [K7] the step's three frac planes (each
+     at each of its call sites (the 3D context, the refresh's pn coord lists,
+     the occupancy update's grid, the build's largest entry heads: torch.equal,
+     the count equal, device ms, bound, `nonzero`), [K7] the step's three frac planes (each
      equal to the plain plane, one launch and one allocation a plane, the
      backward against float64), and [K1v], [K2v] at each call site
      (the 3D mixed-level context, the 2D windows, the frac planes) with its
@@ -511,24 +516,71 @@ def check_compact(torch, scatter_ops, n, cap, p, gen, dev):
     return check_compact_mask(torch, scatter_ops, mask, cap, f"random, p={p}")
 
 
-def check_compact_mask(torch, scatter_ops, mask, cap, label):
+def check_compact_mask(torch, scatter_ops, mask, cap, label, device_ops=None):
+    """K3 against its twin (torch.equal, the count equal) on one mask, timed
+    beside its bound and `torch.nonzero`; `device_ops` is the device
+    operations one compaction ran in the process's first profile
+    (count_device_ops), logged and kept with the record."""
     n = mask.numel()
     src, count = scatter_ops._compact_cuda(mask, cap)
     want_src, want_count = scatter_ops._compact_plain(mask, cap)
     torch.cuda.synchronize()
     if not (torch.equal(src, want_src) and int(count) == int(want_count)):
         raise AssertionError(f"K3 {label} n={n} cap={cap}: kernel and twin differ")
+    # bytes: the mask read once, src written once, the count
     n_bytes = n + cap * 4 + 4
     b, by = bound_ms(n_bytes, n)
     rec = dict(max_abs_err=0.0, ms=time_ms(lambda: scatter_ops._compact_cuda(mask, cap)),
                device_ms=device_ms(lambda: scatter_ops._compact_cuda(mask, cap)),
-               plain_ms=time_ms(lambda: scatter_ops._compact_plain(mask, cap)),
+               plain_ms=time_ms(lambda: scatter_ops._compact_plain(mask, cap), iters=5),
                bound_ms=b, bound_by=by,
-               library_ms=time_ms(lambda: torch.nonzero(mask)[:cap]))
+               library_ms=time_ms(lambda: torch.nonzero(mask)[:cap]), n=n, cap=cap,
+               count=int(count), device_ops=device_ops)
     log(f"[K3 compact, {label}] n={n} cap={cap} count={int(count)} exact ms={rec['ms']:.4f}"
         f" device_ms={rec['device_ms']:.4f} plain_ms={rec['plain_ms']:.4f}"
-        f" library_ms={rec['library_ms']:.4f} bound_ms={b:.5f}")
+        f" library_ms={rec['library_ms']:.4f} bound_ms={b:.5f}"
+        + ("" if device_ops is None else f" device operations per call {device_ops}"))
     return rec
+
+
+# K3's call sites on the main path (cnc_torch), and the (n, cap) at which
+# count_device_ops profiles one compaction of each: the 3D rate context
+# (n as in the H100 runs of PERF.md), the pn coord lists, the occupancy
+# update, the table build's entry heads (the finest level's 514^3 vertices
+# into a 2^19-entry table)
+K3_SITES = {"3D context": ("models/context_models.py:1026", 11_352_091, 1 << 21),
+            "pn coord lists": ("models/context_models.py:598", 512 ** 3, 1 << 24),
+            "occupancy": ("grids/occupancy.py:78", 128 ** 3, 128 ** 3),
+            "build entry heads": ("ops/context_ops.py:638", 514 ** 3, (1 << 19) + 1)}
+PACK_SITES = {"mask3d": (223_231_256,), "mask2d": (3, 1_400_336)}
+
+
+def count_device_ops(torch, calls: dict) -> dict:
+    """The device operations (kernels, memsets, copies) each call of `calls`
+    (name -> fn, each warmed up first) runs, in ONE torch.profiler window:
+    torch.profiler records every launch only in a process's first profile,
+    so this runs before any other."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls.items():
+            with record_function("ops_" + name):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    starts = sorted((min(e.time_range.start for e in events if e.name == "ops_" + name), name)
+                    for name in calls)
+    ops = {name: [] for name in calls}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith("ops_"):
+            continue
+        owner = [name for t, name in starts if t <= e.time_range.start]
+        if owner:
+            ops[owner[-1]].append(e.name)
+    return ops
 
 
 def mean_args(torch, call) -> dict:
@@ -1317,7 +1369,7 @@ def check_rate_kernels(torch, tr, rf, cops, enc, gen):
     return records
 
 
-def check_pack(torch, enc, cache):
+def check_pack(torch, enc, cache, device_ops):
     """The mask packing against its twin (torch.equal) on a refreshed cache:
     the 3D levels' masks and the three planes'; each packed again equals the
     cache's copy.  Returns the 3D record, the planes' under "sites"."""
@@ -1333,11 +1385,13 @@ def check_pack(torch, enc, cache):
         recs[key] = dict(max_abs_err=0.0, ms=time_ms(kernel),
                          device_ms=device_ms(kernel),
                          plain_ms=time_ms(lambda: enc._pack_bits_plain(mask), iters=5, warmup=1),
-                         bound_ms=b, bound_by=by, library_ms=None)
+                         bound_ms=b, bound_by=by, library_ms=None,
+                         device_ops=device_ops[f"pack {key}"])
         r = recs[key]
         log(f"[pack {key}] {tuple(mask.shape)} bools ({mask.numel() / 2**20:.1f} MiB) into"
             f" {got.numel() * 4 / 2**20:.2f} MiB of words, exact ms={r['ms']:.4f}"
-            f" device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={b:.4f}")
+            f" device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={b:.4f};"
+            f" device operations per call {r['device_ops']}")
         del got, want
     return dict(recs["mask3d"], sites=recs)
 
@@ -1777,6 +1831,26 @@ def main() -> int:
               check_compact(torch, scatter_ops, (capacity // 4) * 64, capacity, 0.05, gen, dev),
               check_compact(torch, scatter_ops, (capacity // 4) * 64, capacity, 0.08, gen, dev)]
         records["compact"] = k3[1]
+        # the device operations of one compaction at each K3 site's shape and of
+        # one packing at each refresh site's, in the process's first profile
+        k3_masks = {site: torch.rand(n, generator=gen, device=dev) < 0.1
+                    for site, (_, n, _) in K3_SITES.items()}
+        pack_masks = {site: torch.rand(shape, generator=gen, device=dev) < 0.3
+                      for site, shape in PACK_SITES.items()}
+        op_calls = {f"K3 {site}": (lambda m=k3_masks[site], c=cap:
+                                   scatter_ops.compact_mask_indices(m, c))
+                    for site, (_, _, cap) in K3_SITES.items()}
+        op_calls.update({f"pack {site}": (lambda m=m: enc.pack_mask_bits(m))
+                         for site, m in pack_masks.items()})
+        device_ops = count_device_ops(torch, op_calls)
+        del k3_masks, pack_masks
+        log("[K3, pack] device operations per call, in the process's first profile"
+            " (K3 at each site's n and cap, the packing at each refresh site's shape): "
+            + json.dumps(device_ops))
+        if not all(len(v) == 1 for v in device_ops.values()):
+            raise AssertionError(f"[K3, pack] a call ran more than one device operation:"
+                                 f" {device_ops}")
+        device_ops = {k: len(v) for k, v in device_ops.items()}
 
         # K4: 8,192 rays of the view, strided over the image so most hit the object
         o = rays.origins.reshape(-1, 3)[::VIEW * VIEW // chunk][:chunk].contiguous()
@@ -2013,7 +2087,17 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated()
     t0 = time.time()
-    entropy = cm.ContextModels(rate_cfg.entropy, rate_cfg.model.grid_3d, rate_cfg.model.grid_2d)
+    # the build's largest compaction (a level's entry heads) is kept for [K3]
+    heads, compact = [], scatter_ops.compact_mask_indices
+
+    def recording_heads(mask, cap):
+        if not heads or mask.numel() > heads[0][0].numel():
+            heads[:] = [(mask, cap)]
+        return compact(mask, cap)
+
+    with swapped((scatter_ops, "compact_mask_indices", recording_heads)):
+        entropy = cm.ContextModels(rate_cfg.entropy, rate_cfg.model.grid_3d,
+                                   rate_cfg.model.grid_2d)
     torch.cuda.synchronize()
     build_s = time.time() - t0
     log(f"[K10] ContextModels built in {build_s:.2f} s; peak device memory"
@@ -2027,6 +2111,10 @@ def main() -> int:
         + " max_win_pts " + json.dumps({l: t.max_win_pts for l, t in entropy.tables2d.items()}))
     counted_so_far = dict(kernels.launches)
     records["vertex_tables"] = check_vertex_tables(torch, cops, entropy, dev)
+    k3_sites = {"build entry heads": check_compact_mask(
+        torch, scatter_ops, *heads[0], "build entry heads, the largest of the build",
+        device_ops["K3 build entry heads"])}
+    del heads
     kernels.launches.update(counted_so_far)     # comparison launches do not count
     torch.cuda.reset_peak_memory_stats()
 
@@ -2051,8 +2139,25 @@ def main() -> int:
         fp_calls.append((args, kw))
         return footprint(*args, **kw)
 
-    with swapped((cops, "_footprint_cuda", recording)):
+    pn_calls = []
+
+    def recording_pn(mask, cap):
+        pn_calls.append((mask, cap))
+        return compact(mask, cap)
+
+    with swapped((cops, "_footprint_cuda", recording),
+                 (scatter_ops, "compact_mask_indices", recording_pn)):
         occ_cache = entropy.refresh_cache(occ_grid)
+    # [K3] at the refresh's pn coord lists and at the occupancy update's
+    # compaction of the grid (grids/occupancy.py: every cell, cap = cells)
+    if len(pn_calls) != 1:
+        raise AssertionError(f"[K3] a refresh made {len(pn_calls)} compactions, not 1")
+    k3_sites["pn coord lists"] = check_compact_mask(
+        torch, scatter_ops, *pn_calls[0], "pn coord lists", device_ops["K3 pn coord lists"])
+    del pn_calls
+    k3_sites["occupancy"] = check_compact_mask(
+        torch, scatter_ops, occ_grid.reshape(-1), occ_grid.numel(), "occupancy",
+        device_ops["K3 occupancy"])
     n_fp = kernels.launches["footprint"] - n_fp
     n_pack = kernels.launches["pack_mask_bits"] - n_pack
     refresh_ms = time_ms(lambda: entropy.refresh_cache(occ_grid), iters=3, warmup=1)
@@ -2075,11 +2180,19 @@ def main() -> int:
                     f" {p['device_ms']:.4f} / {p['bound_ms']:.4f}" for p in per_launch))
     if n_fp > 24:
         raise AssertionError(f"[K8] a refresh made {n_fp} footprint launches, more than 24")
-    records["pack_mask_bits"] = dict(check_pack(torch, enc, occ_cache),
+    records["pack_mask_bits"] = dict(check_pack(torch, enc, occ_cache, device_ops),
                                      launches_per_refresh=n_pack)
     del occ_cache
     check_order_faults(cops, dev, f"[rate] after {RATE_WARM_STEPS} steps:")
     records.update(check_rate_kernels(torch, trr, rf, cops, enc, gen))
+    records["compact"]["device_ops"] = device_ops["K3 3D context"]
+    k3_sites = {"3D context": dict(records["compact"]), **k3_sites}
+    for site, rec in k3_sites.items():
+        rec["call_site"] = K3_SITES[site][0]
+    records["compact"]["sites"] = k3_sites
+    log("[K3] by call site (device ms / bound ms / nonzero ms; device operations): "
+        + "; ".join(f"{k} n={r['n']} cap={r['cap']}: {r['device_ms']:.4f} / {r['bound_ms']:.4f}"
+                    f" / {r['library_ms']:.4f}; {r['device_ops']}" for k, r in k3_sites.items()))
     check_rate_gradient(torch, trr, rf, cops, enc, ent_ops, f"step {RATE_WARM_STEPS}")
     kernels.launches.update(counted_so_far)     # comparison launches do not count
 

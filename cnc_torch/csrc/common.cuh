@@ -16,3 +16,18 @@ static inline unsigned cnc_blocks(long long n, int threads) {
   long long b = (n + threads - 1) / threads;
   return static_cast<unsigned>(b < 1 ? 1 : b);
 }
+
+// The bits of 16 mask bytes, bit j set where byte j is not 0 (K3 and the mask
+// packing).  Per 32-bit word: __vcmpne4 leaves 0xff or 0 in each byte, one bit
+// of each is kept, and the multiply by 0x10204080 moves byte k's bit to bit
+// 28 + k with no carry into bits 28-31 (every other partial product lands on
+// its own bit below 28 or above 31).  tests/compact_pack_cases.py holds this
+// to numpy's packbits over every pattern.
+static __device__ __forceinline__ unsigned cnc_byte_bits4(unsigned w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+static __device__ __forceinline__ unsigned cnc_byte_bits16(uint4 v) {
+  return cnc_byte_bits4(v.x) | cnc_byte_bits4(v.y) << 4 | cnc_byte_bits4(v.z) << 8 |
+         cnc_byte_bits4(v.w) << 12;
+}

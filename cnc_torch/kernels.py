@@ -61,8 +61,8 @@ _SIGNATURES = {
     "cnc_grid_encode_forward": (_ENCODE, _I),
     "cnc_grid_encode_backward": (_ENCODE, _I),
     "cnc_pack_mask_bits": ((_P, _LL, _LL, _P, _P), _I),
-    "cnc_compact_scratch": ((_LL,), _I),
-    "cnc_compact_mask": ((_P, _LL, _I, _P, _P, _P, _P), _I),
+    "cnc_compact_scratch": ((), _LL),
+    "cnc_compact_mask": ((_P, _LL, _I, _P, _P, _P, _P, _P), _I),
     "cnc_march_ints": ((_I,), _LL),
     "cnc_march": ((_P,) * 7 + (_I, _P) + (_I,) * 7 + (_F,) * 5 + (_P,) * 12, _I),
     "cnc_volrend_forward": ((_P,) * 6 + (_I, _I, _F, _F, _F) + (_P,) * 7, _I),

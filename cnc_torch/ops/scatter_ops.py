@@ -9,6 +9,8 @@ of its input: a CPU tensor takes the plain twin, a CUDA tensor the kernel.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from .. import kernels
@@ -144,15 +146,42 @@ def _compact_plain(mask: torch.Tensor, cap: int):
     return src[:cap], count
 
 
+class _CompactWork:
+    """Per device and stream: K3's look-back status words (one per tile of the
+    largest mask the kernel takes, 1 MiB) and its claim counter and epoch.
+    Made zero once; each launch tags its words with the epoch and its last
+    claim resets the counter, so no launch clears them.  The launches that
+    share them, being on one stream, run one at a time."""
+
+    def __init__(self, device):
+        self.status = torch.zeros(kernels.lib().cnc_compact_scratch(), dtype=torch.int64,
+                                  device=device)
+        self.work = torch.zeros(2, dtype=torch.int32, device=device)
+
+
+_compact_works: Dict[Tuple[torch.device, int], _CompactWork] = {}
+
+
+def _compact_work(device) -> _CompactWork:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    work = _compact_works.get(key)
+    if work is None:
+        work = _compact_works[key] = _CompactWork(device)
+    return work
+
+
 def _compact_cuda(mask: torch.Tensor, cap: int):
+    """K3 in one launch (csrc/compact.cu); the mask may start at any byte."""
     kernels.require_cuda("compact_mask_indices", mask)
     n = mask.shape[0]
-    lib = kernels.lib()
+    if n >= 2 ** 31 or cap < 0:
+        raise ValueError(f"compact_mask_indices: the kernel takes n < 2^31 and cap >= 0, got"
+                         f" n={n}, cap={cap}")
+    work = _compact_work(mask.device)
     src = torch.empty(cap, dtype=torch.int32, device=mask.device)
     count = torch.empty(1, dtype=torch.int32, device=mask.device)
-    scratch = torch.empty(lib.cnc_compact_scratch(n), dtype=torch.int32, device=mask.device)
     kernels.call("cnc_compact_mask", kernels.ptr(mask), n, cap, kernels.ptr(src),
-                 kernels.ptr(count), kernels.ptr(scratch))
+                 kernels.ptr(count), kernels.ptr(work.status), kernels.ptr(work.work))
     kernels.launches["compact"] += 1
     return src, count[0]
 

@@ -9,7 +9,10 @@ without the suite's conftest (which imports JAX):
 `chip_smoke.py` checks the kernels at the main path's full-width shapes;
 these cover the edge cases: other feature widths and dimensions, hashed
 levels of non-power-of-two size, the forward bit-equal to its twin in every
-variant, empty and boundary-sized masks, both
+variant, empty and boundary-sized masks (K3 also at its tile edges, at
+views 1-15 bytes off a 16-byte boundary, at the 3D context's and the pn
+coord lists' sizes and on two streams at once; one compaction and one
+mask packing each one device operation), both
 truncation regimes of the march, padding in the composite; for the backward
 kernels: both feature widths, one level, points all out of range, rays
 without samples, an all-padding buffer, a carried transmittance; the
@@ -28,7 +31,9 @@ the mixed-level encode with its first level at both ends; the encode's edge
 cases (whole warps on one row, lanes alternating between two rows, a level
 change within a warp, 1, 31, 33 and a tile plus one points, every corner
 masked, mask offsets inside a word, points outside [0,1], zero gradient
-rows; the forward bit-equal) and the mask packing; the table build on
+rows; the forward bit-equal) and the mask packing (ragged last words, rows
+that start unaligned, views at byte offsets, the planes' and the whole 3D
+mask's sizes; tests/compact_pack_cases.py); the table build on
 a dense, a hashed and a 2D level; a few rate steps on the card.  For the
 codec's integer kernels (K9a-K9c, K7i), held to their twins with
 torch.equal: odd widths, an empty chunk, a chunk of uncovered rows, weights
@@ -74,6 +79,7 @@ from cnc_torch.ops import encoding as enc
 from cnc_torch.ops import scatter_ops
 from cnc_torch.render import marching, renderer, volrend
 from cnc_torch.train.trainer import Trainer
+from compact_pack_cases import COMPACT_CASES, PACK_CASES, compact_case, pack_case
 from pn_frac_cases import CASES as PN_CASES
 from pn_frac_cases import pn_case
 from volrend_buffers import BROKEN, DT, LAYOUTS, broken_buffer, segment_buffer
@@ -115,16 +121,93 @@ def test_grid_encode_kernel(dev, d, f):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+# (n, cap, density): the earlier three-launch kernel's block edges, the edges
+# of 8,192 and of 16,384 bytes (the look-back kernel's tile), cap above n, a
+# count above cap, all set and none set, and the main path's sites: the 3D
+# rate context (a count below and above cap) and the pn coord lists (512^3
+# bools, cap 2^24)
 @pytest.mark.parametrize("n,cap,p", [(0, 16, 0.5), (1, 16, 1.0), (2047, 300, 0.2),
                                      (2048, 300, 0.2), (2049, 4096, 0.9),
-                                     (2_097_157, 65_536, 0.02), (2_097_157, 65_536, 0.5)])
+                                     (2_097_157, 65_536, 0.02), (2_097_157, 65_536, 0.5),
+                                     (8191, 9000, 0.5), (8192, 9000, 0.5), (8193, 9000, 0.5),
+                                     (16383, 9000, 0.5), (16384, 9000, 0.5), (16385, 9000, 0.5),
+                                     (5000, 8192, 0.5), (100_003, 1000, 1.0),
+                                     (100_003, 1000, 0.0), (3 * 8192 + 5, 4 * 8192, 1.0),
+                                     (11_352_091, 1 << 21, 0.1), (11_352_091, 1 << 21, 0.25),
+                                     (512 ** 3, 1 << 24, 0.05), (512 ** 3, 1 << 24, 0.2)])
 def test_compact_kernel(dev, n, cap, p):
     g = torch.Generator(device=dev).manual_seed(n)
     mask = torch.rand(n, generator=g, device=dev) < p
+    before = kernels.launches["compact"]
     src, count = scatter_ops.compact_mask_indices(mask, cap)
+    assert kernels.launches["compact"] == before + 1
     want_src, want_count = scatter_ops._compact_plain(mask, cap)
     assert torch.equal(src, want_src)
     assert int(count) == int(want_count) == int(mask.sum())
+
+
+@pytest.mark.parametrize("name", list(COMPACT_CASES))
+def test_compact_kernel_at_the_tile_edges(dev, name):
+    """tests/compact_pack_cases.py's masks, views at byte offsets 0-15 of a
+    buffer on the card: equal to the twin and to numpy."""
+    buf, off, n, cap = compact_case(name)
+    whole = torch.from_numpy(buf).to(dev).view(torch.bool)
+    mask = whole[off:off + n]
+    assert mask.data_ptr() % 16 == off % 16
+    src, count = scatter_ops.compact_mask_indices(mask, cap)
+    want_src, want_count = scatter_ops._compact_plain(mask, cap)
+    assert torch.equal(src, want_src) and int(count) == int(want_count)
+    pos = np.flatnonzero(buf[off:off + n])[:cap]
+    assert np.array_equal(src.cpu().numpy()[:pos.size], pos)
+
+
+def test_compact_on_two_streams(dev):
+    """Compactions queued on two streams at once each take their stream's
+    status words, counter and epoch: every result equals the twin's."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    masks = [torch.rand(n, generator=g, device=dev) < 0.3 for n in (3_000_017, 2_500_001)]
+    wants = [scatter_ops._compact_plain(m, 1 << 20) for m in masks]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize(dev)
+    outs = []
+    for _ in range(4):
+        for s, m in zip(streams, masks):
+            with torch.cuda.stream(s):
+                outs.append(scatter_ops.compact_mask_indices(m, 1 << 20))
+    torch.cuda.synchronize(dev)
+    for i, (src, count) in enumerate(outs):
+        want_src, want_count = wants[i % 2]
+        assert torch.equal(src, want_src) and int(count) == int(want_count)
+    works = {id(scatter_ops._compact_works[(masks[0].device, s.cuda_stream)]) for s in streams}
+    assert len(works) == 2
+
+
+def test_compact_and_pack_are_one_device_operation(dev):
+    """One compaction and one packing each run one device operation (no
+    memset, no copy), in one profile of this process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    g = torch.Generator(device=dev).manual_seed(10)
+    mask = torch.rand(11_352_091, generator=g, device=dev) < 0.2
+    planes = torch.rand(3, 1_400_336, generator=g, device=dev) < 0.2
+    calls = {"k3": lambda: scatter_ops.compact_mask_indices(mask, 1 << 21),
+             "pack": lambda: enc.pack_mask_bits(planes)}
+    for fn in calls.values():      # the stream's scratch is made by a first call
+        fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls.items():
+            with record_function("ab_" + name):
+                fn()
+                torch.cuda.synchronize(dev)
+    events = prof.events()
+    split = min(e.time_range.start for e in events if e.name == "ab_pack")
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("ab_")]
+    k3 = [e.name for e in device if e.time_range.start < split]
+    pack = [e.name for e in device if e.time_range.start >= split]
+    assert len(k3) == 1 and "compact" in k3[0], k3
+    assert len(pack) == 1 and "pack" in pack[0], pack
 
 
 def _march_inputs(dev):
@@ -1084,7 +1167,11 @@ def test_grid_encode_edge_cases(dev, d, f, case):
         assert int((want_d != 0).any(dim=1).sum()) <= 4 * (1 << d)
 
 
-@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (3, 1000), (2_000_003,)])
+# the earlier shapes, rows of 1,000 (every other row starts 8 bytes past a
+# 16-byte boundary), the planes (3 x 1,400,336: a half-full last word) and
+# the whole 3D mask of the full-width model (223,231,256 bools)
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (3, 1000), (2_000_003,), (5, 1000),
+                                   (3, 1_400_336), (223_231_256,)])
 def test_pack_mask_bits_kernel(dev, shape):
     g = torch.Generator(device=dev).manual_seed(sum(shape))
     mask = torch.rand(shape, generator=g, device=dev) < 0.3
@@ -1092,6 +1179,29 @@ def test_pack_mask_bits_kernel(dev, shape):
     got = enc.pack_mask_bits(mask)
     assert kernels.launches["pack_mask_bits"] == before + 1
     assert torch.equal(got, enc._pack_bits_plain(mask))
+
+
+@pytest.mark.parametrize("name", list(PACK_CASES))
+def test_pack_mask_bits_kernel_on_views(dev, name):
+    """tests/compact_pack_cases.py's masks (ragged last words, unaligned rows,
+    views at byte offsets 1 and 7) on the card: equal to the twin and to
+    numpy's packbits."""
+    buf, off, rows, cols = pack_case(name)
+    whole = torch.from_numpy(buf).to(dev).view(torch.bool)
+    mask = whole[off:off + rows * cols].view(rows, cols)
+    assert mask.data_ptr() % 16 == off % 16
+    got = enc.pack_mask_bits(mask)
+    assert torch.equal(got, enc._pack_bits_plain(mask))
+    bits = np.packbits(np.pad(buf[off:off + rows * cols].reshape(rows, cols),
+                              ((0, 0), (0, (-cols) % 32))), axis=-1, bitorder="little")
+    assert np.array_equal(got.cpu().numpy(), np.ascontiguousarray(bits).view("<i4"))
+
+
+def test_pack_mask_bits_kernel_on_a_one_byte_offset_view_of_the_3d_mask(dev):
+    g = torch.Generator(device=dev).manual_seed(11)
+    whole = torch.rand(223_231_256 + 1, generator=g, device=dev) < 0.3
+    mask = whole[1:]
+    assert torch.equal(enc.pack_mask_bits(mask), enc._pack_bits_plain(mask))
 
 
 def test_cuda_encode_refuses_a_mask_without_its_packed_copy(dev):
