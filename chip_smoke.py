@@ -77,21 +77,25 @@ Phases (any failure raises and the script exits non-zero):
      phases the word segment_mean sets when live ids decrease must be clear;
  10. [codec] the lambda = 2e-3 run's binarized tables through the codec, with
      the counts set to 0 just before it: `refresh_cache_int`; the codec
-     kernels held to their twins with torch.equal ([K9a] int_encode, [K9b]
-     int_mlp_pool, [K9c] int_pq on the middle chunk of the last 3D context
+     kernels held to their twins with torch.equal ([int_ctx_pool], the fused
+     pool, twice, and [K9c] int_pq on the middle chunk of the last 3D context
      level and on the last 2D context level with its plane, [K7i] pn_hist_int
-     on one plane; their launches taken out of the counts); `CNCCodec.encode`
+     on one plane; their launches taken out of the counts; the pool's ms,
+     device ms, its bound and the replaced kernels' bounds); `CNCCodec.encode`
      into chiprun_out/bundle/ and `decode` in the same process, with every
-     codec kernel launched in each; the decoded tables must equal the trained
-     ones on every covered entry and be +1 elsewhere, the coded MB must lie
-     within 15% of the analytic MB, and the test views' PSNR must move by at
-     most 1e-3 dB; then `save_bundle` and `decode_bundle` in a fresh python3
-     process, whose tables and render of test view 0 must equal this
-     process's;
- 11. [bundle 20k] cnc_tpu's committed 20,000-step bundle (BUNDLE_20K) through
-     `decode_bundle` on the card, test view 0 of the 256x256 `blocks` test
-     set through `render_image`, its PSNR within BUNDLE_20K_DB of the CPU
-     figure; decode and render seconds and their launches logged;
+     codec kernel launched in each and int_ctx_pool once a pool; the encode's
+     pools replayed for one pass's pool device ms; the decoded tables must
+     equal the trained ones on every covered entry and be +1 elsewhere, the
+     coded MB must lie within 15% of the analytic MB, and the test views'
+     PSNR must move by at most 1e-3 dB; then `save_bundle` and
+     `decode_bundle` in a fresh python3 process, whose tables and render of
+     test view 0 must equal this process's;
+ 11. [bundles] cnc_tpu's committed bundles (BUNDLES: runs_20k's and the two
+     of runs_depth10k) through `decode_bundle` on the card, each stream's
+     sha256 checked by the decode, test view 0 of the 256x256 `blocks` test
+     set through `render_image`, its PSNR within BUNDLE_DB of the port's CPU
+     figure and the TPU's record printed beside it; decode and render
+     seconds and their launches logged;
  12. print the kernels line, the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
@@ -175,13 +179,19 @@ RATE_GRAD_BANDS = (0.0, 4e-6, 1e-3)
 MARCH_FIELDS = ("ray_id", "t_mid", "valid", "truncated", "resume_ray", "num_samples", "ray_hits",
                 "ray_last_t")
 RATE_GRAD_BAND, RATE_GRAD_TOL = 1e-3, 1e-4
-# [bundle 20k]: cnc_tpu's committed 20,000-step bundle, test view 0 of the
-# 256x256 blocks test set as tools/rd_sweep_depth.py scored it, and the PSNR
-# the port's plain path reads on the CPU (40.09655 dB; cnc_tpu's own decode and
-# render on JAX's CPU backend read 40.09657, its TPU run recorded 40.0573).
-# The card must read within BUNDLE_20K_DB of it.
-BUNDLE_20K = "runs_20k/bitstreams/l0.002_k4"
-BUNDLE_20K_PSNR_CPU, BUNDLE_20K_DB = 40.09655, 0.01
+# [bundles]: cnc_tpu's committed bundles, each decoded on the card and test
+# view 0 of the 256x256 blocks test set rendered as tools/rd_sweep_depth.py
+# scored it, held within BUNDLE_DB of the PSNR the port's plain path reads on
+# the CPU (`tools/torch_codec_ab.py psnr BUNDLE cpu`: 37.62525939941406 and
+# 36.66496276855469 for the runs_depth10k pair), with the TPU's record
+# printed beside it.  runs_20k's CPU figure, 40.09655 dB, is also what
+# cnc_tpu's own decode and render on JAX's CPU backend read (40.09657).
+BUNDLES = {   # tag: (bundle, the port's CPU PSNR of view 0, the TPU's record)
+    "bundle 20k": ("runs_20k/bitstreams/l0.002_k4", 40.09655, 40.0573),
+    "bundle depth10k l0.002": ("runs_depth10k/bitstreams/l0.002_k4", 37.62526, 37.6302),
+    "bundle depth10k l0.0007": ("runs_depth10k/bitstreams/l0.0007_k4", 36.66496, 36.6773),
+}
+BUNDLE_DB = 0.01
 
 
 def log(msg: str) -> None:
@@ -321,14 +331,19 @@ def bound_ms_int(n_bytes: float, n_ops: float):
 
 
 def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, pg3, pg2):
-    """K9a, K9b, K9c and K7i against their twins on the card, torch.equal:
-    one chunk of the last 3D context level (its middle chunk), the last 2D
-    context level of the xy plane with its frac plane, and that plane (K7i)."""
+    """The pool (int_ctx_pool), K9c and K7i against their twins on the card,
+    torch.equal (the pool twice, the second run equal to the first): one
+    chunk of the last 3D context level (its middle chunk), the last 2D
+    context level of the xy plane with its frac plane, and that plane (K7i).
+    The pool's bound is counted for what it needs (the kept rows' encode and
+    MLP, every row's id and mask byte) and, beside it, as the two kernels it
+    replaced were charged (every row encoded, the features written and read
+    back)."""
     import numpy as np
     records, log_parts = {}, {}
     k = entropy.cfg.max_context_layer_num
     f = entropy.cfg.n_features
-    per = {name: [] for name in ("int_encode", "int_mlp_pool", "int_pq", "pn_hist_int")}
+    per = {name: [] for name in ("int_ctx_pool", "int_pq", "pn_hist_int")}
 
     def same(name, label, got, want):
         got, want = (got if isinstance(got, tuple) else (got,)), \
@@ -368,83 +383,100 @@ def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, 
                                 f" bins={bins} plane={entropy.pn_res}^2")
     del ind, bin_of_row
 
-    # ---- one 3D chunk and one 2D level through K9a -> K9b -> K9c
+    # ---- one 3D chunk and one 2D level through int_ctx_pool -> K9c
     l3 = entropy.ctx_levels_3d[-1]
     chunk_e, n_chunks, w3 = codec.chunks3d[l3]
     start = codec._chunk_bounds(l3)[n_chunks // 2][2]
-    (pos,), valid, slots, evals = entropy._entry_window("3d", l3, start, chunk_e, w3,
-                                                        ("pos_flat",))
-    mask = cache["mask3d"][entropy.mask3d_offsets[l3] + pos.long()] & valid
+    pos, slots, evals = entropy._entry_rows("3d", l3, start, chunk_e, w3, "pos_flat")
     r3 = entropy.tables3d[l3].resolution
     lv3 = entropy._ctx_levels_meta(entropy.spec3, entropy.mask3d_offsets, l3 - k, l3)
-    ovl = cache["ovl_int"][str(l3)]
     l2 = entropy.ctx_levels_2d[-1]
     t2 = entropy.tables2d[l2]
-    (coords,), valid2, slots2, evals2 = entropy._entry_window("2d", l2, 0, t2.n_entries,
-                                                              t2.n_points, ("coords",))
-    mask2 = cache["mask2d"][0][entropy.mask2d_offsets[l2] + (coords >> 16).long() * t2.resolution
-                               + (coords & 0xFFFF).long()] & valid2
+    coords, slots2, evals2 = entropy._entry_rows("2d", l2, 0, t2.n_entries, t2.n_points,
+                                                 "coords")
     lv2 = entropy._ctx_levels_meta(entropy.spec2, entropy.mask2d_offsets,
                                    l2 - min(l2, k), l2)
     cases = {
-        "3D": dict(enc=(pos, 3, r3, sign3, lv3, cache["mask3d"], None), level=None,
-                   mlp=(pg3, codec.m_shift3[l3], mask, slots, chunk_e, ovl, pos),
+        "3D": dict(pool=(ip, None, pos, slots, start, chunk_e, r3, cache["mask3d"],
+                         entropy.mask3d_offsets[l3], sign3, lv3, pg3, codec.m_shift3[l3], None,
+                         cache["ovl_int"][str(l3)]),
                    pq=(codec.m_scale3[l3], sign3, entropy.tables3d[l3].offset, evals),
-                   label=f"level {l3} chunk {n_chunks // 2} of {n_chunks}", sign=sign3),
-        "2D": dict(enc=(coords, 2, t2.resolution, sign2, lv2, cache["mask2d"][0],
-                        (plane, entropy.pn_res, entropy.pn_mask_offset)), level=l2,
-                   mlp=(pg2, codec.m_shift2[l2], mask2, slots2, t2.n_entries, None, None),
+                   label=f"level {l3} chunk {n_chunks // 2} of {n_chunks}"),
+        "2D": dict(pool=(ip, l2, coords, slots2, 0, t2.n_entries, t2.resolution,
+                         cache["mask2d"][0], entropy.mask2d_offsets[l2], sign2, lv2, pg2,
+                         codec.m_shift2[l2], (plane, entropy.pn_res, entropy.pn_mask_offset),
+                         None),
                    pq=(codec.m_scale2[l2], sign2, t2.offset, evals2),
-                   label=f"xy level {l2} with its plane", sign=sign2),
+                   label=f"xy level {l2} with its plane"),
     }
     mlp_ops = lambda lv: sum(2 * ly["w"].shape[0] * ly["w"].shape[1] + ly["w"].shape[1] * 3
                              for ly in intctx._mlp_layers(ip, lv))
     for key, c in cases.items():
-        # K9a
-        feats = intctx._int_encode_cuda(*c["enc"])
+        _, level, ids, _, _, n_e, rf_, mask, moff, sign, levels, _, _, pl, ovl = \
+            c["pool"]
+        got = intctx.int_ctx_pool(*c["pool"])
+        intctx.raise_on_pool_faults(sign3.device)
         touched = {}
-        want = intctx._int_encode_plain(*c["enc"], touched=touched)
-        same("K9a", c["label"], feats, want)
-        del want
-        n_rows = c["enc"][0].shape[0]
-        n_mask = torch.unique(torch.cat(touched["mask"])).numel()
-        live = torch.cat(touched["rows"])
+        same("int_ctx_pool", c["label"], got, intctx.int_ctx_pool_plain(*c["pool"],
+                                                                         touched=touched))
+        same("int_ctx_pool", c["label"] + ", a second run", intctx.int_ctx_pool(*c["pool"]), got)
+        d = 3 if level is None else 2
+        fa = sign.shape[1]
+        n_rows = ids.numel()
+        keep = mask[moff + intctx.lattice_index(ids, d, rf_)]
+        kept = int(keep.sum())
+        # the bound of the function the pool needs: every row's id and mask
+        # byte; the kept rows' slots (and overlap weights), their corners'
+        # distinct mask bytes and sign (and plane) rows; the weights, the
+        # interpolation table and the sums once.  Operations: the kept rows'
+        # encode (16 a corner, 2F a live corner) and MLP (2 a multiply-add, 3
+        # an output)
+        n_mask = torch.unique(torch.cat(touched["mask"])).numel() if touched.get("mask") else 0
+        live = torch.cat(touched["rows"]) if touched.get("rows") else ids[:0]
         n_tbl = torch.unique(live).numel()
         n_plane = torch.unique(torch.cat(touched["plane_rows"])).numel() \
-            if "plane_rows" in touched else 0
-        n_corners = sum(t.numel() for t in touched["mask"])
-        del touched
-        fa = c["sign"].shape[1]
-        b, by = bound_ms_int(n_rows * 4 + n_mask + (n_tbl + n_plane) * 4 * fa + feats.numel() * 4,
-                             n_rows * len(c["enc"][4]) * (2 ** c["enc"][1]) * 16
-                             + live.numel() * 2 * fa)
-        per["int_encode"].append(dict(
-            max_abs_err=0.0, ms=time_ms(lambda: intctx._int_encode_cuda(*c["enc"])),
-            plain_ms=time_ms(lambda: intctx._int_encode_plain(*c["enc"]), iters=3, warmup=1),
-            bound_ms=b, bound_by=by, library_ms=None))
-        log_parts.setdefault("int_encode", "")
-        log_parts["int_encode"] += (f" {key} ({c['label']}): rows={n_rows} cols={feats.shape[1]}"
-                                    f" corners={n_corners} live={live.numel()}"
-                                    f" distinct_rows={n_tbl + n_plane} mask_bytes={n_mask};")
-        del live
-        # K9b
-        mlp_args = (ip, c["level"], feats) + c["mlp"]
-        got = intctx._int_mlp_pool_cuda(*mlp_args)
-        same("K9b", c["label"], got, intctx._int_mlp_pool_plain(*mlp_args))
-        kept = int(c["mlp"][2].sum())
-        n_e = c["mlp"][4]
-        pos_k = c["mlp"][6]
-        n_ovl = torch.unique(pos_k[c["mlp"][2]]).numel() if pos_k is not None else 0
-        b, by = bound_ms_int(n_rows + kept * (feats.shape[1] * 4 + 4 + (4 if pos_k is not None
-                                                                         else 0))
-                             + n_ovl * 4 + n_e * (fa + 1) * 4,
-                             kept * (mlp_ops(c["level"]) + 4 * fa))
-        per["int_mlp_pool"].append(dict(
-            max_abs_err=0.0, ms=time_ms(lambda: intctx._int_mlp_pool_cuda(*mlp_args)),
-            plain_ms=time_ms(lambda: intctx._int_mlp_pool_plain(*mlp_args), iters=3, warmup=1),
-            bound_ms=b, bound_by=by, library_ms=None))
-        log_parts.setdefault("int_mlp_pool", "")
-        log_parts["int_mlp_pool"] += f" {key}: rows={n_rows} kept={kept} entries={n_e};"
+            if touched.get("plane_rows") else 0
+        n_live = live.numel() + sum(t.numel() for t in touched.get("plane_rows", []))
+        n_tab = (len(levels) + (pl is not None)) * rf_
+        n_par = sum(t.numel() for ly in intctx._mlp_layers(ip, level) for t in ly.values())
+        n_ovl = torch.unique(ids[keep]).numel() if ovl is not None else 0
+        corners = (len(levels) + (pl is not None)) * 2 ** d
+        b, by = bound_ms_int(n_rows * 5 + kept * 4 + n_ovl * 4 + n_mask
+                             + (n_tbl + n_plane) * 4 * fa + (n_par + n_tab) * 4
+                             + n_e * (fa + 1) * 4,
+                             kept * (corners * 16 + mlp_ops(level) + 4 * fa) + n_live * 2 * fa)
+        # the bounds of the two kernels this one replaced, as they were
+        # counted: K9a encoded every row of the window and wrote its
+        # features, K9b read them back
+        every = {}
+        feats = intctx._int_encode_plain(ids, d, rf_, sign, levels, mask, pl, touched=every)
+        live_all = torch.cat(every["rows"]) if every.get("rows") else ids[:0]
+        n_plane_all = torch.unique(torch.cat(every["plane_rows"])).numel() \
+            if every.get("plane_rows") else 0
+        b9a, _ = bound_ms_int(
+            n_rows * 4 + (torch.unique(torch.cat(every["mask"])).numel() if every.get("mask")
+                          else 0)
+            + (torch.unique(live_all).numel() + n_plane_all) * 4 * fa + feats.numel() * 4,
+            n_rows * len(levels) * 2 ** d * 16 + live_all.numel() * 2 * fa)
+        b9b, _ = bound_ms_int(n_rows + kept * (feats.shape[1] * 4 + 4 + (4 if ovl is not None
+                                                                           else 0))
+                              + n_ovl * 4 + n_e * (fa + 1) * 4,
+                              kept * (mlp_ops(level) + 4 * fa))
+        del feats, every, live_all, touched, live
+        kernel = lambda c=c: intctx.int_ctx_pool(*c["pool"])
+        per["int_ctx_pool"].append(dict(
+            max_abs_err=0.0, ms=time_ms(kernel), device_ms=device_ms(kernel),
+            plain_ms=time_ms(lambda c=c: intctx.int_ctx_pool_plain(*c["pool"]), iters=3,
+                             warmup=1),
+            bound_ms=b, bound_by=by, library_ms=None, bound_two_kernels_ms=b9a + b9b, rows=n_rows,
+            kept=kept, entries=n_e))
+        intctx.raise_on_pool_faults(sign.device)
+        log_parts.setdefault("int_ctx_pool", "")
+        log_parts["int_ctx_pool"] += (
+            f" {key} ({c['label']}): rows={n_rows} kept={kept} entries={n_e}"
+            f" live_corners={n_live} distinct_rows={n_tbl + n_plane} mask_bytes={n_mask}"
+            f" device_ms={per['int_ctx_pool'][-1]['device_ms']:.4f} bound_ms={b:.4f} ({by});"
+            f" the two-kernel form's K9a + K9b bounds {b9a:.4f} + {b9b:.4f};")
         # K9c
         msum, wsum = got
         pq_args = (msum, wsum) + c["pq"]
@@ -465,11 +497,11 @@ def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, 
         log_parts.setdefault("int_pq", "")
         log_parts["int_pq"] += (f" {key}: entries={n_e} covered={int(got_pq[1].sum())}"
                                 f" pq at 65535: {sat}, at 1: {one};")
-        del feats, got, got_pq, msum, wsum
+        del got, got_pq, msum, wsum
     for name, recs in per.items():
         if recs:
-            records[name] = dict(recs[0], other={k: recs[1][k] for k in ("ms", "plain_ms",
-                                                                         "bound_ms")})
+            records[name] = dict(recs[0], other={k: recs[1].get(k) for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_two_kernels_ms")})
     for name, r in records.items():
         o = r.get("other")
         log(f"[{name}] exact; {log_parts[name].strip()} ms={r['ms']:.4f}"
@@ -1615,10 +1647,22 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
                                        intctx.sign_table(trained["xy"]), cache_i, pg3, pg2))
     kernels.launches.update(cache_launches)     # comparison launches do not count
 
+    # the encode's pools are recorded as they are called, to be replayed for
+    # their device time once the counts are read
+    pool_calls, pool = [], intctx.int_ctx_pool
+
+    def recording_pool(*args, **kw):
+        pool_calls.append((args, kw))
+        return pool(*args, **kw)
+
+    intctx.int_ctx_pool = recording_pool
     t0 = time.time()
-    pgs, est_mb, coded_mb = codec.encode(trr.ent_params, trained, occ_rate, str(bundle_dir),
-                                         cache=cache_i)
-    torch.cuda.synchronize()
+    try:
+        pgs, est_mb, coded_mb = codec.encode(trr.ent_params, trained, occ_rate, str(bundle_dir),
+                                             cache=cache_i)
+        torch.cuda.synchronize()
+    finally:
+        intctx.int_ctx_pool = pool
     enc_s = time.time() - t0
     enc_launches = {k: kernels.launches[k] - cache_launches[k] for k in kernels.launches}
     kernels.reset_launches()
@@ -1629,10 +1673,24 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
     dec_launches = dict(kernels.launches)
     codec_launches = {k: cache_launches[k] + enc_launches[k] + dec_launches[k]
                       for k in kernels.launches}
-    codec_kernels = ("int_encode", "int_mlp_pool", "int_pq", "pn_hist_int")
+    codec_kernels = ("int_ctx_pool", "int_pq", "pn_hist_int")
     if not all(enc_launches[k] > 0 and dec_launches[k] > 0 for k in codec_kernels):
         raise AssertionError(f"[codec] a codec kernel was not launched: encode {enc_launches},"
                              f" decode {dec_launches}")
+    # one pool launch per 3D chunk and per plane's 2D level that is not coded globally
+    n_pools = (sum(codec.chunks3d[l][1] for l in entropy.ctx_levels_3d
+                   if not codec._is_global_3d(l))
+               + 3 * sum(not codec._is_global_2d(l) for l in entropy.ctx_levels_2d))
+    if not (enc_launches["int_ctx_pool"] == dec_launches["int_ctx_pool"] == n_pools
+            == len(pool_calls)):
+        raise AssertionError(f"[codec] {n_pools} pools a pass, but int_ctx_pool launched"
+                             f" {enc_launches['int_ctx_pool']} times in the encode and"
+                             f" {dec_launches['int_ctx_pool']} in the decode")
+    pool_ms = [device_ms(lambda a=a, kw=kw: intctx.int_ctx_pool(*a, **kw), iters=3)
+               for a, kw in pool_calls]
+    intctx.raise_on_pool_faults(trr.device)
+    del pool_calls
+    records["int_ctx_pool"]["pass_device_ms"] = sum(pool_ms)
     n_streams = len(list(bundle_dir.glob("*.b")))
     cov = covered_rows(torch, intctx, entropy, codec, ip,
                        {k: intctx.sign_table(v) for k, v in trained.items()}, cache_i, pgs)
@@ -1649,7 +1707,9 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
         f" {sum(c.numel() for c in cov.values())} entries covered); decode {dec_s:.2f} s"
         f" (cache {cache_s:.2f} s shared); launches per encode "
         + json.dumps({k: enc_launches[k] for k in codec_kernels}) + ", per decode "
-        + json.dumps({k: dec_launches[k] for k in codec_kernels}))
+        + json.dumps({k: dec_launches[k] for k in codec_kernels})
+        + f"; one pass's {n_pools} pools {sum(pool_ms):.4f} device ms in all (the largest"
+        f" {max(pool_ms):.4f}, the encode's calls replayed)")
     if not abs(est_mb - coded_mb) / coded_mb < 0.15:
         raise AssertionError(f"[codec] coded {coded_mb} MB is not within 15% of the analytic"
                              f" {est_mb} MB")
@@ -1717,50 +1777,56 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
 
 
 
-def check_bundle_20k(torch, kernels, dev) -> None:
-    """[bundle 20k]: decode cnc_tpu's 20,000-step bundle with the kernels,
-    render test view 0 through render_image and hold its PSNR to the CPU
-    figure; the counts are set to 0 just before and read just after."""
+def check_bundles(torch, kernels, volrend, dev) -> None:
+    """[bundles]: decode each of cnc_tpu's committed bundles with the
+    kernels (decode checks every stream's sha256 itself), render test view 0
+    through render_image and hold its PSNR to the CPU figure; the counts are
+    set to 0 just before each decode and each render and read just after."""
     from cnc_torch.data import scenes
     from cnc_torch.render import renderer
     from cnc_torch.train import driver
     from cnc_torch.utils import metrics
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.time()
-    field, binaries, cfg = driver.decode_bundle(BUNDLE_20K, device=dev, log_fn=lambda m: None)
-    torch.cuda.synchronize()
-    decode_s = time.time() - t0
-    decode_launches = {k: v for k, v in kernels.launches.items() if v}
     test = scenes.ProceduralDataset("blocks", 8, 256, 256, "test", device=dev)
     rays, gt = test.image_and_rays(0)
-    aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=dev)
-    render = lambda: renderer.render_image(field, cfg.model, cfg.render, aabb, binaries,
-                                           rays.origins, rays.viewdirs, torch.ones(3, device=dev),
-                                           device=dev)
-    render()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.time()
-    rgb = render()[0]
-    torch.cuda.synchronize()
-    render_s = time.time() - t0
-    render_launches = {k: v for k, v in kernels.launches.items() if v}
-    psnr = float(metrics.psnr(rgb, gt))
-    diff = psnr - BUNDLE_20K_PSNR_CPU
-    log(f"[bundle 20k] {BUNDLE_20K}: decode_bundle {decode_s:.2f} s (launches"
-        f" {json.dumps(decode_launches)}); test view 0 (256x256) rendered in {render_s:.3f} s"
-        f" (launches {json.dumps(render_launches)}), psnr {psnr:.5f} dB, ssim"
-        f" {float(metrics.ssim(rgb, gt)):.6f}; the CPU plain path {BUNDLE_20K_PSNR_CPU:.5f},"
-        f" difference {diff:+.6f} dB (limit {BUNDLE_20K_DB})")
-    if not all(decode_launches.get(k, 0) > 0 for k in ("int_encode", "int_mlp_pool", "int_pq")):
-        raise AssertionError(f"[bundle 20k] the decode did not go through the codec kernels:"
-                             f" {decode_launches}")
-    if not all(render_launches.get(k, 0) > 0 for k in ("grid_encode", "march", "volrend")):
-        raise AssertionError(f"[bundle 20k] the render did not go through the kernels:"
-                             f" {render_launches}")
-    if not abs(diff) <= BUNDLE_20K_DB:
-        raise AssertionError(f"[bundle 20k] psnr {psnr} is {diff:+.6f} dB from the CPU's")
+    for tag, (bundle, cpu_psnr, tpu_psnr) in BUNDLES.items():
+        if cpu_psnr is None:
+            raise AssertionError(f"[{tag}] no CPU figure to hold the card to")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        field, binaries, cfg = driver.decode_bundle(bundle, device=dev, log_fn=lambda m: None)
+        torch.cuda.synchronize()
+        decode_s = time.time() - t0
+        decode_launches = {k: v for k, v in kernels.launches.items() if v}
+        aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=dev)
+        render = lambda: renderer.render_image(field, cfg.model, cfg.render, aabb, binaries,
+                                               rays.origins, rays.viewdirs,
+                                               torch.ones(3, device=dev), device=dev)
+        render()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        rgb = render()[0]
+        torch.cuda.synchronize()
+        render_s = time.time() - t0
+        render_launches = {k: v for k, v in kernels.launches.items() if v}
+        psnr = float(metrics.psnr(rgb, gt))
+        diff = psnr - cpu_psnr
+        log(f"[{tag}] {bundle}: decode_bundle {decode_s:.2f} s (launches"
+            f" {json.dumps(decode_launches)}); test view 0 (256x256) rendered in"
+            f" {render_s:.3f} s (launches {json.dumps(render_launches)}), psnr {psnr:.5f} dB,"
+            f" ssim {float(metrics.ssim(rgb, gt)):.6f}; the CPU plain path {cpu_psnr:.5f},"
+            f" difference {diff:+.6f} dB (limit {BUNDLE_DB}); the TPU's record {tpu_psnr}")
+        if not all(decode_launches.get(k, 0) > 0 for k in ("int_ctx_pool", "int_pq")):
+            raise AssertionError(f"[{tag}] the decode did not go through the codec kernels:"
+                                 f" {decode_launches}")
+        if not all(render_launches.get(k, 0) > 0 for k in ("grid_encode", "march", "volrend")):
+            raise AssertionError(f"[{tag}] the render did not go through the kernels:"
+                                 f" {render_launches}")
+        if not abs(diff) <= BUNDLE_DB:
+            raise AssertionError(f"[{tag}] psnr {psnr} is {diff:+.6f} dB from the CPU's")
+        check_walk_faults(volrend, dev, f"[{tag}]")
+        del field, binaries
 
 
 def main() -> int:
@@ -2287,8 +2353,7 @@ def main() -> int:
         torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, records)
 
     # ---- 11. cnc_tpu's 20,000-step bundle, decoded and rendered on the card
-    check_bundle_20k(torch, kernels, dev)
-    check_walk_faults(volrend, dev, "[bundle 20k]")
+    check_bundles(torch, kernels, volrend, dev)
 
     # ---- 12. report: `launches` is the count over the path named beside it
     # (one view, the lambda = 0 training run, the probe's one drive, the rate
@@ -2317,8 +2382,9 @@ def main() -> int:
         "pn_hist_bwd": ("pn_hist.cu", "cnc_tpu/models/context_models.py:62", "rate_pn_grad"),
         "footprint": ("footprint.cu", "cnc_tpu/models/context_models.py:1415", "rate"),
         "vertex_tables": ("vertex_tables.cu", "cnc_tpu/models/context_models.py:269", "rate"),
-        "int_encode": ("int_context.cu", "cnc_tpu/codec/intctx.py:110", "codec"),
-        "int_mlp_pool": ("int_context.cu", "cnc_tpu/codec/intctx.py:228", "codec"),
+        # cnc_tpu's pool composition: int_encode_levels (intctx.py:110), the
+        # plane (:173), the MLPs (:214-242) and segment_sum_int (:325)
+        "int_ctx_pool": ("int_context.cu", "cnc_tpu/models/context_models.py:1197", "codec"),
         "int_pq": ("int_context.cu", "cnc_tpu/codec/intctx.py:344", "codec"),
         "pn_hist_int": ("pn_hist.cu", "cnc_tpu/codec/intctx.py:298", "codec"),
         # the packed copy of the mask cnc_tpu reads as bools at encoding.py:90-94
@@ -2341,6 +2407,8 @@ def main() -> int:
                         refresh_device_ms=r.get("refresh_device_ms"),
                         refresh_bound_ms=r.get("refresh_bound_ms"),
                         refresh_launches=r.get("refresh_launches"),
+                        pass_device_ms=r.get("pass_device_ms"),
+                        bound_two_kernels_ms=r.get("bound_two_kernels_ms"), other=r.get("other"),
                         rate_launches_per_step=rate_per_step.get(name)))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

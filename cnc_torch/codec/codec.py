@@ -17,12 +17,15 @@ utils_bpp_acc.py:709-999), writing and reading the same streams:
 
 The streams are byte-identical to cnc_tpu's for the same tables, occupancy
 and context weights, and a bundle written by either package decodes in the
-other.  The device work per pool is K9a (encode), K9b (MLP and pooling) and
-K9c (probabilities, coverage and sign bits); the dimension-wise planes are
-K7i (codec/intctx.py).  What stays plain torch: the per-table stats (one
-integer sum per level and the packed sign bits) and the decoded symbols'
-writes, one `index_copy_` per level (so no out-of-range padding row is
-needed, unlike cnc_tpu's recompile-avoiding padded scatter).
+other.  The device work per pool is int_ctx_pool (the context encode, the
+MLP and the pooling of the window's kept rows, one launch) and K9c
+(probabilities, coverage and sign bits); the dimension-wise planes are K7i
+(codec/intctx.py).  The pools' order-fault word is read where the host
+pulls their results anyway, not after each pool.  What stays plain torch:
+the per-table stats (one integer sum per level and the packed sign bits)
+and the decoded symbols' writes, one `index_copy_` per level (so no
+out-of-range padding row is needed, unlike cnc_tpu's recompile-avoiding
+padded scatter).
 """
 
 from __future__ import annotations
@@ -115,6 +118,13 @@ class CNCCodec:
                                                      self.m_shift2[level])
         return intctx.int_pq(msum, cnt, self.m_scale2[level], sign2 if with_bits else None,
                              t.offset, evals if with_bits else None)
+
+    def _check_pools(self):
+        """Raise if a pool queued since the last check broke its kernel's
+        precondition (one host sync; nothing on the CPU, whose twin raises
+        at once)."""
+        if self.ctx.device.type == "cuda":
+            intctx.raise_on_pool_faults(self.ctx.device)
 
     def _frac(self, sign3, cache, ax):
         return self.ctx.frac_plane_int(sign3, cache["pn"][ax]) if self.cfg.use_dimension_wise \
@@ -241,6 +251,7 @@ class CNCCodec:
                                                       plane_qs[ax], cache["mask2d"][ai])
 
         # --- host pulls, in stream order
+        self._check_pools()
         bits3 = np.unpackbits(st3[1].cpu().numpy())
         for l in range(ctx.spec3.n_levels):
             off, size = ctx.spec3.offsets[l], ctx.spec3.level_sizes[l]
@@ -364,6 +375,7 @@ class CNCCodec:
             outs = {ax: self._pool2d(l, ip, rec2s[ax], intctx.quantize_pg(float(pgs[f"{ax}{l}"])),
                                      plane_qs[ax], cache["mask2d"][ai], with_bits=False)
                     for ai, ax in enumerate(AXES)}
+            self._check_pools()
             for ax in AXES:
                 pq_d, covered, _ = outs[ax]
                 cov = covered.cpu().numpy()
@@ -398,6 +410,7 @@ class CNCCodec:
         bounds = self._chunk_bounds(level)
         outs = [self._pool3d(level, ip, rec3, cache, pg_q, start, with_bits=False)
                 for (_, _, start) in bounds]
+        self._check_pools()
         idx_all, sym_all = [], []
         for c, ((want_lo, want_hi, start), (pq_d, covered, _)) in enumerate(zip(bounds, outs)):
             sl = slice(want_lo - start, want_hi - start)

@@ -22,10 +22,13 @@ Two kinds of function live here.  The plain twins keep cnc_tpu's order of
 operations in torch int32 (`int_encode_levels`, `int_encode_plane`,
 `int_apply_ctx3d/2d`, `segment_sum_int`, `device_pq`, `int_frac_plane`,
 `int_overlap_grid`); they are the CPU path and the oracle the kernels are
-held to on the card.  The dispatching wrappers (`int_encode` K9a,
-`int_mlp_pool` K9b, `int_pq` K9c, `frac_plane` K7i) take the plain twins for
-CPU tensors and launch the kernels of csrc/int_context.cu and csrc/pn_hist.cu
-for CUDA tensors.  The host steps that define the format
+held to on the card.  The dispatching wrappers (`int_ctx_pool`, one codec
+pool: the context encode, the MLP and the pooling of a window's kept rows;
+`int_pq` K9c; `frac_plane` K7i) take the plain twins for CPU tensors and
+launch the kernels of csrc/int_context.cu and csrc/pn_hist.cu for CUDA
+tensors.  `int_encode` and `int_mlp_pool`, the encode and the MLP with its
+pooling over whole windows, are twins only (`int_ctx_pool_plain` is built
+from them) and refuse CUDA tensors.  The host steps that define the format
 (`quantize_ctx_params`, `quantize_pg`, `host_pq`, the overlap grid's bounds)
 stay numpy float64 / int64, copied as they are.
 """
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -423,18 +427,18 @@ def unpack_coords(packed: torch.Tensor, d: int, rf: int) -> torch.Tensor:
 def int_encode(packed: torch.Tensor, d: int, rf: int, sign_tbl: torch.Tensor,
                levels: Sequence[LevelMeta], occ_mask: torch.Tensor,
                plane: Optional[Tuple[torch.Tensor, int, int]] = None) -> torch.Tensor:
-    """K9a: integer context features of N vertices of an rf-lattice.
+    """Integer context features of N vertices of an rf-lattice (the twin of
+    the encode inside `int_ctx_pool`).
 
     packed [N] int32 vertex ids (see `unpack_coords`), sign_tbl [T, F] int32
     +-1, levels the context levels (`LevelMeta`), occ_mask the flat bool
     per-corner masks; plane, for a 2D level with the dimension-wise prior,
     (plane_q [pn_res**2, F] int32, pn_res, its mask offset).  Returns
     [N, len(levels)*F (+F)] int32 at Q_FEAT: `int_encode_levels`, then
-    `int_encode_plane`.  CPU tensors take those twins, CUDA tensors the
-    kernel of csrc/int_context.cu.
+    `int_encode_plane`.  CPU tensors only: on the card the encode runs inside
+    `int_ctx_pool`'s kernel.
     """
-    if packed.is_cuda:
-        return _int_encode_cuda(packed, d, rf, sign_tbl, levels, occ_mask, plane)
+    _refuse_cuda("int_encode", packed)
     return _int_encode_plain(packed, d, rf, sign_tbl, levels, occ_mask, plane)
 
 
@@ -452,7 +456,8 @@ def int_mlp_pool(ip: Mapping, level: Optional[int], feats: torch.Tensor, pg_q: i
                  m_shift: int, mask: torch.Tensor, slots: torch.Tensor, n_e: int,
                  ovl: Optional[torch.Tensor] = None, pos: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K9b: the fixed-point context MLP and the per-entry integer pooling.
+    """The fixed-point context MLP and the per-entry integer pooling (the
+    twin of the MLP and pooling inside `int_ctx_pool`).
 
     ip the quantized params ({"ctx3d": ..., "ctx2d": ...} of int32 tensors);
     level None for the 3D MLP (`int_apply_ctx3d`), else the 2D level
@@ -462,11 +467,9 @@ def int_mlp_pool(ip: Mapping, level: Optional[int], feats: torch.Tensor, pg_q: i
     the level's int overlap grid and each row's flat lattice index.  Each
     row's weight is max(ovl[pos], 1) (or 1) where mask, else 0; its output
     floor-divided by 2**m_shift and scaled by the weight adds into its entry.
-    Returns (msum [n_e, F] int32, wsum [n_e] int32).  CPU tensors take the
-    twins, CUDA tensors the kernel of csrc/int_context.cu.
+    Returns (msum [n_e, F] int32, wsum [n_e] int32).  CPU tensors only.
     """
-    if feats.is_cuda:
-        return _int_mlp_pool_cuda(ip, level, feats, pg_q, m_shift, mask, slots, n_e, ovl, pos)
+    _refuse_cuda("int_mlp_pool", feats)
     return _int_mlp_pool_plain(ip, level, feats, pg_q, m_shift, mask, slots, n_e, ovl, pos)
 
 
@@ -483,6 +486,70 @@ def _int_mlp_pool_plain(ip, level, feats, pg_q, m_shift, mask, slots, n_e, ovl=N
     msum = segment_sum_int(mean * wgt[:, None], slots, mask, n_e)
     wsum = segment_sum_int(wgt, slots, mask, n_e)
     return msum, wsum
+
+
+def _refuse_cuda(name: str, t: torch.Tensor) -> None:
+    if t.is_cuda:
+        raise ValueError(f"{name}: a plain twin with no kernel of its own; on the card the "
+                         "codec's pools run through int_ctx_pool")
+
+
+def lattice_index(ids: torch.Tensor, d: int, rf: int) -> torch.Tensor:
+    """[N] int64 flat lattice indices of packed vertex ids, last axis fastest
+    (the layout of the mask grids): the id itself in 3D, x * rf + y in 2D."""
+    p = ids.long()
+    return p if d == 3 else (p >> 16) * rf + (p & 0xFFFF)
+
+
+def int_ctx_pool(ip: Mapping, level: Optional[int], ids: torch.Tensor, slots: torch.Tensor,
+                 start_e: int, n_e: int, rf: int, occ_mask: torch.Tensor, mask_off: int,
+                 sign_tbl: torch.Tensor, levels: Sequence[LevelMeta], pg_q: int, m_shift: int,
+                 plane: Optional[Tuple[torch.Tensor, int, int]] = None,
+                 ovl: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pool of the codec: the integer pooled sums of a run of entries.
+
+    level None pools a 3D level through the 3D MLP, else the 2D `level`
+    through its Linear.  ids [n] int32 the packed vertex ids of the entries
+    [start_e, start_e + n_e) of one level (the window's own rows; see
+    `unpack_coords`); slots [n] int32 their entry ids (start_e not yet
+    subtracted), sorted.  A row is kept where occ_mask[mask_off +
+    lattice_index(id)]; each kept row is encoded against `levels` (and
+    `plane`) as `int_encode` does, run through the fixed-point MLP with pg_q
+    as its last input, floor-divided by 2**m_shift, scaled by its weight
+    (max(ovl[id], 1) with `ovl`, else 1) and added into its entry, as
+    `int_mlp_pool` does.  Returns (msum [n_e, F], wsum [n_e]) int32.
+
+    The kept rows' entries must lie in [start_e, start_e + n_e) and not
+    decrease: the twin raises where they do not; the kernel sets a word of
+    its device that `raise_on_pool_faults` reads and raises on (the codec
+    reads it where it pulls the pools' results; no host sync here).  CPU
+    tensors take the twin (`int_ctx_pool_plain`), CUDA tensors the kernel of
+    csrc/int_context.cu (one launch).
+    """
+    if ids.is_cuda:
+        return _int_ctx_pool_cuda(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_off,
+                                  sign_tbl, levels, pg_q, m_shift, plane, ovl)
+    return int_ctx_pool_plain(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_off,
+                              sign_tbl, levels, pg_q, m_shift, plane, ovl)
+
+
+def int_ctx_pool_plain(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_off, sign_tbl,
+                       levels, pg_q, m_shift, plane=None, ovl=None, touched=None):
+    """`int_ctx_pool`'s twin: select the kept rows, then `_int_encode_plain`
+    and `_int_mlp_pool_plain` over them.  `touched` as in
+    `int_encode_levels`, for the kept rows."""
+    d = 3 if level is None else 2
+    keep = occ_mask[mask_off + lattice_index(ids, d, rf)]
+    ids_k = ids[keep]
+    slots_k = (slots[keep] - start_e).to(torch.int32)
+    if slots_k.numel() and (bool((slots_k < 0).any()) or bool((slots_k >= n_e).any())
+                            or bool((slots_k[1:] < slots_k[:-1]).any())):
+        raise ValueError("int_ctx_pool: the kept rows' entries must lie in [start_e, start_e + "
+                         "n_e) and must not decrease")
+    feats = _int_encode_plain(ids_k, d, rf, sign_tbl, levels, occ_mask, plane, touched)
+    kept = torch.ones(ids_k.shape[0], dtype=torch.bool, device=ids.device)
+    return _int_mlp_pool_plain(ip, level, feats, pg_q, m_shift, kept, slots_k, n_e, ovl,
+                               ids_k if ovl is not None else None)
 
 
 def int_pq(msum: torch.Tensor, wsum: torch.Tensor, m_scale: int,
@@ -520,7 +587,7 @@ def frac_plane(sign3: torch.Tensor, pn_ax: Mapping, fine_offset: int, pn_res: in
 
 # ------------------------------------------------------------ the launches
 MAX_CTX_LEVELS = 4       # csrc/int_context.cu kMaxCtx
-MAX_MLP_WIDTH = 64       # csrc/int_context.cu kMaxWidth
+HIDDEN = 32              # csrc/int_context.cu kHidden, the 3D MLP's hidden width
 
 
 def _check_int(name, *tensors):
@@ -530,77 +597,144 @@ def _check_int(name, *tensors):
             raise ValueError(f"{name}: expects int32 tensors, got {t.dtype}")
 
 
-def _int_encode_cuda(packed, d, rf, sign_tbl, levels, occ_mask, plane):
-    plane_q = plane[0] if plane is not None else None
-    _check_int("int_encode", packed, sign_tbl, plane_q)
-    kernels.require_cuda("int_encode", occ_mask)
-    f = sign_tbl.shape[1]
-    if d not in (2, 3) or (d == 3 and plane is not None) or f not in (2, 4):
-        raise ValueError("int_encode: the kernel takes D = 3, or D = 2 with or without a plane, "
-                         "and F = 2 or 4")
-    if occ_mask.dtype != torch.bool or len(levels) > MAX_CTX_LEVELS:
-        raise ValueError(f"int_encode: a bool mask and at most {MAX_CTX_LEVELS} levels")
-    if sign_tbl.data_ptr() % (4 * f) or (plane_q is not None and (
-            plane_q.data_ptr() % (4 * f) or plane_q.shape[1] != f)):
-        raise ValueError(f"int_encode: tables of {4 * f}-byte aligned rows of F ints")
-    n = packed.shape[0]
-    n_cols = len(levels) * f + (f if plane is not None else 0)
-    out = torch.empty((n, n_cols), dtype=torch.int32, device=packed.device)
-    if n == 0:
-        return out
-    k = len(levels)
-    arr = lambda vals, ct: (ct * MAX_CTX_LEVELS)(*(list(vals) + [0] * (MAX_CTX_LEVELS - k)))
-    res = arr((int(l[0]) for l in levels), ctypes.c_int)
-    offs = arr((int(l[1]) for l in levels), ctypes.c_longlong)
-    sizes = arr((int(l[2]) for l in levels), ctypes.c_longlong)
-    moffs = arr((int(l[3]) for l in levels), ctypes.c_longlong)
-    pn_res, plane_moff = (plane[1], plane[2]) if plane is not None else (0, 0)
-    kernels.call("cnc_int_encode", kernels.ptr(packed), n, d, rf, kernels.ptr(sign_tbl),
-                 sign_tbl.shape[0], f, k, res, offs, sizes, moffs, kernels.ptr(occ_mask),
-                 occ_mask.shape[0], kernels.ptr(plane_q), pn_res, plane_moff, n_cols,
-                 kernels.ptr(out))
-    kernels.launches["int_encode"] += 1
-    return out
-
-
 def _mlp_layers(ip, level):
     if level is None:
         return [ip["ctx3d"][k] for k in ("l0", "l1", "l2")]
     return [ip["ctx2d"][str(level)]]
 
 
+# the packed weights of each MLP by the id of its first weight tensor: (a
+# weak reference to that tensor, the ids and versions of all its tensors,
+# the buffer, the widths).  Packing per call costs four device operations a
+# pool (1.2 device ms over a pass's 126 pools on the H100).
+_packed_cache: Dict[int, tuple] = {}
+
+
 def _packed_params(ip, level, dev):
     """The layers' int32 weights and biases in one buffer on the device
-    (w [in, out] row-major, then b, layer by layer), and the layer widths."""
+    (w [in, out] row-major, then b, layer by layer), and the layer widths;
+    made once per MLP while its tensors live unchanged."""
     layers = _mlp_layers(ip, level)
+    leaves = [t for l in layers for t in (l["w"], l["b"])]
+    stamp = tuple((id(t), t._version) for t in leaves)
+    hit = _packed_cache.get(id(leaves[0]))
+    if hit is not None and hit[0]() is leaves[0] and hit[1] == stamp and hit[2].device == dev:
+        return hit[2], hit[3]
+    for key in [k for k, v in _packed_cache.items() if v[0]() is None]:
+        del _packed_cache[key]
     dims = [int(layers[0]["w"].shape[0])] + [int(l["w"].shape[1]) for l in layers]
     buf = torch.cat([torch.cat([l["w"].reshape(-1), l["b"].reshape(-1)]) for l in layers])
-    return buf.to(dev, torch.int32).contiguous(), dims
+    buf = buf.to(dev, torch.int32).contiguous()
+    _packed_cache[id(leaves[0])] = (weakref.ref(leaves[0]), stamp, buf, dims)
+    return buf, dims
 
 
-def _int_mlp_pool_cuda(ip, level, feats, pg_q, m_shift, mask, slots, n_e, ovl, pos):
-    _check_int("int_mlp_pool", feats, slots, ovl, pos)
-    kernels.require_cuda("int_mlp_pool", mask)
-    if mask.dtype != torch.bool or (ovl is None) != (pos is None):
-        raise ValueError("int_mlp_pool: a bool mask, and ovl with pos or neither")
-    params, dims = _packed_params(ip, level, feats.device)
-    f = dims[-1]
-    if f not in (2, 4) or max(dims) > MAX_MLP_WIDTH or len(dims) - 1 > 3:
-        raise ValueError(f"int_mlp_pool: at most 3 layers of width <= {MAX_MLP_WIDTH}, F = 2 "
-                         "or 4")
-    w = feats.shape[0]
-    if dims[0] != feats.shape[1] + 1 or mask.shape != (w,) or slots.shape != (w,):
-        raise ValueError("int_mlp_pool: feats [w, n_in - 1], mask and slots [w]")
-    msum = torch.zeros((n_e, f), dtype=torch.int32, device=feats.device)
-    wsum = torch.zeros(n_e, dtype=torch.int32, device=feats.device)
-    if w == 0 or n_e == 0:
+_interp_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def interp_table(rf: int, targets: Sequence[int], device) -> torch.Tensor:
+    """The kernel's per-axis interpolation table: for each target grid rc in
+    `targets` (the context levels' resolutions, then the prior plane's) and
+    each coordinate c in [0, rf), `_axis_interp`'s (pgc, fq) packed as
+    pgc * 64 + fq (fq in [0, Q_AXIS], pgc >= -1: `>> 6` and `& 63` unpack
+    it).  [len(targets) * rf] int32, made once per device and grids."""
+    key = (str(device), rf, tuple(targets))
+    tab = _interp_tables.get(key)
+    if tab is None:
+        c = torch.arange(rf, dtype=torch.int64)
+        parts = []
+        for rc in targets:
+            pgc, fq = _axis_interp(c, rf, rc)
+            parts.append(pgc.long() * 64 + fq.long())
+        tab = (torch.cat(parts) if parts else c[:0]).to(torch.int32)
+        _interp_tables[key] = tab = tab.to(device)
+    return tab
+
+
+class _PoolWork:
+    """Per device and stream: the kernel's block records and its finish
+    counter (the kernel leaves it 0).  The launches that share them, being
+    on one stream, run one at a time."""
+
+    def __init__(self, device):
+        words = kernels.lib().cnc_int_ctx_pool_scratch()
+        self.records = torch.empty(words, dtype=torch.int32, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+_pool_work: Dict[Tuple[torch.device, int], _PoolWork] = {}
+# per device: the word every int_ctx_pool launch there sets when the kept
+# rows' entries leave their range or decrease (set only)
+_pool_faults: Dict[torch.device, torch.Tensor] = {}
+
+
+def _pool_fault_word(device) -> torch.Tensor:
+    key = torch.device(device)
+    if key.index is None:
+        key = torch.device(key.type, torch.cuda.current_device())
+    word = _pool_faults.get(key)
+    if word is None:
+        word = _pool_faults[key] = torch.zeros(1, dtype=torch.int32, device=key)
+    return word
+
+
+def raise_on_pool_faults(device) -> None:
+    """Raise (and clear the word) if an int_ctx_pool launch on the CUDA
+    `device` met kept rows whose entries left their range or decreased
+    since the word was last read; one host sync."""
+    word = _pool_fault_word(device)
+    if int(word[0]):
+        word.zero_()
+        raise ValueError("int_ctx_pool: the kept rows' entries must lie in [start_e, start_e + "
+                         "n_e) and must not decrease")
+
+
+def _int_ctx_pool_cuda(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_off, sign_tbl,
+                       levels, pg_q, m_shift, plane, ovl):
+    d = 3 if level is None else 2
+    plane_q = plane[0] if plane is not None else None
+    _check_int("int_ctx_pool", ids, slots, sign_tbl, plane_q, ovl)
+    kernels.require_cuda("int_ctx_pool", ids, occ_mask)
+    n, f, k = ids.shape[0], sign_tbl.shape[1], len(levels)
+    dev = ids.device
+    if occ_mask.dtype != torch.bool or slots.shape != (n,) or ids.dim() != 1:
+        raise ValueError("int_ctx_pool: ids and slots [n] and a bool mask")
+    if f not in (2, 4) or k > MAX_CTX_LEVELS or (d == 3 and (plane is not None or k < 1)):
+        raise ValueError(f"int_ctx_pool: F = 2 or 4; in 3D 1 to {MAX_CTX_LEVELS} context levels "
+                         f"and no plane, in 2D 0 to {MAX_CTX_LEVELS}")
+    if sign_tbl.data_ptr() % (4 * f) or (plane_q is not None and (
+            plane_q.data_ptr() % (4 * f) or plane_q.shape[1] != f)):
+        raise ValueError(f"int_ctx_pool: tables of {4 * f}-byte aligned rows of F ints")
+    params, dims = _packed_params(ip, level, dev)
+    n_in = k * f + (f if plane is not None else 0) + 1
+    want = [n_in, HIDDEN, HIDDEN, f] if d == 3 else [n_in, f]
+    if dims != want:
+        raise ValueError(f"int_ctx_pool: the MLP's widths {dims} differ from the kernel's {want}")
+    buf = torch.zeros(n_e * (f + 1), dtype=torch.int32, device=dev)
+    msum, wsum = buf[:n_e * f].view(n_e, f), buf[n_e * f:]
+    if n == 0 or n_e == 0:
         return msum, wsum
-    dim_arr = (ctypes.c_int * 4)(*(dims + [0] * (4 - len(dims))))
-    kernels.call("cnc_int_mlp_pool", kernels.ptr(feats), w, feats.shape[1], int(pg_q),
-                 kernels.ptr(params), params.numel(), len(dims) - 1, dim_arr, int(m_shift),
-                 kernels.ptr(mask), kernels.ptr(slots), kernels.ptr(ovl), kernels.ptr(pos),
-                 n_e, kernels.ptr(msum), kernels.ptr(wsum))
-    kernels.launches["int_mlp_pool"] += 1
+    targets = [int(l[0]) for l in levels] + ([int(plane[1])] if plane is not None else [])
+    tab = interp_table(rf, targets, dev)
+    arr = lambda vals, ct: (ct * MAX_CTX_LEVELS)(*(list(vals) + [0] * (MAX_CTX_LEVELS - k)))
+    res = arr((int(l[0]) for l in levels), ctypes.c_int)
+    offs = arr((int(l[1]) for l in levels), ctypes.c_longlong)
+    sizes = arr((int(l[2]) for l in levels), ctypes.c_longlong)
+    moffs = arr((int(l[3]) for l in levels), ctypes.c_longlong)
+    pn_res, plane_moff = (plane[1], plane[2]) if plane is not None else (0, 0)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    work = _pool_work.get(key)
+    if work is None:
+        work = _pool_work[key] = _PoolWork(dev)
+    fault = _pool_fault_word(dev)
+    p = kernels.ptr
+    kernels.call("cnc_int_ctx_pool", p(ids), p(slots), n, int(start_e), n_e, d, rf,
+                 p(occ_mask), occ_mask.shape[0], int(mask_off), p(sign_tbl), sign_tbl.shape[0],
+                 f, k, res, offs, sizes, moffs, p(plane_q), pn_res, plane_moff, p(tab),
+                 p(params), params.numel(), int(pg_q), int(m_shift), p(ovl),
+                 ovl.shape[0] if ovl is not None else 0, p(msum), p(wsum), p(work.records),
+                 p(work.counter), p(fault))
+    kernels.launches["int_ctx_pool"] += 1
     return msum, wsum
 
 

@@ -36,8 +36,8 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 # grid_encode_v / grid_encode_v_bwd: launches of the encode kernels in their
 # masked or mixed-level variants (the rate estimate's), counted apart from the
 # plain ones; vertex_tables: every launch of csrc/vertex_tables.cu; the codec's
-# integer kernels: int_encode, int_mlp_pool, int_pq (csrc/int_context.cu) and
-# pn_hist_int (the integer mode of csrc/pn_hist.cu), counted apart from pn_frac_plane
+# integer kernels: int_ctx_pool (one launch a pool), int_pq (csrc/int_context.cu)
+# and pn_hist_int (the integer mode of csrc/pn_hist.cu), counted apart from pn_frac_plane
 # (one launch a frac plane) and pn_hist_bwd (its backward);
 # pack_mask_bits: the packing of the encode's occupancy masks (once per cache
 # refresh, csrc/grid_encode.cu); segment_pool / segment_pool_bwd: the backward
@@ -49,7 +49,7 @@ launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "v
             "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
             "grid_encode_v_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0,
             "pn_frac_plane": 0, "pn_hist_bwd": 0, "footprint": 0, "vertex_tables": 0,
-            "int_encode": 0, "int_mlp_pool": 0, "int_pq": 0, "pn_hist_int": 0,
+            "int_ctx_pool": 0, "int_pq": 0, "pn_hist_int": 0,
             "pack_mask_bits": 0, "segment_mean": 0, "segment_mean_bwd": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -81,10 +81,10 @@ _SIGNATURES = {
     "cnc_vertex_heads": ((_P, _LL, _P, _P), _I),
     "cnc_vertex_fill": ((_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "cnc_dense_level": ((_P, _I, _I, _P, _P, _P, _P, _P), _I),
-    "cnc_int_encode": ((_P, _LL, _I, _I, _P, _LL, _I, _I, _IP, _LP, _LP, _LP, _P, _LL, _P, _I,
-                        _LL, _I, _P, _P), _I),
-    "cnc_int_mlp_pool": ((_P, _LL, _I, _I, _P, _LL, _I, _IP, _I, _P, _P, _P, _P, _I, _P, _P, _P),
-                         _I),
+    "cnc_int_ctx_pool_scratch": ((), _LL),
+    "cnc_int_ctx_pool": ((_P, _P, _LL, _I, _I, _I, _I, _P, _LL, _LL, _P, _LL, _I, _I, _IP, _LP,
+                          _LP, _LP, _P, _I, _LL, _P, _P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P,
+                          _P, _P), _I),
     "cnc_int_pq": ((_P, _P, _LL, _I, _I, _P, _LL, _P, _LL, _P, _P, _P, _P), _I),
     "cnc_pn_hist_int": ((_P, _LL, _LL, _P, _LL, _P, _P, _I, _I, _P, _P), _I),
 }

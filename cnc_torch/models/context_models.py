@@ -33,7 +33,8 @@ view of the level's buffer, not a gather.  The kernels are in
 table build), `ops/encoding.py` (K1/K2 in their masked and mixed-level
 variants) and `ops/scatter_ops.py` (K3 compaction).  The codec's integer
 path (`refresh_cache_int`, `pool_3d_level_int`, `pool_2d_level_int`,
-`frac_plane_int`) runs through `codec/intctx.py` (K9a-K9c, K7i).  The
+`frac_plane_int`) runs through `codec/intctx.py` (the fused pool
+`int_ctx_pool`, K9c, K7i).  The
 mesh-sharded frac plane (`axis_name`) is not ported yet.
 """
 
@@ -903,40 +904,40 @@ class ContextModels:
         return [(spec.resolutions[lc], spec.offsets[lc], spec.offsets[lc + 1] - spec.offsets[lc],
                  mask_offsets[lc]) for lc in range(lo, hi)]
 
-    def _entry_window(self, kind: str, level: int, start_e: int, n_e: int, w: int, names):
-        """One level's entry window [start_e, start_e + n_e) and its vertex
-        window of capacity w (`_window_slices`): (slices, valid, slots
-        clipped to [0, n_e), entry values)."""
+    def _entry_rows(self, kind: str, level: int, start_e: int, n_e: int, w: int, name: str):
+        """The rows of one level's entries [start_e, start_e + n_e): the
+        named buffer's rows and their entry ids (start_e not subtracted), and
+        the entries' values.  These are the rows `_window_slices` marks valid
+        in a window of capacity w; more than w of them raise."""
         t = (self.tables3d if kind == "3d" else self.tables2d)[level]
         a = self._arrays3d if kind == "3d" else self._arrays2d
         cum = self._cum_np[kind]
         start_e = int(start_e)
         start_v = int(cum[t.c_off + start_e])
         end_v = int(cum[t.c_off + start_e + n_e])
-        v_total = t.n_vertices if kind == "3d" else t.n_points
-        (*outs, slots), valid = _window_slices(a, tuple(names) + ("vert_entry",), t.v_off,
-                                               start_v, end_v, w, v_total)
-        slots = torch.clamp(slots - start_e, 0, n_e - 1)
+        if end_v - start_v > w:
+            raise ValueError(f"{kind} level {level}: entries [{start_e}, {start_e + n_e}) hold "
+                             f"{end_v - start_v} rows, more than the window's {w}")
+        rows = slice(t.v_off + start_v, t.v_off + end_v)
         evals = a["entry_values"][t.e_off + start_e:t.e_off + start_e + n_e]
-        return outs, valid, slots, evals
+        return a[name][rows], a["vert_entry"][rows], evals
 
     def pool_3d_sums_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
                          m_shift):
         """The integer pooled sums of one 3D level window: (msum [n_e, F],
-        wsum [n_e] int32, entry values [n_e]).  K9a encodes the window's
-        vertices against the k coarser levels, K9b runs the fixed-point MLP
-        and pools by the integer overlap weights."""
+        wsum [n_e] int32, entry values [n_e]).  One `intctx.int_ctx_pool`:
+        the window's kept vertices encoded against the k coarser levels, the
+        fixed-point MLP, the pooling by the integer overlap weights."""
         cfg = self.cfg
         t = self.tables3d[level]
-        (pos,), valid, slots, evals = self._entry_window("3d", level, start_e, n_e, w,
-                                                         ("pos_flat",))
-        mask = cache_i["mask3d"][self.mask3d_offsets[level] + pos.long()] & valid
+        pos, slots, evals = self._entry_rows("3d", level, start_e, n_e, w, "pos_flat")
         k = cfg.max_context_layer_num
         levels = self._ctx_levels_meta(self.spec3, self.mask3d_offsets, level - k, level)
-        feats = intctx.int_encode(pos, 3, t.resolution, sign3, levels, cache_i["mask3d"])
         ovl = cache_i["ovl_int"][str(level)] if cfg.use_overlap_area_pool else None
-        msum, wsum = intctx.int_mlp_pool(int_params, None, feats, pg_q, m_shift, mask, slots, n_e,
-                                         ovl=ovl, pos=pos if ovl is not None else None)
+        msum, wsum = intctx.int_ctx_pool(int_params, None, pos, slots, start_e, n_e,
+                                         t.resolution, cache_i["mask3d"],
+                                         self.mask3d_offsets[level], sign3, levels, pg_q, m_shift,
+                                         ovl=ovl)
         return msum, wsum, evals
 
     def pool_3d_level_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
@@ -952,7 +953,7 @@ class ContextModels:
     def pool_2d_sums_int(self, int_params, sign2, level, pg_q, plane_q, mask2d_ax, start_e, n_e,
                          w, m_shift):
         """The integer pooled sums of one 2D level window: (msum [n_e, F],
-        cnt [n_e] int32, entry values [n_e]).
+        cnt [n_e] int32, entry values [n_e]), one `intctx.int_ctx_pool`.
 
         Coverage and pooling use the PER-CORNER footprint mask (mask2d), not
         the float twin's block occupancy: the context gathers of finer levels
@@ -963,17 +964,13 @@ class ContextModels:
         """
         cfg = self.cfg
         t = self.tables2d[level]
-        (coords,), valid, slots, evals = self._entry_window("2d", level, start_e, n_e, w,
-                                                            ("coords",))
-        x = (coords >> 16).long()
-        y = (coords & 0xFFFF).long()
-        mask_v = mask2d_ax[self.mask2d_offsets[level] + x * t.resolution + y] & valid
+        coords, slots, evals = self._entry_rows("2d", level, start_e, n_e, w, "coords")
         cln = min(level, cfg.max_context_layer_num)
         levels = self._ctx_levels_meta(self.spec2, self.mask2d_offsets, level - cln, level)
         plane = (plane_q, self.pn_res, self.pn_mask_offset) if plane_q is not None else None
-        feats = intctx.int_encode(coords, 2, t.resolution, sign2, levels, mask2d_ax, plane)
-        msum, cnt = intctx.int_mlp_pool(int_params, level, feats, pg_q, m_shift, mask_v, slots,
-                                        n_e)
+        msum, cnt = intctx.int_ctx_pool(int_params, level, coords, slots, start_e, n_e,
+                                        t.resolution, mask2d_ax, self.mask2d_offsets[level],
+                                        sign2, levels, pg_q, m_shift, plane=plane)
         return msum, cnt, evals
 
     def pool_2d_level_int(self, int_params, sign2, level, pg_q, plane_q, mask2d_ax, start_e, n_e,

@@ -35,11 +35,16 @@ rows; the forward bit-equal) and the mask packing (ragged last words, rows
 that start unaligned, views at byte offsets, the planes' and the whole 3D
 mask's sizes; tests/compact_pack_cases.py); the table build on
 a dense, a hashed and a 2D level; a few rate steps on the card.  For the
-codec's integer kernels (K9a-K9c, K7i), held to their twins with
-torch.equal: odd widths, an empty chunk, a chunk of uncovered rows, weights
-at +-W_MAX with inputs at the clip, saturated and zero probabilities; the
-wrappers' refusals; and a tiny encode on the card whose streams equal the
-same encode through the twins on the CPU, decoded back on the card.  For the
+codec's integer kernels (the fused pool int_ctx_pool, K9c, K7i), held to
+their twins with torch.equal: the pool with no row kept, every row kept,
+one entry over many blocks, weights at +-W_MAX where the LeakyReLU's
+product wraps, overlap weights of 0, F of 2 and 4, 2D with and without the
+plane and with no context level, two runs equal, and its fault word on
+entries that decrease inside a warp, between warps, batches and blocks,
+across a block with no kept row, or leave their range; saturated and zero
+probabilities; the wrappers' refusals; and a tiny encode on the card whose
+streams equal the same encode through the twins on the CPU, decoded back on
+the card.  For the
 per-ray march (every field equal to the twin's, the per-ray hit counts and
 last t_mid and the padding slots included): a coarse cut inside a ray, a
 capacity cut inside a ray, no candidate block, candidate blocks without a
@@ -1346,31 +1351,6 @@ def _int_levels(d, f, g):
     return levels, sign, mask
 
 
-@pytest.mark.parametrize("d,plane", [(3, False), (2, False), (2, True)])
-@pytest.mark.parametrize("f", [2, 4])
-@pytest.mark.parametrize("n", [0, 1, 1001])
-def test_int_encode_kernel(dev, d, plane, f, n):
-    """K9a equals its twin exactly, coords on the border included (coord 0
-    on a finer target grid gives the negative numerators)."""
-    g = torch.Generator().manual_seed(d * 100 + f * 10 + n)
-    levels, sign, mask = _int_levels(d, f, g)
-    rf = 66 if d == 3 else 258
-    c = torch.randint(0, rf, (n, d), generator=g, dtype=torch.int32)
-    c[: n // 10] = 0
-    packed = (c[:, 0] * rf + c[:, 1]) * rf + c[:, 2] if d == 3 else (c[:, 0] << 16) | c[:, 1]
-    pl = None
-    if plane:
-        pn_res = 34
-        mask = torch.cat([mask, torch.rand(pn_res * pn_res, generator=g) < 0.8])
-        plane_q = torch.randint(0, 257, (pn_res * pn_res, f), generator=g, dtype=torch.int32)
-        pl = (plane_q, pn_res, mask.shape[0] - pn_res * pn_res)
-    want = intctx.int_encode(packed, d, rf, sign, levels, mask, pl)
-    got = intctx.int_encode(packed.to(dev), d, rf, sign.to(dev), levels, mask.to(dev),
-                            None if pl is None else (pl[0].to(dev), pl[1], pl[2]))
-    assert got.shape == want.shape == (n, 3 * f + (f if plane else 0))
-    assert torch.equal(got.cpu(), want)
-
-
 def _int_params(g, n_in, f, three_d, extreme=False):
     def lin(i, o):
         if extreme:
@@ -1390,37 +1370,141 @@ def _on(tree, dev):
     return {k: (_on(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("three_d", [True, False])
-@pytest.mark.parametrize("f", [2, 4])
-@pytest.mark.parametrize("case", ["random", "extreme", "uncovered", "empty", "odd_overlap"])
-def test_int_mlp_pool_kernel(dev, three_d, f, case):
-    """K9b equals its twin exactly: the fixed-point MLP (with weights at
-    +-W_MAX and inputs at the clip, where the LeakyReLU's product wraps),
-    the floor shift and the integer pooling, with and without overlap
-    weights; a chunk of uncovered rows and an empty chunk give zeros."""
-    g = torch.Generator().manual_seed(int(three_d) * 7 + f + len(case))
-    w = 0 if case == "empty" else 2049
-    n_in = 3 * f + 1 if three_d else 2 * f + 1
-    ip = _int_params(g, n_in, f, three_d, extreme=case == "extreme")
-    lim = intctx.H_CLIP if case == "extreme" else 257
-    feats = torch.randint(-lim, lim + 1, (w, n_in - 1), generator=g, dtype=torch.int32)
-    mask = torch.rand(w, generator=g) < (0.0 if case == "uncovered" else 0.7)
-    n_e = 97
-    slots = torch.sort(torch.randint(0, n_e, (w,), generator=g))[0].to(torch.int32)
-    ovl = pos = None
-    if case in ("odd_overlap", "extreme") or three_d:
-        ovl = torch.randint(0, 64, (5000,), generator=g, dtype=torch.int32)
-        pos = torch.randint(0, 5000, (w,), generator=g, dtype=torch.int32)
-    level = None if three_d else 2
-    for m_shift in (0, 3):
-        want = intctx.int_mlp_pool(ip, level, feats, 131, m_shift, mask, slots, n_e, ovl, pos)
-        got = intctx.int_mlp_pool(_on(ip, dev), level, feats.to(dev), 131, m_shift, mask.to(dev),
-                                  slots.to(dev), n_e, None if ovl is None else ovl.to(dev),
-                                  None if pos is None else pos.to(dev))
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
-        if case in ("uncovered", "empty"):
-            assert not want[0].any() and not want[1].any()
+def _pool_case(d, f, plane, case, seed):
+    """One pool's arguments on the CPU (`intctx.int_ctx_pool` after `ip`):
+    rows of an rf-lattice (a twentieth on the border) sorted by entry, kept
+    where the pool level's mask (appended to the context levels' masks)
+    is set; `case` picks the kept share, the entries' sizes, the weights,
+    the overlap grid and the context levels."""
+    g = torch.Generator().manual_seed(seed)
+    levels, sign, mask = _int_levels(d, f, g)
+    if case == "no_levels":
+        levels = []
+    rf = 66 if d == 3 else 258
+    n = {"big_entry": 20000, "random": 5000}.get(case, 3000)
+    c = torch.randint(0, rf, (n, d), generator=g, dtype=torch.int32)
+    c[: n // 20] = 0
+    ids = (c[:, 0] * rf + c[:, 1]) * rf + c[:, 2] if d == 3 else (c[:, 0] << 16) | c[:, 1]
+    start_e, n_e = 11, 97
+    if case == "big_entry":      # entry 1 holds more kept rows than a block scans
+        n_e = 3
+        rows = torch.tensor([0] * 100 + [1] * (n - 200) + [2] * 100)
+    else:
+        rows = torch.sort(torch.randint(0, n_e, (n,), generator=g))[0]
+    slots = (rows + start_e).to(torch.int32)
+    kept = {"none_kept": 0.0, "all_kept": 1.1, "big_entry": 1.1}.get(case, 0.4)
+    mask_off = mask.shape[0]
+    mask = torch.cat([mask, torch.rand(rf ** d, generator=g) < kept])
+    pl = ovl = None
+    if plane:
+        pn_res = 34
+        mask = torch.cat([mask, torch.rand(pn_res * pn_res, generator=g) < 0.8])
+        lim = intctx.H_CLIP if case == "extreme" else 256
+        plane_q = torch.randint(-lim, lim + 1, (pn_res * pn_res, f), generator=g,
+                                dtype=torch.int32)
+        pl = (plane_q, pn_res, mask.shape[0] - pn_res * pn_res)
+    if d == 3:
+        ovl = (torch.zeros(rf ** 3, dtype=torch.int32) if case == "ovl_zero"
+               else torch.randint(0, 64, (rf ** 3,), generator=g, dtype=torch.int32))
+    n_in = len(levels) * f + (f if plane else 0) + 1
+    ip = _int_params(g, n_in, f, d == 3, extreme=case == "extreme")
+    return ip, (None if d == 3 else 2), ids, slots, start_e, n_e, rf, mask, mask_off, sign, \
+        levels, 131, 3 if case == "random" else 0, pl, ovl
+
+
+def _pool_on(args, dev):
+    on = lambda t: None if t is None else t.to(dev)
+    ip, level, ids, slots, start_e, n_e, rf, mask, mask_off, sign, levels, pg_q, m_shift, pl, \
+        ovl = args
+    return (_on(ip, dev), level, on(ids), on(slots), start_e, n_e, rf, on(mask), mask_off,
+            on(sign), levels, pg_q, m_shift,
+            None if pl is None else (on(pl[0]), pl[1], pl[2]), on(ovl))
+
+
+POOL_CASES = ([(3, False, f, c) for f in (2, 4)
+               for c in ("random", "none_kept", "all_kept", "big_entry", "extreme", "ovl_zero")]
+              + [(2, p, f, c) for p in (False, True) for f in (2, 4)
+                 for c in ("random", "none_kept", "all_kept", "big_entry", "extreme",
+                           "no_levels")])
+
+
+@pytest.mark.parametrize("d,plane,f,case", POOL_CASES)
+def test_int_ctx_pool_kernel(dev, d, plane, f, case):
+    """The fused pool (context encode, MLP and pooling of the kept rows, one
+    launch) equals its twin exactly, and two runs equal each other: no row
+    kept, every row kept, one entry over many blocks, weights at +-W_MAX
+    where the LeakyReLU's product wraps (plane values at the clip in 2D),
+    overlap weights of 0, no context level."""
+    args = _pool_case(d, f, plane, case, seed=d * 100 + f * 10 + len(case) + plane)
+    want = intctx.int_ctx_pool(*args)
+    kernels.reset_launches()
+    got = intctx.int_ctx_pool(*_pool_on(args, dev))
+    again = intctx.int_ctx_pool(*_pool_on(args, dev))
+    intctx.raise_on_pool_faults(dev)
+    assert kernels.launches["int_ctx_pool"] == 2
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    kept = int(want[1].sum()) if d == 2 else None
+    if case == "none_kept":
+        assert not want[0].any() and not want[1].any()
+    if case == "big_entry" and d == 2:
+        assert kept > 4096 and int(want[1][1]) > 4096
+    if case in ("all_kept", "random"):
+        assert want[1].any()
+
+
+def _fault_case(where):
+    """A 3D pool of 64 tiles of rows, every row kept, 16 rows an entry, whose
+    entries decrease (or leave their range) at one row: inside a warp,
+    between warps, between 256-row batches, between blocks (a block a tile
+    here), across a block with no kept row, or out of range."""
+    g = torch.Generator().manual_seed(17)
+    levels, sign, mask = _int_levels(3, 4, g)
+    rf, n = 66, 1024 * 64
+    c = torch.randint(1, rf - 1, (n, 3), generator=g, dtype=torch.int32)
+    ids = (c[:, 0] * rf + c[:, 1]) * rf + c[:, 2]
+    start_e, n_e = 5, n // 16
+    slots = (torch.arange(n, dtype=torch.int32) // 16) + start_e
+    mask_off = mask.shape[0]
+    level_mask = torch.ones(rf ** 3, dtype=torch.bool)
+    level_mask[0] = False                      # id 0 is never kept
+    mask = torch.cat([mask, level_mask])
+    r = 1024 * 10
+    if where is not None:
+        slots = slots.clone()
+        if where == "across an empty block":
+            ids = ids.clone()
+            ids[r:r + 1024] = 0
+            slots[r + 1024] = slots[r - 1] - 1
+        elif where == "out of range":
+            slots[-1] = start_e + n_e
+        else:
+            at = r + {"inside a warp": 5, "between warps": 32, "between batches": 256,
+                      "between blocks": 0}[where]
+            slots[at] = slots[at - 1] - 1
+    ip = _int_params(g, 13, 4, True)
+    return ip, None, ids, slots, start_e, n_e, rf, mask, mask_off, sign, levels, 131, 0, None, \
+        torch.randint(0, 64, (rf ** 3,), generator=g, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("where", ["inside a warp", "between warps", "between batches",
+                                   "between blocks", "across an empty block", "out of range"])
+def test_int_ctx_pool_faults_on_unsorted_entries(dev, where):
+    """Kept rows whose entries decrease or leave [start_e, start_e + n_e)
+    raise, in the twin at once and on the card through the fault word that
+    raise_on_pool_faults reads, which is clear again after the raise; the
+    sorted pool leaves it clear and equals its twin."""
+    bad = _fault_case(where)
+    with pytest.raises(ValueError, match="must not decrease"):
+        intctx.int_ctx_pool(*bad)
+    intctx.int_ctx_pool(*_pool_on(bad, dev))
+    with pytest.raises(ValueError, match="must not decrease"):
+        intctx.raise_on_pool_faults(dev)
+    good = _fault_case(None)
+    got = intctx.int_ctx_pool(*_pool_on(good, dev))
+    intctx.raise_on_pool_faults(dev)
+    for a, b in zip(got, intctx.int_ctx_pool(*good)):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("f", [2, 4])
@@ -1473,15 +1557,24 @@ def test_pn_hist_int_kernel(dev, f, listed):
 
 
 def test_int_wrappers_reject_what_the_kernels_do_not_take(dev):
+    args = _pool_on(_pool_case(3, 4, False, "random", seed=0), dev)
+    with_ = lambda i, v: args[:i] + (v,) + args[i + 1:]
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        intctx.int_ctx_pool(*with_(7, args[7].cpu()))                     # mask on the CPU
+    with pytest.raises(ValueError, match="int32"):
+        intctx.int_ctx_pool(*with_(9, args[9].float()))
+    with pytest.raises(ValueError, match="context levels"):
+        intctx.int_ctx_pool(*with_(10, args[10] * 2))
+    with pytest.raises(ValueError, match="widths"):
+        intctx.int_ctx_pool(*with_(10, args[10][:2]))
     g = torch.Generator().manual_seed(0)
     levels, sign, mask = _int_levels(3, 4, g)
     packed = torch.zeros(10, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="contiguous CUDA"):
-        intctx.int_encode(packed, 3, 66, sign.to(dev), levels, mask)          # mask on the CPU
-    with pytest.raises(ValueError, match="int32"):
-        intctx.int_encode(packed, 3, 66, sign.to(dev).float(), levels, mask.to(dev))
-    with pytest.raises(ValueError, match="levels"):
-        intctx.int_encode(packed, 3, 66, sign.to(dev), levels * 2, mask.to(dev))
+    with pytest.raises(ValueError, match="plain twin"):
+        intctx.int_encode(packed, 3, 66, sign.to(dev), levels, mask.to(dev))
+    with pytest.raises(ValueError, match="plain twin"):
+        intctx.int_mlp_pool(args[0], None, torch.zeros(10, 12, dtype=torch.int32, device=dev),
+                            131, 0, torch.ones(10, dtype=torch.bool, device=dev), packed, 4)
     with pytest.raises(ValueError, match="contiguous CUDA"):
         intctx.int_pq(torch.zeros(4, 4, dtype=torch.int32, device=dev),
                       torch.zeros(4, dtype=torch.int32), 2048)
@@ -1511,8 +1604,7 @@ def test_codec_on_the_card_matches_the_cpu(dev, tmp_path):
         res = codec.encode(params, {k: v.to(device) for k, v in tabs.items()}, occ.to(device),
                            str(d), cache=cache)
         out.append((model, params, codec, cache, res, d))
-    assert all(kernels.launches[k] > 0 for k in ("int_encode", "int_mlp_pool", "int_pq",
-                                                  "pn_hist_int"))
+    assert all(kernels.launches[k] > 0 for k in ("int_ctx_pool", "int_pq", "pn_hist_int"))
     names = sorted(os.listdir(out[0][5]))
     assert names == sorted(os.listdir(out[1][5])) and len(names) > 5
     for name in names:
