@@ -46,8 +46,12 @@ Phases (any failure raises and the script exits non-zero):
   8. render the 800x800 view once more with the trained field and grid;
   9. [rate] the rate path at full width, with the counts set to 0 just
      before it: build `ContextModels(EntropyConfig(), grid_3d, grid_2d)`
-     ([K10]: seconds, peak memory, entries per level; the table kernels
-     against their twins), then `Trainer(CNCConfig(), ProceduralDataset(
+     with torch.sort taken away ([K10]: seconds, peak memory, entries and
+     the longest segment per level; the counting sort by entry equal to the
+     twin, the keys, a stable torch.sort and the fill, at the hashed 108^3
+     level and a 2D level, the dense 80^3 level too; the finest level's
+     count + scan + place + order timed beside the twin and a stable
+     torch.sort of its keys), then `Trainer(CNCConfig(), ProceduralDataset(
      "blocks"), entropy=...)` with the default lmbda = 2e-3.  After 16 steps
      the rate kernels are held against their twins at that step's real
      shapes ([K8] and [pack], the packing of the masks, on the lambda = 0
@@ -56,7 +60,7 @@ Phases (any failure raises and the script exits non-zero):
      backward's sums at the 3D context, [K6m] segment_mean at each pooling site (the 3D context, the 2D windows:
      within K6_REL_TOL, covered exact, two runs bit-equal, its backward), [K3]
      at each of its call sites (the 3D context, the refresh's pn coord lists,
-     the occupancy update's grid, the build's largest entry heads: torch.equal,
+     the occupancy update's grid: torch.equal,
      the count equal, device ms, bound, `nonzero`), [K7] the step's three frac planes (each
      equal to the plain plane, one launch and one allocation a plane, the
      backward against float64), and [K1v], [K2v] at each call site
@@ -78,12 +82,16 @@ Phases (any failure raises and the script exits non-zero):
  10. [codec] the lambda = 2e-3 run's binarized tables through the codec, with
      the counts set to 0 just before it: `refresh_cache_int`; the codec
      kernels held to their twins with torch.equal ([int_ctx_pool], the fused
-     pool, twice, and [K9c] int_pq on the middle chunk of the last 3D context
-     level and on the last 2D context level with its plane, [K7i] pn_hist_int
-     on one plane; their launches taken out of the counts; the pool's ms,
-     device ms, its bound and the replaced kernels' bounds); `CNCCodec.encode`
-     into chiprun_out/bundle/ and `decode` in the same process, with every
-     codec kernel launched in each and int_ctx_pool once a pool; the encode's
+     pool, twice, and [K9c] the same pool finished in its own launch
+     (int_ctx_pool_pq: pq, covered, sign bits) against the pool's twin then
+     K9c's, twice, on the middle chunk of the last 3D context level and on
+     the last 2D context level with its plane, [K7i] pn_hist_int on one
+     plane; their launches taken out of the counts; the pool's ms, device
+     ms, its bound and the replaced kernels' bounds; the finish's device ms
+     over the unfinished pool's); `CNCCodec.encode` into chiprun_out/bundle/
+     and `decode` in the same process, with every codec kernel launched in
+     each, int_ctx_pool once a pool, every pool finished in that launch (no
+     launch of K9c's own) and pulled to the host in one copy; the encode's
      pools replayed for one pass's pool device ms; the decoded tables must
      equal the trained ones on every covered entry and be +1 elsewhere, the
      coded MB must lie within 15% of the analytic MB, and the test views'
@@ -331,8 +339,9 @@ def bound_ms_int(n_bytes: float, n_ops: float):
 
 
 def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, pg3, pg2):
-    """The pool (int_ctx_pool), K9c and K7i against their twins on the card,
-    torch.equal (the pool twice, the second run equal to the first): one
+    """The pool (int_ctx_pool), the pool finished by K9c in its launch
+    (int_ctx_pool_pq) and K7i against their twins on the card, torch.equal
+    (the pools twice, the second run equal to the first): one
     chunk of the last 3D context level (its middle chunk), the last 2D
     context level of the xy plane with its frac plane, and that plane (K7i).
     The pool's bound is counted for what it needs (the kept rows' encode and
@@ -477,31 +486,46 @@ def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, 
             f" live_corners={n_live} distinct_rows={n_tbl + n_plane} mask_bytes={n_mask}"
             f" device_ms={per['int_ctx_pool'][-1]['device_ms']:.4f} bound_ms={b:.4f} ({by});"
             f" the two-kernel form's K9a + K9b bounds {b9a:.4f} + {b9b:.4f};")
-        # K9c
+        # K9c: the same pool finished in its launch, against the pool's
+        # twin then K9c's twin, on the card
+        m_scale, _, offset, evals = c["pq"]
+        fin = c["pool"][:13] + (m_scale,) + c["pool"][13:] + (offset, evals)
+        got_pq = intctx.int_ctx_pool_pq(*fin)
+        intctx.raise_on_pool_faults(sign.device)
         msum, wsum = got
-        pq_args = (msum, wsum) + c["pq"]
-        got_pq = intctx._int_pq_cuda(*pq_args)
-        same("K9c", c["label"], got_pq, intctx._int_pq_plain(*pq_args))
-        np.testing.assert_array_equal(got_pq[0].cpu().numpy(), intctx.host_pq(
-            msum.cpu().numpy(), wsum.cpu().numpy(), c["pq"][0]))
-        lib = lambda: intctx.pq_int64(msum, wsum, c["pq"][0])
+        pq_args = (msum, wsum, m_scale, sign, offset, evals)
+        same("K9c", c["label"], tuple(got_pq), intctx._int_pq_plain(*pq_args))
+        same("K9c", c["label"] + ", a second run", tuple(intctx.int_ctx_pool_pq(*fin)),
+             tuple(got_pq))
+        intctx.raise_on_pool_faults(sign.device)
+        pulled = intctx.pull_probs(got_pq)
+        np.testing.assert_array_equal(pulled[0], intctx.host_pq(
+            msum.cpu().numpy(), wsum.cpu().numpy(), m_scale))
+        lib = lambda: intctx.pq_int64(msum, wsum, m_scale)
         if not torch.equal(lib(), got_pq[0]):
             raise AssertionError("[K9c] the int64 formula differs from the kernel")
         b, by = bound_ms_int(n_e * (4 * fa + 4 + 4 + 4 * fa + 2 * fa + 1 + fa), n_e * fa * 8)
+        finished = lambda: intctx.int_ctx_pool_pq(*fin)
+        fin_device = device_ms(finished)
         per["int_pq"].append(dict(
-            max_abs_err=0.0, ms=time_ms(lambda: intctx._int_pq_cuda(*pq_args)),
+            max_abs_err=0.0, ms=time_ms(finished), device_ms=fin_device,
+            added_device_ms=fin_device - per["int_ctx_pool"][-1]["device_ms"],
             plain_ms=time_ms(lambda: intctx._int_pq_plain(*pq_args)), bound_ms=b, bound_by=by,
             library_ms=time_ms(lib)))
+        intctx.raise_on_pool_faults(sign.device)
         sat = int((got_pq[0] == 65535).sum())
         one = int((got_pq[0] == 1).sum())
         log_parts.setdefault("int_pq", "")
         log_parts["int_pq"] += (f" {key}: entries={n_e} covered={int(got_pq[1].sum())}"
-                                f" pq at 65535: {sat}, at 1: {one};")
+                                f" pq at 65535: {sat}, at 1: {one}; the finishing pool"
+                                f" device_ms={fin_device:.4f}, over the pool alone"
+                                f" {per['int_pq'][-1]['added_device_ms']:+.4f};")
         del got, got_pq, msum, wsum
     for name, recs in per.items():
         if recs:
             records[name] = dict(recs[0], other={k: recs[1].get(k) for k in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_two_kernels_ms")})
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_two_kernels_ms",
+                "added_device_ms")})
     for name, r in records.items():
         o = r.get("other")
         log(f"[{name}] exact; {log_parts[name].strip()} ms={r['ms']:.4f}"
@@ -578,12 +602,10 @@ def check_compact_mask(torch, scatter_ops, mask, cap, label, device_ops=None):
 # K3's call sites on the main path (cnc_torch), and the (n, cap) at which
 # count_device_ops profiles one compaction of each: the 3D rate context
 # (n as in the H100 runs of PERF.md), the pn coord lists, the occupancy
-# update, the table build's entry heads (the finest level's 514^3 vertices
-# into a 2^19-entry table)
+# update
 K3_SITES = {"3D context": ("models/context_models.py:1026", 11_352_091, 1 << 21),
             "pn coord lists": ("models/context_models.py:598", 512 ** 3, 1 << 24),
-            "occupancy": ("grids/occupancy.py:78", 128 ** 3, 128 ** 3),
-            "build entry heads": ("ops/context_ops.py:638", 514 ** 3, (1 << 19) + 1)}
+            "occupancy": ("grids/occupancy.py:78", 128 ** 3, 128 ** 3)}
 PACK_SITES = {"mask3d": (223_231_256,), "mask2d": (3, 1_400_336)}
 
 
@@ -1015,10 +1037,12 @@ def check_training_kernels(torch, tr, enc, marching, volrend, rf, gen):
 
 
 def check_vertex_tables(torch, cops, entropy, dev):
-    """K10 against its twins, exactly, on the hashed 108^3 level and on one
-    2D level (keys, then the fill over the kernel's sorted keys), and on the
-    dense 80^3 level; then the kernels and the twins timed on the finest
-    level (514^3), the largest the build runs."""
+    """K10 against its twins, exactly: the counting sort by entry on the
+    hashed 108^3 level and on one 2D level (perm and inv), against the keys,
+    a stable torch.sort and the fill on the card; the dense 80^3 level; then
+    the finest level (514^3), the largest the build runs: count, scan,
+    place and order timed beside the twin and a stable torch.sort of the
+    same keys (whose indices are that level's pos_flat)."""
     plans = {(p["kind"], p["r"]): p for p in entropy._level_plans()}
     p3, p2 = plans[("3d", 108)], [p for p in plans.values() if p["kind"] == "2d"][0]
     import numpy as np
@@ -1030,44 +1054,58 @@ def check_vertex_tables(torch, cops, entropy, dev):
             perm_np = threefry.permutation(4321 + p["level"], p["tbl"])
             inv_np = np.empty_like(perm_np)
             inv_np[perm_np] = np.arange(p["tbl"])
-            perm, inv = (torch.from_numpy(a.astype(np.int32)) for a in (perm_np, inv_np))
-        on = lambda t: None if t is None else t.to(dev)
-        keys = cops.vertex_keys(p["v"], d, p["r"], p["tbl"], dev, tile, entropy.rb, on(perm))
-        want = cops._vertex_keys_plain(p["v"], d, p["r"], p["tbl"], tile, entropy.rb, on(perm), dev)
-        if not torch.equal(keys, want):
-            raise AssertionError(f"[K10] keys differ from the twin on {p['kind']} r={p['r']}")
-        skey, loc = torch.sort(keys, stable=True)
-        got = cops.entry_fill(skey, loc, p["e_max"], d, tile, entropy.rb, on(inv))
-        twin = cops._entry_fill_plain(skey, loc, p["e_max"], d, tile, entropy.rb, on(inv))
+            perm, inv = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (perm_np, inv_np))
+        args = (p["v"], d, p["r"], p["tbl"], p["e_max"], dev, tile, entropy.rb, perm, inv)
+        got, again = cops.level_tables(*args), cops.level_tables(*args)
+        twin = cops._level_tables_plain(*args)
         for k, v in twin.items():
-            if not torch.equal(got[k].reshape(-1), v.reshape(-1)):
+            same = (torch.equal(got[k].reshape(-1), v.reshape(-1)) and torch.equal(again[k], got[k])
+                    if isinstance(v, torch.Tensor) else got[k] == v == again[k])
+            if not same:
                 raise AssertionError(f"[K10] {k} differs from the twin on {p['kind']} r={p['r']}")
         log(f"[K10] {p['kind']} level {p['level']} (r={p['r']}, {p['v']} vertices,"
-            f" {int(got['n_entries'])} entries): keys and tables exact against the twins")
+            f" {int(got['n_entries'])} entries, the longest {got['longest']}): tables exact"
+            f" against the twin (keys, stable torch.sort, fill), two runs equal")
     pd = plans[("3d", 80)]
     perm = torch.from_numpy(threefry.permutation(1234 + pd["level"], pd["v"]).astype(np.int32))
     got, twin = cops.dense_level(perm.to(dev), pd["r"]), cops._dense_level_plain(perm, pd["r"])
     for k, v in twin.items():
         if not torch.equal(got[k].cpu(), v):
             raise AssertionError(f"[K10] dense level: {k} differs from the twin")
-    del got, twin
-    # timing at the finest level: keys, and the fill over sorted keys
+    del got, twin, again
+    # timing at the finest level
     pf = plans[("3d", entropy.fine_res)]
     v, r, tbl, e_max = pf["v"], pf["r"], pf["tbl"], pf["e_max"]
-    skey, loc = torch.sort(cops.vertex_keys(v, 3, r, tbl, dev), stable=True)
-    kernel = lambda: (cops.vertex_keys(v, 3, r, tbl, dev), cops.entry_fill(skey, loc, e_max, 3))
-    plain = lambda: (cops._vertex_keys_plain(v, 3, r, tbl, 0, 0, None, dev),
-                     cops._entry_fill_plain(skey, loc, e_max, 3, 0, 0, None))
-    sort_ms = time_ms(lambda: torch.sort(skey, stable=True), iters=2, warmup=1)
-    # bytes: keys written; sorted keys and indices read; ordinals, vertex
-    # ids and the two per-entry arrays written
-    b, by = bound_ms(4 * v + 12 * v + 8 * v + 8 * e_max, 20 * v)
-    rec = dict(max_abs_err=0.0, ms=time_ms(kernel, iters=3, warmup=1),
-               plain_ms=time_ms(plain, iters=2, warmup=1), bound_ms=b, bound_by=by,
-               library_ms=None)
-    log(f"[K10 vertex_tables] finest level r={r}, {v} vertices: keys + fill ms={rec['ms']:.3f}"
-        f" plain_ms={rec['plain_ms']:.3f} bound_ms={b:.3f}; the stable sort between them"
-        f" (torch.sort) {sort_ms:.3f} ms")
+    args = (v, 3, r, tbl, e_max, dev, 0, 0, None, None)
+    keys = cops._vertex_keys_plain(v, 3, r, tbl, 0, 0, None, dev)
+    kernel = lambda: cops.level_tables(*args)
+    got, twin = kernel(), cops._level_tables_plain(*args)
+    for k, t in twin.items():
+        if not (torch.equal(got[k], t) if isinstance(t, torch.Tensor) else got[k] == t):
+            raise AssertionError(f"[K10] {k} differs from the twin at the finest level")
+    del twin
+    sort = lambda: torch.sort(keys, stable=True)
+    if not torch.equal(sort()[1].to(torch.int32), got["pos_flat"]):
+        raise AssertionError("[K10] a stable torch.sort's indices differ from pos_flat")
+    longest = got["longest"]
+    del got
+    # bytes: what any build must write, pos_flat and vert_entry (8 a
+    # vertex) and cum and entry_values (8 an entry)
+    b, by = bound_ms(8 * v + 8 * e_max, 0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    rec = dict(max_abs_err=0.0, ms=time_ms(kernel, iters=5, warmup=1),
+               device_ms=device_ms(kernel, iters=5),
+               plain_ms=time_ms(lambda: cops._level_tables_plain(*args), iters=2, warmup=1),
+               bound_ms=b, bound_by=by, library_ms=time_ms(sort, iters=3, warmup=1),
+               longest=longest, level_peak_gib=peak)
+    log(f"[K10 vertex_tables] finest level r={r}, {v} vertices, {e_max} entries (the longest"
+        f" {longest}): count + scan + place + order ms={rec['ms']:.3f}"
+        f" device_ms={rec['device_ms']:.3f} plain_ms={rec['plain_ms']:.3f} bound_ms={b:.3f};"
+        f" a stable torch.sort of the same keys (the library's call) {rec['library_ms']:.3f};"
+        f" the level's peak device memory {peak:.3f} GiB above its inputs")
     return rec
 
 
@@ -1648,27 +1686,32 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
     kernels.launches.update(cache_launches)     # comparison launches do not count
 
     # the encode's pools are recorded as they are called, to be replayed for
-    # their device time once the counts are read
-    pool_calls, pool = [], intctx.int_ctx_pool
+    # their device time once the counts are read; the pulls of both passes
+    # are counted
+    pool_calls, pool, pull = [], intctx.int_ctx_pool_pq, intctx.pull_probs
+    pulls = []
 
     def recording_pool(*args, **kw):
         pool_calls.append((args, kw))
         return pool(*args, **kw)
 
-    intctx.int_ctx_pool = recording_pool
+    def counting_pull(p):
+        pulls.append(p.raw.numel())
+        return pull(p)
+
     t0 = time.time()
-    try:
+    with swapped((intctx, "int_ctx_pool_pq", recording_pool), (intctx, "pull_probs", counting_pull)):
         pgs, est_mb, coded_mb = codec.encode(trr.ent_params, trained, occ_rate, str(bundle_dir),
                                              cache=cache_i)
         torch.cuda.synchronize()
-    finally:
-        intctx.int_ctx_pool = pool
     enc_s = time.time() - t0
+    enc_pulls = len(pulls)
     enc_launches = {k: kernels.launches[k] - cache_launches[k] for k in kernels.launches}
     kernels.reset_launches()
     t0 = time.time()
-    rec = codec.decode(trr.ent_params, occ_rate, pgs, str(bundle_dir), cache=cache_i)
-    torch.cuda.synchronize()
+    with swapped((intctx, "pull_probs", counting_pull)):
+        rec = codec.decode(trr.ent_params, occ_rate, pgs, str(bundle_dir), cache=cache_i)
+        torch.cuda.synchronize()
     dec_s = time.time() - t0
     dec_launches = dict(kernels.launches)
     codec_launches = {k: cache_launches[k] + enc_launches[k] + dec_launches[k]
@@ -1686,7 +1729,16 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
         raise AssertionError(f"[codec] {n_pools} pools a pass, but int_ctx_pool launched"
                              f" {enc_launches['int_ctx_pool']} times in the encode and"
                              f" {dec_launches['int_ctx_pool']} in the decode")
-    pool_ms = [device_ms(lambda a=a, kw=kw: intctx.int_ctx_pool(*a, **kw), iters=3)
+    # K9c has no launch of its own: every pool launch finishes its entries
+    # (int_pq counts those), and each pool reaches the host in one copy
+    if not (enc_launches["int_pq"] == dec_launches["int_pq"] == n_pools
+            and enc_pulls == len(pulls) - enc_pulls == n_pools):
+        raise AssertionError(f"[codec] {n_pools} pools a pass, but {enc_launches['int_pq']} and"
+                             f" {dec_launches['int_pq']} finishing launches and {enc_pulls} and"
+                             f" {len(pulls) - enc_pulls} pulls in the encode and the decode")
+    records["int_pq"].update(finishing_launches_per_pass=enc_launches["int_pq"],
+                             pulls_per_pool=len(pulls) / (2 * n_pools))
+    pool_ms = [device_ms(lambda a=a, kw=kw: intctx.int_ctx_pool_pq(*a, **kw), iters=3)
                for a, kw in pool_calls]
     intctx.raise_on_pool_faults(trr.device)
     del pool_calls
@@ -1708,7 +1760,9 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
         f" (cache {cache_s:.2f} s shared); launches per encode "
         + json.dumps({k: enc_launches[k] for k in codec_kernels}) + ", per decode "
         + json.dumps({k: dec_launches[k] for k in codec_kernels})
-        + f"; one pass's {n_pools} pools {sum(pool_ms):.4f} device ms in all (the largest"
+        + f"; K9c in every pool's launch and none of its own, one copy to the host a pool"
+        f" ({len(pulls)} pulls, {sum(pulls) / len(pulls):.0f} bytes on average)"
+        + f"; one pass's {n_pools} finished pools {sum(pool_ms):.4f} device ms in all (the largest"
         f" {max(pool_ms):.4f}, the encode's calls replayed)")
     if not abs(est_mb - coded_mb) / coded_mb < 0.15:
         raise AssertionError(f"[codec] coded {coded_mb} MB is not within 15% of the analytic"
@@ -2153,23 +2207,17 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated()
     t0 = time.time()
-    # the build's largest compaction (a level's entry heads) is kept for [K3]
-    heads, compact = [], scatter_ops.compact_mask_indices
-
-    def recording_heads(mask, cap):
-        if not heads or mask.numel() > heads[0][0].numel():
-            heads[:] = [(mask, cap)]
-        return compact(mask, cap)
-
-    with swapped((scatter_ops, "compact_mask_indices", recording_heads)):
+    with swapped((torch, "sort", None)):        # the build sorts nothing with torch.sort
         entropy = cm.ContextModels(rate_cfg.entropy, rate_cfg.model.grid_3d,
                                    rate_cfg.model.grid_2d)
     torch.cuda.synchronize()
     build_s = time.time() - t0
-    log(f"[K10] ContextModels built in {build_s:.2f} s; peak device memory"
+    log(f"[K10] ContextModels built in {build_s:.2f} s (no torch.sort); peak device memory"
         f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, tables hold"
         f" {(torch.cuda.memory_allocated() - mem_before) / 2**30:.2f} GiB;"
         f" launches {kernels.launches['vertex_tables']} (compaction {kernels.launches['compact']});"
+        f" the longest segment by level " + json.dumps(
+            {f"{k}{l}": n for (k, l), n in entropy.longest_segments.items()}) + ";"
         f" 3D entries " + json.dumps({l: t.n_entries for l, t in entropy.tables3d.items()})
         + " sample_n " + json.dumps({l: t.sample_n for l, t in entropy.tables3d.items()})
         + " max_win_pts " + json.dumps({l: t.max_win_pts for l, t in entropy.tables3d.items()})
@@ -2177,10 +2225,7 @@ def main() -> int:
         + " max_win_pts " + json.dumps({l: t.max_win_pts for l, t in entropy.tables2d.items()}))
     counted_so_far = dict(kernels.launches)
     records["vertex_tables"] = check_vertex_tables(torch, cops, entropy, dev)
-    k3_sites = {"build entry heads": check_compact_mask(
-        torch, scatter_ops, *heads[0], "build entry heads, the largest of the build",
-        device_ops["K3 build entry heads"])}
-    del heads
+    k3_sites = {}
     kernels.launches.update(counted_so_far)     # comparison launches do not count
     torch.cuda.reset_peak_memory_stats()
 
@@ -2205,7 +2250,7 @@ def main() -> int:
         fp_calls.append((args, kw))
         return footprint(*args, **kw)
 
-    pn_calls = []
+    pn_calls, compact = [], scatter_ops.compact_mask_indices
 
     def recording_pn(mask, cap):
         pn_calls.append((mask, cap))
@@ -2385,6 +2430,8 @@ def main() -> int:
         # cnc_tpu's pool composition: int_encode_levels (intctx.py:110), the
         # plane (:173), the MLPs (:214-242) and segment_sum_int (:325)
         "int_ctx_pool": ("int_context.cu", "cnc_tpu/models/context_models.py:1197", "codec"),
+        # K9c, the epilogue of the pool's launch: launches are the pool
+        # launches that finish their entries
         "int_pq": ("int_context.cu", "cnc_tpu/codec/intctx.py:344", "codec"),
         "pn_hist_int": ("pn_hist.cu", "cnc_tpu/codec/intctx.py:298", "codec"),
         # the packed copy of the mask cnc_tpu reads as bools at encoding.py:90-94
@@ -2409,6 +2456,9 @@ def main() -> int:
                         refresh_launches=r.get("refresh_launches"),
                         pass_device_ms=r.get("pass_device_ms"),
                         bound_two_kernels_ms=r.get("bound_two_kernels_ms"), other=r.get("other"),
+                        **{k: r[k] for k in ("added_device_ms", "finishing_launches_per_pass",
+                                             "pulls_per_pool", "longest", "level_peak_gib")
+                           if k in r},
                         rate_launches_per_step=rate_per_step.get(name)))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -17,11 +17,12 @@ utils_bpp_acc.py:709-999), writing and reading the same streams:
 
 The streams are byte-identical to cnc_tpu's for the same tables, occupancy
 and context weights, and a bundle written by either package decodes in the
-other.  The device work per pool is int_ctx_pool (the context encode, the
-MLP and the pooling of the window's kept rows, one launch) and K9c
-(probabilities, coverage and sign bits); the dimension-wise planes are K7i
-(codec/intctx.py).  The pools' order-fault word is read where the host
-pulls their results anyway, not after each pool.  What stays plain torch:
+other.  The device work per pool is one launch of int_ctx_pool (the context
+encode, the MLP and the pooling of the window's kept rows), finished in the
+same launch into K9c's probabilities, coverage and sign bits, which reach
+the host in one copy; the dimension-wise planes are K7i (codec/intctx.py).
+The pools' order-fault word is read where the host pulls their results
+anyway, not after each pool.  What stays plain torch:
 the per-table stats (one integer sum per level and the packed sign bits)
 and the decoded symbols' writes, one `index_copy_` per level (so no
 out-of-range padding row is needed, unlike cnc_tpu's recompile-avoiding
@@ -101,23 +102,20 @@ class CNCCodec:
             self.m_scale2[l] = intctx.M_SCALE >> s
 
     # ------------------------------------------------------------- the pools
-    # Each pool finishes the probability math on the device (K9c) and hands
-    # back (pq uint16, covered bool, sign bits uint8): 2 + 1/F + 1 bytes per
-    # symbol to pull instead of the 12 of raw msum, wsum and values.
+    # Each pool finishes the probability math on the device (K9c, in the
+    # pool's own launch) and hands back one buffer (pq uint16, sign bits
+    # uint8, covered bool): 2 + 1/F + 1 bytes per symbol, pulled in one copy
+    # (intctx.pull_probs), instead of the 12 of raw msum, wsum and values.
     def _pool3d(self, level, ip, sign3, cache, pg_q, start_e, with_bits=True):
         chunk_e, _, w = self.chunks3d[level]
-        msum, wsum, evals = self.ctx.pool_3d_sums_int(ip, sign3, cache, level, pg_q, start_e,
-                                                      chunk_e, w, self.m_shift3[level])
-        return intctx.int_pq(msum, wsum, self.m_scale3[level], sign3 if with_bits else None,
-                             self.ctx.tables3d[level].offset, evals if with_bits else None)
+        return self.ctx.pool_3d_probs_int(ip, sign3, cache, level, pg_q, start_e, chunk_e, w,
+                                          self.m_shift3[level], self.m_scale3[level], with_bits)
 
     def _pool2d(self, level, ip, sign2, pg_q, plane_q, mask2d_ax, with_bits=True):
         t = self.ctx.tables2d[level]
-        msum, cnt, evals = self.ctx.pool_2d_sums_int(ip, sign2, level, pg_q, plane_q, mask2d_ax,
-                                                     0, t.n_entries, t.n_points,
-                                                     self.m_shift2[level])
-        return intctx.int_pq(msum, cnt, self.m_scale2[level], sign2 if with_bits else None,
-                             t.offset, evals if with_bits else None)
+        return self.ctx.pool_2d_probs_int(ip, sign2, level, pg_q, plane_q, mask2d_ax, 0,
+                                          t.n_entries, t.n_points, self.m_shift2[level],
+                                          self.m_scale2[level], with_bits)
 
     def _check_pools(self):
         """Raise if a pool queued since the last check broke its kernel's
@@ -265,10 +263,9 @@ class CNCCodec:
                 off, size = ctx.spec2.offsets[l], ctx.spec2.level_sizes[l]
                 if self._is_global_2d(l):
                     write_global(f"{ax}{l}", bits2[off * f:(off + size) * f], pgs[f"{ax}{l}"])
-        for (ax, l), (pq_d, covered, vbits) in pool_outs.items():
-            cov = covered.cpu().numpy()
-            write(f"{ax}{l}", vbits.cpu().numpy()[cov].reshape(-1),
-                  pq_d.cpu().numpy()[cov].reshape(-1))
+        for (ax, l), out in pool_outs.items():
+            pq, cov, vbits = intctx.pull_probs(out)
+            write(f"{ax}{l}", vbits[cov].reshape(-1), pq[cov].reshape(-1))
 
         for fut in pending:
             name, digest, eb, ab = fut.result()
@@ -284,13 +281,13 @@ class CNCCodec:
     def _pull_ctx3d_level(self, outs, level, write):
         """Pull one level's chunk outputs and range-code them."""
         _, n_chunks, _ = self.chunks3d[level]
-        for c, ((want_lo, want_hi, start), (pq_d, covered, vbits)) in \
+        for c, ((want_lo, want_hi, start), out) in \
                 enumerate(zip(self._chunk_bounds(level), outs)):
             sl = slice(want_lo - start, want_hi - start)
-            cov = covered.cpu().numpy()[sl]
-            bits = vbits.cpu().numpy()[sl][cov].reshape(-1)
-            pq = pq_d.cpu().numpy()[sl][cov].reshape(-1)
-            write(f"3D{level}_{c}" if n_chunks > 1 else f"3D{level}", bits, pq)
+            pq, cov, vbits = intctx.pull_probs(out)
+            cov = cov[sl]
+            write(f"3D{level}_{c}" if n_chunks > 1 else f"3D{level}",
+                  vbits[sl][cov].reshape(-1), pq[sl][cov].reshape(-1))
 
     # ---------------------------------------------------------------- decode
     def decode(self, ent_params, binaries: torch.Tensor, pgs: Mapping[str, float], in_dir: str,
@@ -377,9 +374,8 @@ class CNCCodec:
                     for ai, ax in enumerate(AXES)}
             self._check_pools()
             for ax in AXES:
-                pq_d, covered, _ = outs[ax]
-                cov = covered.cpu().numpy()
-                pq = pq_d.cpu().numpy()[cov].reshape(-1)
+                pq, cov, _ = intctx.pull_probs(outs[ax])
+                pq = pq[cov].reshape(-1)
                 name = f"{ax}{l}"
                 bits = coder.decode_bits(read(name), pq)
                 verify(name, bits)
@@ -412,10 +408,11 @@ class CNCCodec:
                 for (_, _, start) in bounds]
         self._check_pools()
         idx_all, sym_all = [], []
-        for c, ((want_lo, want_hi, start), (pq_d, covered, _)) in enumerate(zip(bounds, outs)):
+        for c, ((want_lo, want_hi, start), out) in enumerate(zip(bounds, outs)):
             sl = slice(want_lo - start, want_hi - start)
-            cov = covered.cpu().numpy()[sl]
-            pq = pq_d.cpu().numpy()[sl][cov].reshape(-1)
+            pq, cov, _ = intctx.pull_probs(out)
+            cov = cov[sl]
+            pq = pq[sl][cov].reshape(-1)
             suffix = f"3D{level}_{c}" if n_chunks > 1 else f"3D{level}"
             bits = coder.decode_bits(read(suffix), pq)
             verify(suffix, bits)

@@ -24,11 +24,13 @@ operations in torch int32 (`int_encode_levels`, `int_encode_plane`,
 `int_overlap_grid`); they are the CPU path and the oracle the kernels are
 held to on the card.  The dispatching wrappers (`int_ctx_pool`, one codec
 pool: the context encode, the MLP and the pooling of a window's kept rows;
-`int_pq` K9c; `frac_plane` K7i) take the plain twins for CPU tensors and
-launch the kernels of csrc/int_context.cu and csrc/pn_hist.cu for CUDA
-tensors.  `int_encode` and `int_mlp_pool`, the encode and the MLP with its
-pooling over whole windows, are twins only (`int_ctx_pool_plain` is built
-from them) and refuse CUDA tensors.  The host steps that define the format
+`int_ctx_pool_pq`, the same pool finished into the coder's probabilities
+(K9c) in the same launch; `frac_plane` K7i) take the plain twins for CPU
+tensors and launch the kernels of csrc/int_context.cu and csrc/pn_hist.cu
+for CUDA tensors.  `int_encode`, `int_mlp_pool` and `int_pq`, the encode,
+the MLP with its pooling over whole windows and K9c alone, are twins only
+(`int_ctx_pool_plain` is built from the first two) and refuse CUDA
+tensors.  The host steps that define the format
 (`quantize_ctx_params`, `quantize_pg`, `host_pq`, the overlap grid's bounds)
 stay numpy float64 / int64, copied as they are.
 """
@@ -491,7 +493,7 @@ def _int_mlp_pool_plain(ip, level, feats, pg_q, m_shift, mask, slots, n_e, ovl=N
 def _refuse_cuda(name: str, t: torch.Tensor) -> None:
     if t.is_cuda:
         raise ValueError(f"{name}: a plain twin with no kernel of its own; on the card the "
-                         "codec's pools run through int_ctx_pool")
+                         "codec's pools run through int_ctx_pool and int_ctx_pool_pq")
 
 
 def lattice_index(ids: torch.Tensor, d: int, rf: int) -> torch.Tensor:
@@ -552,6 +554,85 @@ def int_ctx_pool_plain(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_o
                                ids_k if ovl is not None else None)
 
 
+class PoolProbs(tuple):
+    """One finished pool, the triple (pq [n_e, F] uint16, covered [n_e] bool,
+    bits [n_e, F] uint8 or None) that `int_pq` returns, as views of `raw`:
+    one uint8 buffer that holds them (pq, bits, covered) and goes to the
+    host in one copy (`pull_probs`)."""
+    raw: torch.Tensor
+
+    def __new__(cls, pq, covered, bits, raw):
+        self = super().__new__(cls, (pq, covered, bits))
+        self.raw = raw
+        return self
+
+    pq = property(lambda self: self[0])
+    covered = property(lambda self: self[1])
+    bits = property(lambda self: self[2])
+
+
+def _probs_views(raw: torch.Tensor, n_e: int, f: int, with_bits: bool) -> PoolProbs:
+    nb = f * n_e if with_bits else 0
+    pq = raw[:2 * f * n_e].view(torch.uint16).view(n_e, f)
+    bits = raw[2 * f * n_e:2 * f * n_e + nb].view(n_e, f) if with_bits else None
+    covered = raw[2 * f * n_e + nb:2 * f * n_e + nb + n_e].view(torch.bool)
+    return PoolProbs(pq, covered, bits, raw)
+
+
+def pull_probs(p: PoolProbs) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """(pq, covered, bits or None) of a finished pool as numpy arrays, in one
+    copy to the host."""
+    raw = p.raw.cpu().numpy()
+    n_e, f = p.pq.shape
+    nb = f * n_e if p.bits is not None else 0
+    pq = raw[:2 * f * n_e].view(np.uint16).reshape(n_e, f)
+    bits = raw[2 * f * n_e:2 * f * n_e + nb].reshape(n_e, f) if p.bits is not None else None
+    return pq, raw[2 * f * n_e + nb:2 * f * n_e + nb + n_e].view(np.bool_), bits
+
+
+def int_ctx_pool_pq(ip: Mapping, level: Optional[int], ids: torch.Tensor, slots: torch.Tensor,
+                    start_e: int, n_e: int, rf: int, occ_mask: torch.Tensor, mask_off: int,
+                    sign_tbl: torch.Tensor, levels: Sequence[LevelMeta], pg_q: int,
+                    m_shift: int, m_scale: int,
+                    plane: Optional[Tuple[torch.Tensor, int, int]] = None,
+                    ovl: Optional[torch.Tensor] = None, tbl_offset: int = 0,
+                    evals: Optional[torch.Tensor] = None) -> PoolProbs:
+    """One pool of the codec finished into the coder's probabilities:
+    `int_ctx_pool`'s sums, then K9c (`int_pq`: pq with m_scale, covered and,
+    with `evals`, the sign bits of sign_tbl's rows tbl_offset + evals [n_e]).
+
+    The window must hold exactly the rows of its entries: slots run from
+    start_e to start_e + n_e - 1 by steps of 0 or 1 (every entry has a row).
+    The twin raises where they do not; the kernel checks the kept rows only
+    (`int_ctx_pool`'s fault word, `raise_on_pool_faults`), and where the
+    rest fails its outputs are undefined.  CPU
+    tensors take the twins (`int_ctx_pool_plain`, then `_int_pq_plain`),
+    CUDA tensors one launch of csrc/int_context.cu's pool, whose blocks
+    finish their entries after their pooling.  Returns a `PoolProbs`.
+    """
+    fin = (int(m_scale), int(tbl_offset), evals)
+    if ids.is_cuda:
+        return _int_ctx_pool_cuda(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_off,
+                                  sign_tbl, levels, pg_q, m_shift, plane, ovl, fin)
+    _check_window(slots, start_e, n_e)
+    msum, wsum = int_ctx_pool_plain(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_off,
+                                    sign_tbl, levels, pg_q, m_shift, plane, ovl)
+    pq, covered, bits = _int_pq_plain(msum, wsum, m_scale,
+                                      sign_tbl if evals is not None else None, tbl_offset, evals)
+    parts = [pq.view(torch.uint8).reshape(-1)] + ([bits.reshape(-1)] if bits is not None else [])
+    raw = torch.cat(parts + [covered.view(torch.uint8)])
+    return _probs_views(raw, n_e, sign_tbl.shape[1], bits is not None)
+
+
+def _check_window(slots: torch.Tensor, start_e: int, n_e: int) -> None:
+    step = slots[1:].long() - slots[:-1].long()
+    if slots.shape[0] < n_e or (n_e and (
+            int(slots[0]) != start_e or int(slots[-1]) != start_e + n_e - 1
+            or bool(((step < 0) | (step > 1)).any()))):
+        raise ValueError("int_ctx_pool_pq: the window's rows must be exactly those of entries "
+                         "[start_e, start_e + n_e), sorted, each entry with at least one")
+
+
 def int_pq(msum: torch.Tensor, wsum: torch.Tensor, m_scale: int,
            sign_tbl: Optional[torch.Tensor] = None, offset: int = 0,
            evals: Optional[torch.Tensor] = None):
@@ -560,11 +641,10 @@ def int_pq(msum: torch.Tensor, wsum: torch.Tensor, m_scale: int,
 
     Returns (pq [n_e, F] uint16 = host_pq(msum, wsum, m_scale),
     covered [n_e] bool = wsum > 0, bits [n_e, F] uint8 = sign_tbl[offset +
-    evals] > 0, or None).  CPU tensors take the twins (`device_pq`), CUDA
-    tensors the kernel of csrc/int_context.cu.
+    evals] > 0, or None), through the twins (`device_pq`).  CPU tensors
+    only: on the card K9c runs in `int_ctx_pool_pq`'s launch.
     """
-    if msum.is_cuda:
-        return _int_pq_cuda(msum, wsum, m_scale, sign_tbl, offset, evals)
+    _refuse_cuda("int_pq", msum)
     return _int_pq_plain(msum, wsum, m_scale, sign_tbl, offset, evals)
 
 
@@ -690,10 +770,14 @@ def raise_on_pool_faults(device) -> None:
 
 
 def _int_ctx_pool_cuda(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_off, sign_tbl,
-                       levels, pg_q, m_shift, plane, ovl):
+                       levels, pg_q, m_shift, plane, ovl, fin=None):
+    """One launch: (msum, wsum) views of one zeroed buffer or, with fin =
+    (m_scale, tbl_offset, evals or None), a PoolProbs whose raw bytes follow
+    the sums in that buffer."""
     d = 3 if level is None else 2
     plane_q = plane[0] if plane is not None else None
-    _check_int("int_ctx_pool", ids, slots, sign_tbl, plane_q, ovl)
+    evals = fin[2] if fin is not None else None
+    _check_int("int_ctx_pool", ids, slots, sign_tbl, plane_q, ovl, evals)
     kernels.require_cuda("int_ctx_pool", ids, occ_mask)
     n, f, k = ids.shape[0], sign_tbl.shape[1], len(levels)
     dev = ids.device
@@ -710,10 +794,19 @@ def _int_ctx_pool_cuda(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_o
     want = [n_in, HIDDEN, HIDDEN, f] if d == 3 else [n_in, f]
     if dims != want:
         raise ValueError(f"int_ctx_pool: the MLP's widths {dims} differ from the kernel's {want}")
-    buf = torch.zeros(n_e * (f + 1), dtype=torch.int32, device=dev)
-    msum, wsum = buf[:n_e * f].view(n_e, f), buf[n_e * f:]
+    if fin is not None and (n < n_e or fin[0] < 1 or (evals is not None and evals.shape != (n_e,))):
+        raise ValueError("int_ctx_pool_pq: a row or more an entry, m_scale >= 1 and evals [n_e]")
+    # the sums, then (finishing) the outputs from a 16-byte boundary: one
+    # allocation and one memset a pool
+    head = -(-n_e * (f + 1) * 4 // 16) * 16
+    n_out = n_e * (3 * f + 1 if evals is not None else 2 * f + 1) if fin is not None else 0
+    buf = torch.zeros(-(-(head + n_out) // 4), dtype=torch.int32, device=dev)
+    msum, wsum = buf[:n_e * f].view(n_e, f), buf[n_e * f:n_e * (f + 1)]
+    probs = None
+    if fin is not None:
+        probs = _probs_views(buf.view(torch.uint8)[head:head + n_out], n_e, f, evals is not None)
     if n == 0 or n_e == 0:
-        return msum, wsum
+        return (msum, wsum) if fin is None else probs
     targets = [int(l[0]) for l in levels] + ([int(plane[1])] if plane is not None else [])
     tab = interp_table(rf, targets, dev)
     arr = lambda vals, ct: (ct * MAX_CTX_LEVELS)(*(list(vals) + [0] * (MAX_CTX_LEVELS - k)))
@@ -728,33 +821,20 @@ def _int_ctx_pool_cuda(ip, level, ids, slots, start_e, n_e, rf, occ_mask, mask_o
         work = _pool_work[key] = _PoolWork(dev)
     fault = _pool_fault_word(dev)
     p = kernels.ptr
+    m_scale, tbl_offset = (fin[0], fin[1]) if fin is not None else (0, 0)
     kernels.call("cnc_int_ctx_pool", p(ids), p(slots), n, int(start_e), n_e, d, rf,
                  p(occ_mask), occ_mask.shape[0], int(mask_off), p(sign_tbl), sign_tbl.shape[0],
                  f, k, res, offs, sizes, moffs, p(plane_q), pn_res, plane_moff, p(tab),
                  p(params), params.numel(), int(pg_q), int(m_shift), p(ovl),
                  ovl.shape[0] if ovl is not None else 0, p(msum), p(wsum), p(work.records),
-                 p(work.counter), p(fault))
+                 p(work.counter), p(fault), *((p(probs.pq), p(probs.covered), p(probs.bits))
+                                              if fin is not None else (None,) * 3),
+                 p(evals), tbl_offset, m_scale)
     kernels.launches["int_ctx_pool"] += 1
-    return msum, wsum
-
-
-def _int_pq_cuda(msum, wsum, m_scale, sign_tbl, offset, evals):
-    _check_int("int_pq", msum, wsum, sign_tbl, evals)
-    n_e, f = msum.shape
-    if f not in (2, 4) or wsum.shape != (n_e,) or (sign_tbl is None) != (evals is None):
-        raise ValueError("int_pq: msum [n_e, F = 2 or 4], wsum [n_e], sign_tbl with evals")
-    dev = msum.device
-    pq = torch.empty((n_e, f), dtype=torch.uint16, device=dev)
-    covered = torch.empty(n_e, dtype=torch.bool, device=dev)
-    bits = torch.empty((n_e, f), dtype=torch.uint8, device=dev) if evals is not None else None
-    if n_e == 0:
-        return pq, covered, bits
-    kernels.call("cnc_int_pq", kernels.ptr(msum), kernels.ptr(wsum), n_e, f, int(m_scale),
-                 kernels.ptr(sign_tbl), int(offset), kernels.ptr(evals),
-                 sign_tbl.shape[0] if sign_tbl is not None else 0, kernels.ptr(pq),
-                 kernels.ptr(covered), kernels.ptr(bits))
+    if fin is None:
+        return msum, wsum
     kernels.launches["int_pq"] += 1
-    return pq, covered, bits
+    return probs
 
 
 def _frac_plane_cuda(sign3, pn_ax, fine_offset, pn_res, f):

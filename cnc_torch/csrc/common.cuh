@@ -31,3 +31,22 @@ static __device__ __forceinline__ unsigned cnc_byte_bits16(uint4 v) {
   return cnc_byte_bits4(v.x) | cnc_byte_bits4(v.y) << 4 | cnc_byte_bits4(v.z) << 8 |
          cnc_byte_bits4(v.w) << 12;
 }
+
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 by a multiply and a shift
+// (PyTorch's IntDivider): shift = ceil(log2 d), m = 2^32 (2^shift - d) / d + 1
+struct FastDiv {
+  unsigned m;
+  int shift;
+};
+
+static inline FastDiv make_fastdiv(unsigned d) {
+  int s = 0;
+  while ((1ull << s) < d) ++s;
+  const unsigned long long m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return {static_cast<unsigned>(m), s};
+}
+
+static __device__ __forceinline__ int fastdiv(int n, FastDiv f) {
+  const unsigned u = static_cast<unsigned>(n);
+  return static_cast<int>((__umulhi(u, f.m) + u) >> f.shift);
+}

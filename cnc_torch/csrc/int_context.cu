@@ -1,5 +1,5 @@
-// K9: the integer codec context.  int_ctx_pool (one launch a pool) and
-// K9c int_pq.
+// K9: the integer codec context.  int_ctx_pool (one launch a pool), which
+// also finishes the coder's probabilities (K9c) in the same launch.
 //
 // Replaces (cnc_tpu, the XLA compositions of the codec's pool programs):
 //   int_ctx_pool: codec/intctx.py int_encode_levels (110-170) and
@@ -10,13 +10,14 @@
 //       (1197-1206) and pool_2d_level_int (1254-1260), `mean // 2**m_shift`,
 //       the overlap or count weight and the two segment_sum_int calls
 //       (intctx.py 325-331);
-//   K9c codec/intctx.py device_pq (344-372) and the covered and sign-bit
-//       outputs of codec/codec.py _pool3d_fn/_pool2d_fn (131-134, 150-153).
+//   K9c, its finish: codec/intctx.py device_pq (344-372) and the covered and
+//       sign-bit outputs of codec/codec.py _pool3d_fn/_pool2d_fn (131-134,
+//       150-153).
 // Plain twins: cnc_torch/codec/intctx.py int_ctx_pool_plain (the kept rows
 // through int_encode_levels, int_encode_plane, int_apply_ctx3d/2d and
-// segment_sum_int) and device_pq (K9c).
+// segment_sum_int), then _int_pq_plain (device_pq) for the finish.
 //
-// Every step is integer arithmetic, so each kernel equals its twin bit for
+// Every step is integer arithmetic, so the kernel equals its twins bit for
 // bit, the pool's atomics included (integer sums do not depend on their
 // order).  JAX's `//` floors, C++'s `/` truncates toward zero: every division
 // whose numerator can be negative goes through `floordiv`, or, by a power of
@@ -68,10 +69,28 @@
 //     blocks before it.  A violation sets *fault, a device word the wrapper
 //     reads.
 //
-// K9c.  One thread per entry: pq = clip(msum * 65536 // (max(wsum, 1) *
-// m_scale), 1, 65535) in int64 (msum <= 0 gives 1), which is host_pq's
-// formula and equals cnc_tpu's uint32 long division; covered = wsum > 0; the
-// entry's sign bits from its table row.  Bound: bytes.
+// K9c, the finish (with pq set).  Per entry: pq = clip(msum * 65536 //
+// (max(wsum, 1) * m_scale), 1, 65535) in int64 (msum <= 0 gives 1), which is
+// host_pq's formula and equals cnc_tpu's uint32 long division; covered =
+// wsum > 0; in encode the entry's sign bits from its table row.  Alone it
+// was one thread an entry in a launch of its own, whose fixed cost (a
+// launch, three allocations, three copies to the host) was nearly all of
+// its time; here it is the pool's epilogue.  The window's rows are exactly
+// the rows of entries [start_e, start_e + n_e), sorted, each entry with at
+// least one (the codec's windows are; the twin raises where a window is
+// not, and the kernel checks the kept rows only, as the pool always did).
+// So each entry's last row lies in one block's span [r0, r1), and that
+// block owns it.  A block finishes the entries it owns whose first row is in
+// its span too, after its own pooling (their sign bits, which need no sum,
+// before it): no other block adds to them.  An entry that starts before r0
+// and ends in the span (at most one a block, found by the block before its
+// pooling and left in its record) is finished by the last block to finish,
+// after the order check.  Each block computes what it finishes before the
+// pooling and keeps it in shared memory, and the finish has one call site,
+// to keep the pooling's registers as they were; ptxas still spills a few
+// bytes of the flagship 3D instance at its 128-register cap, outside the
+// per-row work (PERF.md).  Bound: bytes (the sums read, the outputs
+// written), far below the pool's own.
 
 #include "common.cuh"
 
@@ -95,25 +114,6 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 
 __device__ __forceinline__ int mul_wrap(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
-
-// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 by a multiply and a shift
-// (PyTorch's IntDivider): shift = ceil(log2 d), m = 2^32 (2^shift - d) / d + 1
-struct FastDiv {
-  unsigned m;
-  int shift;
-};
-
-FastDiv make_fastdiv(unsigned d) {
-  int s = 0;
-  while ((1ull << s) < d) ++s;
-  const unsigned long long m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
-  return {static_cast<unsigned>(m), s};
-}
-
-__device__ __forceinline__ int fastdiv(int n, FastDiv f) {
-  const unsigned u = static_cast<unsigned>(n);
-  return static_cast<int>((__umulhi(u, f.m) + u) >> f.shift);
 }
 
 struct CtxLevels {
@@ -146,9 +146,16 @@ struct PoolArgs {
   long long ovl_len;
   int* msum;             // [n_e, F], zeroed
   int* wsum;             // [n_e], zeroed
-  int2* records;         // [gridDim.x] (first, last) kept entry per block
+  int4* records;         // [gridDim.x] (first, last) kept entry and straddling entry per block
   unsigned* counter;     // blocks finished; 0 between launches
   int* fault;
+  // the finish (K9c), or pq null
+  unsigned short* pq;    // [n_e, F]
+  unsigned char* covered;  // [n_e]
+  unsigned char* bits;   // [n_e, F] or null
+  const int* evals;      // [n_e] the entries' sign rows, less tbl_offset
+  long long tbl_offset;
+  int m_scale;
 };
 
 template <int D, int F, int K, bool PLANE>
@@ -383,6 +390,58 @@ __device__ __forceinline__ bool warp_run_sums(int key, int* v, int lane) {
   return lane == 31 || ((heads >> (lane + 1)) & 1u);
 }
 
+// K9c's sign bits of entry e (they need no sum)
+template <int F>
+__device__ __forceinline__ void write_bits(const PoolArgs& a, int e) {
+  int v[F];
+  load_irow<F>(a.sign, clamp_row(a.tbl_offset + __ldg(a.evals + e), a.tbl_rows), v);
+  unsigned b = 0;
+#pragma unroll
+  for (int f = 0; f < F; ++f) b |= static_cast<unsigned>(v[f] > 0) << (8 * f);
+  if constexpr (F == 4) {
+    reinterpret_cast<unsigned*>(a.bits)[e] = b;
+  } else {
+    reinterpret_cast<unsigned short*>(a.bits)[e] = static_cast<unsigned short>(b);
+  }
+}
+
+// K9c's probabilities and coverage of entry e, whose sums are complete:
+// read through L2, where the atomics landed
+template <int F>
+__device__ __forceinline__ void finish_entry(const PoolArgs& a, int e) {
+  int m[F];
+  if constexpr (F == 4) {
+    const int4 q = __ldcg(reinterpret_cast<const int4*>(a.msum) + e);
+    m[0] = q.x; m[1] = q.y; m[2] = q.z; m[3] = q.w;
+  } else {
+    const int2 q = __ldcg(reinterpret_cast<const int2*>(a.msum) + e);
+    m[0] = q.x; m[1] = q.y;
+  }
+  const int ws = __ldcg(a.wsum + e);
+  a.covered[e] = ws > 0;
+  const long long den = static_cast<long long>(max(ws, 1)) * a.m_scale;
+  unsigned p[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    // msum * 65536 // den: below 2^47 over below 2^42, so the rounded double
+    // quotient is within 1/64 of the exact one and one correction step makes
+    // it the floor (cheaper than a 64-bit integer division)
+    long long q = 1;
+    if (m[f] > 0) {
+      const long long num = static_cast<long long>(m[f]) * 65536;
+      q = static_cast<long long>(__ddiv_rn(static_cast<double>(num), static_cast<double>(den)));
+      const long long r = num - q * den;
+      q += (r >= den) - (r < 0);
+    }
+    p[f] = static_cast<unsigned>(q < 1 ? 1 : (q > 65535 ? 65535 : q));
+  }
+  if constexpr (F == 4) {
+    reinterpret_cast<uint2*>(a.pq)[e] = make_uint2(p[0] | p[1] << 16, p[2] | p[3] << 16);
+  } else {
+    reinterpret_cast<unsigned*>(a.pq)[e] = p[0] | p[1] << 16;
+  }
+}
+
 // One batch of nb <= kThreads kept rows (queue order = row order): lane t of
 // the block takes q[t].
 template <int D, int F, int K, bool PLANE>
@@ -465,6 +524,43 @@ __device__ __forceinline__ void pool_batch(const PoolArgs& a, const int* q, int 
   __syncthreads();
 }
 
+// The last block's check of the blocks' (first, last) records: a block's
+// first kept entry must not lie below the largest last entry before it.
+__device__ __forceinline__ void check_block_order(const PoolArgs& a, int* wcount) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int carry = -1;   // the largest last entry of the blocks before this chunk
+  for (unsigned b0 = 0; b0 < gridDim.x; b0 += kThreads) {
+    const unsigned b = b0 + t;
+    const int4 r = b < gridDim.x ? __ldcg(a.records + b) : make_int4(-1, -1, -1, -1);
+    int incl = r.y;   // inclusive max-scan of the lasts over the block
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl = max(incl, u);
+    }
+    if (lane == 31) wcount[warp] = incl;
+    __syncthreads();
+    int before = carry;
+    for (int w = 0; w < warp; ++w) before = max(before, wcount[w]);
+    const int up = __shfl_up_sync(0xffffffffu, incl, 1);
+    const int excl = max(before, lane > 0 ? up : -1);
+    if (r.x >= 0 && r.x < excl) *a.fault = 1;
+    for (int w = 0; w < kWarps; ++w) carry = max(carry, wcount[w]);
+    __syncthreads();
+  }
+}
+
+// The entry that starts before the span [r0, r1) and ends in it (rows r0 - 1
+// and r0 share it, and its rows end before r1), or -1: the last block to
+// finish finishes it.
+__device__ __forceinline__ int straddling_entry(const PoolArgs& a, long long r0, long long r1) {
+  if (r0 == 0) return -1;
+  const int s = __ldg(a.slots + r0);
+  if (__ldg(a.slots + r0 - 1) != s || (r1 < a.n && __ldg(a.slots + r1) == s)) return -1;
+  const int e = s - a.start_e;
+  return e >= 0 && e < a.n_e ? e : -1;
+}
+
 template <int D, int F, int K, bool PLANE>
 __global__ void __launch_bounds__(kThreads, 2) int_ctx_pool_kernel(const PoolArgs a) {
   using S = Shape<D, F, K, PLANE>;
@@ -475,19 +571,38 @@ __global__ void __launch_bounds__(kThreads, 2) int_ctx_pool_kernel(const PoolArg
   int* sslot = queue + kQueue;
   __shared__ int wcount[32];
   __shared__ int s_total, s_carry, s_first, s_fault;
-  __shared__ bool s_last;
+  // the finish's work: the entries [s_lo, s_hi) this block finishes, the
+  // entry that straddles r0 (the last block finishes it), and whether the
+  // launch finishes at all (held in shared memory, so that no register
+  // carries them through the pooling)
+  __shared__ int s_lo, s_hi, s_str;
+  __shared__ bool s_last, s_fin;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int j = t; j < S::kParams; j += kThreads) sw[j] = __ldg(a.params + j);
   for (int j = t; j < S::kTables * a.rf; j += kThreads) tab[j] = __ldg(a.interp + j);
+  const long long r0 = static_cast<long long>(blockIdx.x) * a.span;
+  const long long r1 = min(a.n, r0 + a.span);
   if (t == 0) {
     s_carry = -1;
     s_first = -1;
     s_fault = 0;
+    // the entries whose rows all lie in [r0, r1): after the entry of row
+    // r0 - 1, before the entry of row r1
+    s_fin = a.pq != nullptr;
+    if (s_fin) {
+      s_lo = max(r0 == 0 ? 0 : __ldg(a.slots + r0 - 1) - a.start_e + 1, 0);
+      s_hi = min(r1 == a.n ? a.n_e : __ldg(a.slots + r1) - a.start_e, a.n_e);
+      s_str = straddling_entry(a, r0, r1);
+    }
   }
   __syncthreads();
+  // the sign bits of the entries this block finishes, and of the entry that
+  // straddles r0: they need no sum, so they are written before the pooling
+  if (s_fin && a.bits != nullptr) {
+    for (int e = s_lo + t; e < s_hi; e += kThreads) write_bits<F>(a, e);
+    if (t == 0 && s_str >= 0) write_bits<F>(a, s_str);
+  }
 
-  const long long r0 = static_cast<long long>(blockIdx.x) * a.span;
-  const long long r1 = min(a.n, r0 + a.span);
   int qlen = 0;
   for (long long base = r0; base < r1; base += kTile) {
     // the tile's kept rows, in row order, onto the queue
@@ -549,37 +664,32 @@ __global__ void __launch_bounds__(kThreads, 2) int_ctx_pool_kernel(const PoolArg
   if (qlen > 0)
     pool_batch<D, F, K, PLANE>(a, queue, qlen, sw, tab, sslot, s_carry, s_first, s_fault);
 
-  // the order across blocks: the last block to finish checks the records
+  // the order across blocks: the last block to finish checks the records.
+  // The block's adds come before thread 0's fence and count (the barrier at
+  // the end of each batch), so the last block reads other blocks' sums whole
   if (t == 0) {
-    a.records[blockIdx.x] = make_int2(s_first, s_carry);
+    a.records[blockIdx.x] = make_int4(s_first, s_carry, s_fin ? s_str : -1, 0);
     if (s_fault) *a.fault = 1;
     __threadfence();
     s_last = atomicAdd(a.counter, 1u) == gridDim.x - 1;
   }
   __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  int carry = -1;   // the largest last entry of the blocks before this chunk
-  for (unsigned b0 = 0; b0 < gridDim.x; b0 += kThreads) {
-    const unsigned b = b0 + t;
-    const int2 r = b < gridDim.x ? __ldcg(a.records + b) : make_int2(-1, -1);
-    int incl = r.y;   // inclusive max-scan of the lasts over the block
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl = max(incl, u);
-    }
-    if (lane == 31) wcount[warp] = incl;
-    __syncthreads();
-    int before = carry;
-    for (int w = 0; w < warp; ++w) before = max(before, wcount[w]);
-    const int up = __shfl_up_sync(0xffffffffu, incl, 1);
-    const int excl = max(before, lane > 0 ? up : -1);
-    if (r.x >= 0 && r.x < excl) *a.fault = 1;
-    for (int w = 0; w < kWarps; ++w) carry = max(carry, wcount[w]);
-    __syncthreads();
+  if (s_last) {
+    __threadfence();
+    check_block_order(a, wcount);
   }
-  if (t == 0) *a.counter = 0;
+  // the finish, one call site for both kinds of entry (so the pooling's
+  // registers stay as they were): those whose rows all lie in [r0, r1), and,
+  // in the last block, those that start before a block's span and end in it
+  if (s_fin) {
+    const int n_in = max(s_hi - s_lo, 0);
+    const int n_all = n_in + (s_last ? static_cast<int>(gridDim.x) : 0);
+    for (int j = t; j < n_all; j += kThreads) {
+      const int e = j < n_in ? s_lo + j : __ldcg(&a.records[j - n_in].z);
+      if (e >= 0) finish_entry<F>(a, e);
+    }
+  }
+  if (s_last && t == 0) *a.counter = 0;
 }
 
 template <int D, int F, int K, bool PLANE>
@@ -611,38 +721,12 @@ int launch_pool(PoolArgs a, cudaStream_t s) {
   return cnc_last_error();
 }
 
-template <int F>
-__global__ void int_pq_kernel(const int* __restrict__ msum, const int* __restrict__ wsum,
-                              long long n_e, int m_scale, const int* __restrict__ sign,
-                              long long offset, const int* __restrict__ evals, long long tbl_rows,
-                              unsigned short* __restrict__ pq, unsigned char* __restrict__ covered,
-                              unsigned char* __restrict__ bits) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n_e) return;
-  const int ws = wsum[e];
-  covered[e] = ws > 0;
-  const long long den = static_cast<long long>(max(ws, 1)) * m_scale;
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const int m = msum[e * F + f];
-    long long q = m <= 0 ? 1 : static_cast<long long>(m) * 65536 / den;
-    q = q < 1 ? 1 : (q > 65535 ? 65535 : q);
-    pq[e * F + f] = static_cast<unsigned short>(q);
-  }
-  if (bits != nullptr) {
-    int v[F];
-    load_irow<F>(sign, clamp_row(offset + evals[e], tbl_rows), v);
-#pragma unroll
-    for (int f = 0; f < F; ++f) bits[e * F + f] = v[f] > 0;
-  }
-}
-
 }  // namespace
 
-// The int32 words of a stream's scratch: the block records (two words a
+// The int32 words of a stream's scratch: the block records (four words a
 // block of the largest grid).  The finish counter is one more word, zeroed
 // once by the caller (each launch leaves it 0).
-CNC_EXPORT long long cnc_int_ctx_pool_scratch() { return 2LL * kMaxBlocks; }
+CNC_EXPORT long long cnc_int_ctx_pool_scratch() { return 4LL * kMaxBlocks; }
 
 // One codec pool.  ids [n] int32 packed vertex ids of an rf-lattice (D = 3:
 // the flat index, last axis fastest; D = 2: (x << 16) | y), slots [n] int32
@@ -656,7 +740,12 @@ CNC_EXPORT long long cnc_int_ctx_pool_scratch() { return 2LL * kMaxBlocks; }
 // (3D: the row weight max(ovl[id], 1), else 1).  msum [n_e, f] and wsum
 // [n_e] int32 zeroed by the caller; records [cnc_int_ctx_pool_scratch()]
 // and counter [1] scratch of the stream; fault [1] set to 1 where the kept
-// rows' entries leave [0, n_e) or decrease.
+// rows' entries leave [0, n_e) or decrease.  With pq [n_e, f] uint16 (4f-
+// byte aligned) and covered [n_e] the launch also finishes every entry
+// (K9c: pq with m_scale, covered; bits [n_e, f] uint8 (f-byte aligned), the
+// sign bits of rows tbl_offset + evals [n_e] int32, or both null); it then
+// needs slots to run from start_e to start_e + n_e - 1 by steps of 0 or 1,
+// and sets fault where they do not.
 CNC_EXPORT int cnc_int_ctx_pool(const int* ids, const int* slots, long long n, int start_e,
                                 int n_e, int d, int rf, const unsigned char* mask,
                                 long long mask_len, long long mask_off, const int* sign,
@@ -666,7 +755,17 @@ CNC_EXPORT int cnc_int_ctx_pool(const int* ids, const int* slots, long long n, i
                                 long long plane_moff, const int* interp, const int* params,
                                 long long n_params, int pg_q, int m_shift, const int* ovl,
                                 long long ovl_len, int* msum, int* wsum, int* records,
-                                unsigned* counter, int* fault, void* stream) {
+                                unsigned* counter, int* fault, unsigned short* pq,
+                                unsigned char* covered, unsigned char* bits, const int* evals,
+                                long long tbl_offset, int m_scale, void* stream) {
+  const auto misaligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes != 0;
+  };
+  if (f != 2 && f != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (pq != nullptr && (covered == nullptr || (bits == nullptr) != (evals == nullptr) ||
+                        m_scale < 1 || n < n_e || misaligned(pq, 2 * f) || misaligned(bits, f) ||
+                        misaligned(msum, 4 * f)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || n_e == 0) return 0;
   if (k < 0 || k > kMaxCtx || rf < 3 || rf > 65535 || m_shift < 0 || m_shift > 30 ||
       (d == 3 && (plane != nullptr || static_cast<long long>(rf) * rf * rf > 0x7fffffffLL)))
@@ -705,9 +804,15 @@ CNC_EXPORT int cnc_int_ctx_pool(const int* ids, const int* slots, long long n, i
   a.ovl_len = ovl_len;
   a.msum = msum;
   a.wsum = wsum;
-  a.records = reinterpret_cast<int2*>(records);
+  a.records = reinterpret_cast<int4*>(records);
   a.counter = counter;
   a.fault = fault;
+  a.pq = pq;
+  a.covered = covered;
+  a.bits = bits;
+  a.evals = evals;
+  a.tbl_offset = tbl_offset;
+  a.m_scale = m_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pl = plane != nullptr;
   long long want = -1;
@@ -732,26 +837,4 @@ CNC_EXPORT int cnc_int_ctx_pool(const int* ids, const int* slots, long long n, i
 #undef CNC_POOL_K
 #undef CNC_POOL
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// msum [n_e, f] int32, wsum [n_e] int32; sign [tbl_rows, f] int32 with evals
-// [n_e] int32 (the entries' table indices, offset added), or both null;
-// pq [n_e, f] uint16, covered [n_e] bool, bits [n_e, f] uint8 (null when sign
-// is), every element written.
-CNC_EXPORT int cnc_int_pq(const int* msum, const int* wsum, long long n_e, int f, int m_scale,
-                          const int* sign, long long offset, const int* evals,
-                          long long tbl_rows, unsigned short* pq, unsigned char* covered,
-                          unsigned char* bits, void* stream) {
-  if (n_e == 0) return 0;
-  if ((sign == nullptr) != (evals == nullptr) || (sign == nullptr) != (bits == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const unsigned blocks = cnc_blocks(n_e, threads);
-  switch (f) {
-    case 4: int_pq_kernel<4><<<blocks, threads, 0, s>>>(msum, wsum, n_e, m_scale, sign, offset, evals, tbl_rows, pq, covered, bits); break;
-    case 2: int_pq_kernel<2><<<blocks, threads, 0, s>>>(msum, wsum, n_e, m_scale, sign, offset, evals, tbl_rows, pq, covered, bits); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return cnc_last_error();
 }

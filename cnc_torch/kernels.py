@@ -35,9 +35,12 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 
 # grid_encode_v / grid_encode_v_bwd: launches of the encode kernels in their
 # masked or mixed-level variants (the rate estimate's), counted apart from the
-# plain ones; vertex_tables: every launch of csrc/vertex_tables.cu; the codec's
-# integer kernels: int_ctx_pool (one launch a pool), int_pq (csrc/int_context.cu)
-# and pn_hist_int (the integer mode of csrc/pn_hist.cu), counted apart from pn_frac_plane
+# plain ones; vertex_tables: every launch of csrc/vertex_tables.cu (four a
+# hashed level: count, scan, place, order; one a dense level); the codec's
+# integer kernels: int_ctx_pool (one launch a pool, csrc/int_context.cu), int_pq
+# (those of its launches that also finish the coder's probabilities, K9c, as
+# their epilogue: K9c has no launch of its own) and pn_hist_int (the integer
+# mode of csrc/pn_hist.cu), counted apart from pn_frac_plane
 # (one launch a frac plane) and pn_hist_bwd (its backward);
 # pack_mask_bits: the packing of the encode's occupancy masks (once per cache
 # refresh, csrc/grid_encode.cu); segment_pool / segment_pool_bwd: the backward
@@ -77,15 +80,16 @@ _SIGNATURES = {
     "cnc_pn_frac_plane": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I),
     "cnc_pn_hist_backward": ((_P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "cnc_footprint": ((_P, _I, _I, _I, _P, _I, _P, _P, _P), _I),
-    "cnc_vertex_keys": ((_P, _LL, _I, _I, _I, _I, _I, _P, _P), _I),
-    "cnc_vertex_heads": ((_P, _LL, _P, _P), _I),
-    "cnc_vertex_fill": ((_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P), _I),
+    "cnc_vertex_scratch_words": ((_LL,), _LL),
+    "cnc_vertex_segment_cap": ((), _I),
+    "cnc_vertex_tables": ((_LL, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P), _I),
+    "cnc_vertex_long_segments": ((_LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P,
+                                  _P, _P), _I),
     "cnc_dense_level": ((_P, _I, _I, _P, _P, _P, _P, _P), _I),
     "cnc_int_ctx_pool_scratch": ((), _LL),
     "cnc_int_ctx_pool": ((_P, _P, _LL, _I, _I, _I, _I, _P, _LL, _LL, _P, _LL, _I, _I, _IP, _LP,
                           _LP, _LP, _P, _I, _LL, _P, _P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P,
-                          _P, _P), _I),
-    "cnc_int_pq": ((_P, _P, _LL, _I, _I, _P, _LL, _P, _LL, _P, _P, _P, _P), _I),
+                          _P, _P, _P, _P, _P, _LL, _I, _P), _I),
     "cnc_pn_hist_int": ((_P, _LL, _LL, _P, _LL, _P, _P, _I, _I, _P, _P), _I),
 }
 

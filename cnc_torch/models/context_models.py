@@ -211,12 +211,14 @@ class ContextModels:
         count per plan.  The shuffles of the dense 3D levels and of the 2D
         levels use a fixed per-level threefry seed, so both codec sides (and
         both packages) rebuild the same order.  The sort is stable: within
-        one entry, vertices stay in ascending vertex id."""
+        one entry, vertices stay in ascending vertex id.  The most vertices
+        of one entry, per hashed plan, go to `self.longest_segments`."""
         dev = self.device
         rb = self.rb
         out3 = {"pos_flat": [], "vert_entry": [], "entry_values": [], "cum": []}
         out2 = {"coords": [], "block_id": [], "vert_entry": [], "entry_values": [], "cum": []}
         n_entries = []
+        self.longest_segments = {}
         as_dev = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
         for p in self._level_plans():
             if p["dense"]:
@@ -235,11 +237,9 @@ class ContextModels:
                     inv_np = np.empty_like(perm_np)
                     inv_np[perm_np] = np.arange(p["tbl"])
                     perm, inv = as_dev(perm_np), as_dev(inv_np)
-                keys = cops.vertex_keys(p["v"], d, p["r"], p["tbl"], dev, tile, rb, perm)
-                skey, loc = torch.sort(keys, stable=True)
-                del keys
-                part = cops.entry_fill(skey, loc, p["e_max"], d, tile, rb, inv)
-                del skey, loc
+                part = cops.level_tables(p["v"], d, p["r"], p["tbl"], p["e_max"], dev, tile, rb,
+                                         perm, inv)
+                self.longest_segments[(p["kind"], p["level"])] = part.pop("longest")
                 n_entries.append(part.pop("n_entries").reshape(()))
             dst = out3 if p["kind"] == "3d" else out2
             for k in dst:
@@ -922,23 +922,40 @@ class ContextModels:
         evals = a["entry_values"][t.e_off + start_e:t.e_off + start_e + n_e]
         return a[name][rows], a["vert_entry"][rows], evals
 
-    def pool_3d_sums_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
-                         m_shift):
-        """The integer pooled sums of one 3D level window: (msum [n_e, F],
-        wsum [n_e] int32, entry values [n_e]).  One `intctx.int_ctx_pool`:
-        the window's kept vertices encoded against the k coarser levels, the
-        fixed-point MLP, the pooling by the integer overlap weights."""
+    def _pool_3d_args(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w, m_shift):
+        """One 3D level window's `intctx.int_ctx_pool` arguments (the overlap
+        weights last) and its entries' values."""
         cfg = self.cfg
         t = self.tables3d[level]
         pos, slots, evals = self._entry_rows("3d", level, start_e, n_e, w, "pos_flat")
         k = cfg.max_context_layer_num
         levels = self._ctx_levels_meta(self.spec3, self.mask3d_offsets, level - k, level)
         ovl = cache_i["ovl_int"][str(level)] if cfg.use_overlap_area_pool else None
-        msum, wsum = intctx.int_ctx_pool(int_params, None, pos, slots, start_e, n_e,
-                                         t.resolution, cache_i["mask3d"],
-                                         self.mask3d_offsets[level], sign3, levels, pg_q, m_shift,
-                                         ovl=ovl)
+        return (int_params, None, pos, slots, start_e, n_e, t.resolution, cache_i["mask3d"],
+                self.mask3d_offsets[level], sign3, levels, pg_q, m_shift, None, ovl), evals
+
+    def pool_3d_sums_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
+                         m_shift):
+        """The integer pooled sums of one 3D level window: (msum [n_e, F],
+        wsum [n_e] int32, entry values [n_e]).  One `intctx.int_ctx_pool`:
+        the window's kept vertices encoded against the k coarser levels, the
+        fixed-point MLP, the pooling by the integer overlap weights."""
+        args, evals = self._pool_3d_args(int_params, sign3, cache_i, level, pg_q, start_e, n_e,
+                                         w, m_shift)
+        msum, wsum = intctx.int_ctx_pool(*args)
         return msum, wsum, evals
+
+    def pool_3d_probs_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
+                          m_shift, m_scale, with_bits=True) -> intctx.PoolProbs:
+        """The coder's probabilities of one 3D level window: the pool of
+        `pool_3d_sums_int` finished in the same launch
+        (`intctx.int_ctx_pool_pq`): pq with m_scale, covered and, with
+        `with_bits`, the entries' sign bits."""
+        args, evals = self._pool_3d_args(int_params, sign3, cache_i, level, pg_q, start_e, n_e,
+                                         w, m_shift)
+        return intctx.int_ctx_pool_pq(*args[:13], m_scale, *args[13:],
+                                      tbl_offset=self.tables3d[level].offset,
+                                      evals=evals if with_bits else None)
 
     def pool_3d_level_int(self, int_params, sign3, cache_i, level, pg_q, start_e, n_e, w,
                           m_shift):
@@ -962,16 +979,33 @@ class ContextModels:
         un-decoded (+1) entry where encode read the trained sign and the
         coder desyncs.  plane_q: the int dimension-wise prior plane or None.
         """
+        args, evals = self._pool_2d_args(int_params, sign2, level, pg_q, plane_q, mask2d_ax,
+                                         start_e, n_e, w, m_shift)
+        msum, cnt = intctx.int_ctx_pool(*args)
+        return msum, cnt, evals
+
+    def _pool_2d_args(self, int_params, sign2, level, pg_q, plane_q, mask2d_ax, start_e, n_e, w,
+                      m_shift):
+        """One 2D level window's `intctx.int_ctx_pool` arguments (the plane
+        and the overlap weights last) and its entries' values."""
         cfg = self.cfg
         t = self.tables2d[level]
         coords, slots, evals = self._entry_rows("2d", level, start_e, n_e, w, "coords")
         cln = min(level, cfg.max_context_layer_num)
         levels = self._ctx_levels_meta(self.spec2, self.mask2d_offsets, level - cln, level)
         plane = (plane_q, self.pn_res, self.pn_mask_offset) if plane_q is not None else None
-        msum, cnt = intctx.int_ctx_pool(int_params, level, coords, slots, start_e, n_e,
-                                        t.resolution, mask2d_ax, self.mask2d_offsets[level],
-                                        sign2, levels, pg_q, m_shift, plane=plane)
-        return msum, cnt, evals
+        return (int_params, level, coords, slots, start_e, n_e, t.resolution, mask2d_ax,
+                self.mask2d_offsets[level], sign2, levels, pg_q, m_shift, plane, None), evals
+
+    def pool_2d_probs_int(self, int_params, sign2, level, pg_q, plane_q, mask2d_ax, start_e, n_e,
+                          w, m_shift, m_scale, with_bits=True) -> intctx.PoolProbs:
+        """The coder's probabilities of one 2D level window, as
+        `pool_3d_probs_int`."""
+        args, evals = self._pool_2d_args(int_params, sign2, level, pg_q, plane_q, mask2d_ax,
+                                         start_e, n_e, w, m_shift)
+        return intctx.int_ctx_pool_pq(*args[:13], m_scale, *args[13:],
+                                      tbl_offset=self.tables2d[level].offset,
+                                      evals=evals if with_bits else None)
 
     def pool_2d_level_int(self, int_params, sign2, level, pg_q, plane_q, mask2d_ax, start_e, n_e,
                           w, m_shift):

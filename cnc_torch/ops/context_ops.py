@@ -20,7 +20,7 @@ import torch
 from torch.nn import functional as nn_functional
 
 from .. import kernels
-from . import hash_ops, scatter_ops
+from . import hash_ops
 
 
 # ------------------------------------------------------------------ K6
@@ -576,28 +576,6 @@ def _vertex_keys_plain(v, d, r, size, tile, rb, perm, device):
     return idx.to(torch.int32)
 
 
-def _vertex_keys_cuda(v, d, r, size, tile, rb, perm, device):
-    kernels.require_cuda("vertex_keys", perm)
-    if perm is not None and (perm.dtype != torch.int32 or perm.shape != (size,)):
-        raise ValueError("vertex_keys: perm must be int32 [size]")
-    keys = torch.empty(v, dtype=torch.int32, device=device)
-    kernels.call("cnc_vertex_keys", kernels.ptr(keys), v, d, r, size, tile, rb, kernels.ptr(perm))
-    kernels.launches["vertex_tables"] += 1
-    return keys
-
-
-def vertex_keys(v: int, d: int, r: int, size: int, device, tile: int = 0, rb: int = 0,
-                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sort keys of one level's vertices: vertex id -> lattice coords (the 3D
-    raster with the last axis fastest, or the 2D block lattice) -> table
-    entry (`grid_index`) -> `perm[entry]` when an entry permutation is given.
-    Returns int32 [v] on `device`; the plain twin on the CPU, the kernel of
-    csrc/vertex_tables.cu on a CUDA device."""
-    device = torch.device(device)
-    fn = _vertex_keys_cuda if device.type == "cuda" else _vertex_keys_plain
-    return fn(v, d, r, size, tile, rb, perm, device)
-
-
 def _entry_fill_plain(skey, loc, e_max, d, tile, rb, inv):
     v = skey.shape[0]
     dev = skey.device
@@ -613,7 +591,8 @@ def _entry_fill_plain(skey, loc, e_max, d, tile, rb, inv):
     values = values[:e_max]
     if inv is not None:
         values = inv[values.long()]
-    out = {"cum": cum[:e_max + 1], "entry_values": values, "vert_entry": ords, "n_entries": hc[-1]}
+    out = {"cum": cum[:e_max + 1], "entry_values": values, "vert_entry": ords,
+           "n_entries": hc[-1] if v else torch.zeros((), dtype=torch.int32, device=dev)}
     if d == 3:
         out["pos_flat"] = loc.to(torch.int32)
     else:
@@ -623,29 +602,39 @@ def _entry_fill_plain(skey, loc, e_max, d, tile, rb, inv):
     return out
 
 
-def _entry_fill_cuda(skey, loc, e_max, d, tile, rb, inv):
-    kernels.require_cuda("vertex_fill", skey, loc, inv)
-    v = skey.shape[0]
-    if skey.dtype != torch.int32 or loc.dtype != torch.int64 or loc.shape != (v,) or \
-            (inv is not None and inv.dtype != torch.int32):
-        raise ValueError("vertex_fill: the kernel takes int32 keys, int64 sort indices and an "
-                         "int32 inverse permutation")
-    dev = skey.device
-    head = torch.empty(v, dtype=torch.bool, device=dev)
-    kernels.call("cnc_vertex_heads", kernels.ptr(skey), v, kernels.ptr(head))
-    kernels.launches["vertex_tables"] += 1
-    # the heads' positions in ascending order are cum[0 .. n_entries)
-    heads, n_entries = scatter_ops.compact_mask_indices(head, e_max + 1)
-    del head
-    new = lambda n: torch.empty(n, dtype=torch.int32, device=dev)
+def _level_tables_plain(v, d, r, size, e_max, device, tile, rb, perm, inv):
+    keys = _vertex_keys_plain(v, d, r, size, tile, rb, perm, device)
+    skey, loc = torch.sort(keys, stable=True)
+    out = _entry_fill_plain(skey, loc, e_max, d, tile, rb, inv)
+    counts = torch.bincount(keys.long(), minlength=1) if v else keys
+    out["longest"] = int(counts.max()) if v else 0
+    return out
+
+
+def _level_tables_cuda(v, d, r, size, e_max, device, tile, rb, perm, inv):
+    kernels.require_cuda("vertex_tables", perm, inv)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    for name, t in (("perm", perm), ("inv", inv)):
+        if t is not None and (t.dtype != torch.int32 or t.shape != (size,) or t.device != device):
+            raise ValueError(f"vertex_tables: {name} must be int32 [size] on {device}")
+    lib = kernels.lib()
+    scratch = torch.zeros(lib.cnc_vertex_scratch_words(size), dtype=torch.int32, device=device)
+    new = lambda n: torch.empty(n, dtype=torch.int32, device=device)
     cum, values, vert_entry, pos = new(e_max + 1), new(e_max), new(v), new(v)
     block_id = new(v) if d == 2 else None
-    kernels.call("cnc_vertex_fill", kernels.ptr(skey), kernels.ptr(loc), kernels.ptr(heads),
-                 kernels.ptr(n_entries), v, e_max, d, tile, rb, kernels.ptr(inv), kernels.ptr(cum),
-                 kernels.ptr(values), kernels.ptr(vert_entry), kernels.ptr(pos),
-                 kernels.ptr(block_id))
-    kernels.launches["vertex_tables"] += 1
-    out = {"cum": cum, "entry_values": values, "vert_entry": vert_entry, "n_entries": n_entries}
+    p = kernels.ptr
+    kernels.call("cnc_vertex_tables", v, d, r, size, tile, rb, p(perm), p(inv), e_max,
+                 p(scratch), p(cum), p(values), p(vert_entry), p(pos), p(block_id))
+    kernels.launches["vertex_tables"] += 4      # count, scan, place, order
+    # the build's one host read a level: n_entries and the longest segment
+    n_entries, longest = (int(x) for x in scratch[1:3].cpu())
+    cap = lib.cnc_vertex_segment_cap()
+    if longest > cap:
+        _long_segments(v, d, r, size, tile, rb, cum, n_entries, longest, cap, vert_entry, pos,
+                       block_id)
+    out = {"cum": cum, "entry_values": values, "vert_entry": vert_entry,
+           "n_entries": scratch[1].clone(), "longest": longest}
     if d == 3:
         out["pos_flat"] = pos
     else:
@@ -653,22 +642,54 @@ def _entry_fill_cuda(skey, loc, e_max, d, tile, rb, inv):
     return out
 
 
-def entry_fill(skey: torch.Tensor, loc: torch.Tensor, e_max: int, d: int, tile: int = 0,
-               rb: int = 0, inv: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """One level's tables from its stably sorted keys.
+def _long_segments(v, d, r, size, tile, rb, cum, n_entries, longest, cap, vert_entry, pos,
+                   block_id):
+    """The order of the segments above the kernel's shared-memory cap: the
+    host lists them (and their tiles of `cap` ids), the kernels sort the
+    tiles and merge them in passes of doubling width."""
+    starts = cum[:n_entries].cpu().numpy().astype(np.int64)
+    lens = np.append(starts[1:], v) - starts
+    big = np.nonzero(lens > cap)[0]
+    segs = np.stack([starts[big], lens[big], big], 1).astype(np.int32)
+    first = np.concatenate([[0], np.cumsum(lens[big])]).astype(np.int32)
+    tiles = np.array([(s + o, min(cap, n - o)) for s, n in zip(starts[big], lens[big])
+                      for o in range(0, n, cap)], np.int32)
+    passes = max(0, int(np.ceil(np.log2(longest / cap))))
+    dev = cum.device
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    segs_d, first_d, tiles_d = on(segs), on(first), on(tiles)
+    p = kernels.ptr
+    kernels.call("cnc_vertex_long_segments", v, d, r, size, tile, rb, p(segs_d), p(first_d),
+                 len(big), int(first[-1]), p(tiles_d), len(tiles), passes, p(vert_entry), p(pos),
+                 p(block_id))
+    kernels.launches["vertex_tables"] += 2 + passes
 
-    skey [V] int32 ascending, loc [V] int64 the vertex id of each sorted slot
-    (the sort's indices), e_max the padded entry capacity, inv the inverse of
-    the entry permutation behind the keys (or None).  Returns int32 tensors:
-    cum [e_max + 1] (first sorted slot of each entry, V past the exact entry
-    count), entry_values [e_max] (each entry's table index, 0 past the count
-    before `inv` is applied), vert_entry [V] (each slot's entry ordinal),
-    n_entries (0-dim), and pos_flat [V] in 3D or coords [V] ((x << 16) | y)
-    and block_id [V] in 2D.  CPU tensors take the plain twin, CUDA tensors
-    the kernels of csrc/vertex_tables.cu (and the compaction kernel).
+
+def level_tables(v: int, d: int, r: int, size: int, e_max: int, device, tile: int = 0,
+                 rb: int = 0, perm: Optional[torch.Tensor] = None,
+                 inv: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The tables of one hashed level (K10): its v vertices (the 3D raster
+    with the last axis fastest, or the 2D block lattice) sorted stably by
+    their keys (`grid_index`, then `perm[entry]` when an entry permutation
+    is given).  Returns int32 tensors: cum [e_max + 1] (each entry's first
+    sorted slot, v past the exact entry count), entry_values [e_max] (each
+    entry's key through `inv`, the inverse of `perm`; the key 0 through it
+    past the count), vert_entry [v] (each slot's entry ordinal), n_entries
+    (0-dim), and pos_flat [v] in 3D or coords [v] ((x << 16) | y) and
+    block_id [v] in 2D; and `longest`, the most vertices of one entry (an
+    int).  Within one entry the vertices stay in ascending vertex id.
+
+    On the CPU the plain twin: the keys, a stable torch.sort, the fill
+    (`_level_tables_plain`).  On a CUDA device the counting sort of
+    csrc/vertex_tables.cu (count, scan, place, order; no sort), with one
+    host read of n_entries and the longest segment, and two more launches
+    and the merge passes where a segment exceeds the kernel's cap.
     """
-    fn = _entry_fill_cuda if skey.is_cuda else _entry_fill_plain
-    return fn(skey.contiguous(), loc.contiguous(), e_max, d, tile, rb, inv)
+    device = torch.device(device)
+    if v > 0x7fffffff:
+        raise ValueError("vertex_tables: vertex ids are int32")
+    fn = _level_tables_cuda if device.type == "cuda" else _level_tables_plain
+    return fn(v, d, r, size, e_max, device, tile, rb, perm, inv)
 
 
 def _dense_level_plain(perm, r):

@@ -5,7 +5,11 @@ the queue is cut into batches of one row a lane, the warps' segmented sums
 over runs of equal entries with one add a run, and the order check within a
 block and across blocks.  tests/test_torch_codec_pool.py holds the mirror to
 `intctx.segment_sum_int` and to a direct check of the precondition; the
-cases here are the tile, warp, batch and block edges.
+cases here are the tile, warp, batch and block edges.  The finish (K9c in the
+pool's launch, `int_ctx_pool_pq`): which block finishes which entry
+(`finish_partition`), the window check every row passes (`window_ok`) and the
+per-entry arithmetic (`finish_entry`); tests/test_torch_pool_finish.py holds
+them to the twins.
 """
 
 import numpy as np
@@ -165,3 +169,73 @@ def case(name, rng):
 
 CASES = ("tile edges", "warp edges", "run over warps and blocks", "entry with no kept row",
          "one entry", "sparse")
+
+
+def window_ok(slots, start_e, n_e):
+    """The finish's check of every row: the first row's entry is start_e, the
+    last's start_e + n_e - 1, each row's entry its predecessor's or the next
+    (window_row_ok, the unsigned difference at most 1)."""
+    s = np.asarray(slots, np.int64)
+    if s.size == 0:
+        return n_e == 0
+    step = (s[1:] - s[:-1]) % (1 << 32)
+    return bool(s[0] == start_e and s[-1] == start_e + n_e - 1 and (step <= 1).all())
+
+
+def finish_partition(slots, start_e, n_e, spans, mutation=None):
+    """Who finishes which entry: [(entry, block, phase)] with phase "inside"
+    (block b, after its pooling: the entries after the entry of row r0 - 1
+    and before the entry of row r1) or "last" (the last block to finish:
+    the entry at a boundary r0 inside it that ends before that block's r1).
+    `mutation` breaks the rule as a faulty kernel would: "r0 off by one"
+    (the inside range starts at the entry of row r0 - 1), "no hand-over"
+    (no straddling entry is finished), "hand-over at every boundary" (the
+    last block also takes a straddling entry that ends in a later block)."""
+    slots = np.asarray(slots, np.int64)
+    n, out = slots.size, []
+    for b, (r0, r1) in enumerate(spans):
+        lo = 0 if r0 == 0 else int(slots[r0 - 1]) - start_e + 1
+        if mutation == "r0 off by one" and r0 > 0:
+            lo -= 1
+        hi = n_e if r1 == n else int(slots[r1]) - start_e
+        out += [(e, b, "inside") for e in range(max(lo, 0), min(hi, n_e))]
+    if mutation == "no hand-over":
+        return out
+    for b in range(1, len(spans)):
+        r0, r1 = spans[b]
+        s = int(slots[r0])
+        if slots[r0 - 1] != s:
+            continue
+        if r1 < n and slots[r1] == s and mutation != "hand-over at every boundary":
+            continue
+        if 0 <= s - start_e < n_e:
+            out.append((s - start_e, len(spans) - 1, "last"))
+    return out
+
+
+def finish_quotient(m, den):
+    """finish_entry's msum * 65536 // den for msum > 0: the quotient of the
+    two as doubles (IEEE, correctly rounded), truncated, then moved by one
+    where the remainder leaves [0, den)."""
+    num = np.asarray(m, np.int64) * 65536
+    den = np.asarray(den, np.int64)
+    q = (num.astype(np.float64) / den.astype(np.float64)).astype(np.int64)
+    r = num - q * den
+    return q + (r >= den) - (r < 0)
+
+
+def finish_entry(msum, wsum, m_scale, sign_rows=None):
+    """One entry's finish as the kernel computes it (host_pq's formula, the
+    quotient by `finish_quotient`): (pq [F] uint16, covered, bits [F] uint8
+    or None)."""
+    m = np.asarray(msum, np.int64)
+    den = max(int(wsum), 1) * m_scale
+    q = np.where(m <= 0, 1, finish_quotient(np.maximum(m, 1), den))
+    pq = np.clip(q, 1, 65535).astype(np.uint16)
+    bits = None if sign_rows is None else (np.asarray(sign_rows) > 0).astype(np.uint8)
+    return pq, bool(wsum > 0), bits
+
+
+def window_slots(counts, start_e=0):
+    """[n] sorted slots of a window whose entry e holds counts[e] rows."""
+    return np.repeat(np.arange(len(counts), dtype=np.int64) + start_e, counts)

@@ -33,16 +33,23 @@ change within a warp, 1, 31, 33 and a tile plus one points, every corner
 masked, mask offsets inside a word, points outside [0,1], zero gradient
 rows; the forward bit-equal) and the mask packing (ragged last words, rows
 that start unaligned, views at byte offsets, the planes' and the whole 3D
-mask's sizes; tests/compact_pack_cases.py); the table build on
-a dense, a hashed and a 2D level; a few rate steps on the card.  For the
-codec's integer kernels (the fused pool int_ctx_pool, K9c, K7i), held to
-their twins with torch.equal: the pool with no row kept, every row kept,
+mask's sizes; tests/compact_pack_cases.py); the table build's dense level
+and its counting sort at tests/vertex_sort_cases.py's levels (a key holding
+every vertex, above the shared-memory cap, segments on both sides of the
+cap, empty keys, a table size that is not a power of two, 2D levels
+through perm and inv; no torch.sort, launches counted); a few rate steps
+on the card.  For the
+codec's integer kernels (the fused pool int_ctx_pool, the pool finished by
+K9c in its launch, K7i), held to their twins with torch.equal: the
+finished pool at n_e of 0, 1 and 4,099, an entry over many blocks, F of 2
+and 4, 3D and 2D with and without the plane, with and without the sign
+bits, and its fault word; the pool with no row kept, every row kept,
 one entry over many blocks, weights at +-W_MAX where the LeakyReLU's
 product wraps, overlap weights of 0, F of 2 and 4, 2D with and without the
 plane and with no context level, two runs equal, and its fault word on
 entries that decrease inside a warp, between warps, batches and blocks,
-across a block with no kept row, or leave their range; saturated and zero
-probabilities; the wrappers' refusals; and a tiny encode on the card whose
+across a block with no kept row, or leave their range; the wrappers'
+refusals; and a tiny encode on the card whose
 streams equal the same encode through the twins on the CPU, decoded back on
 the card.  For the
 per-ray march (every field equal to the twin's, the per-ray hit counts and
@@ -84,6 +91,7 @@ from cnc_torch.ops import encoding as enc
 from cnc_torch.ops import scatter_ops
 from cnc_torch.render import marching, renderer, volrend
 from cnc_torch.train.trainer import Trainer
+import vertex_sort_cases as vc
 from compact_pack_cases import COMPACT_CASES, PACK_CASES, compact_case, pack_case
 from pn_frac_cases import CASES as PN_CASES
 from pn_frac_cases import pn_case
@@ -1243,29 +1251,42 @@ TINY_E = EntropyConfig(n_features=2, sample_num=500, max_context_layer_num=2, Pg
 
 
 def test_vertex_table_kernels(dev):
-    """K10: the keys, the fill and the dense level equal their twins exactly,
-    on a dense 3D level (10^3 <= 1024), a hashed one (34^3) and a 2D level."""
+    """K10's dense level equals its twin exactly (10^3 <= 1024)."""
     perm = torch.randperm(1000, generator=torch.Generator().manual_seed(1)).to(torch.int32)
     got, want = cops.dense_level(perm.to(dev), 10), cops._dense_level_plain(perm, 10)
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
-    perm2 = torch.randperm(256, generator=torch.Generator().manual_seed(2)).to(torch.int32)
-    inv2 = torch.empty_like(perm2)
-    inv2[perm2.long()] = torch.arange(256, dtype=torch.int32)
-    for d, r, size, tile, rb, p, inv in ((3, 34, 1024, 0, 0, None, None),
-                                         (2, 34, 256, 2, 16, perm2, inv2)):
-        v = r ** 3 if d == 3 else rb * rb * (tile + 2) ** 2
-        on = lambda t: None if t is None else t.to(dev)
-        keys = cops.vertex_keys(v, d, r, size, dev, tile, rb, on(p))
-        want_keys = cops._vertex_keys_plain(v, d, r, size, tile, rb, p, torch.device("cpu"))
-        assert torch.equal(keys.cpu(), want_keys)
-        skey, loc = torch.sort(keys, stable=True)
-        e_max = min(size, v)
-        got = cops.entry_fill(skey, loc, e_max, d, tile, rb, on(inv))
-        want = cops._entry_fill_plain(skey.cpu(), loc.cpu(), e_max, d, tile, rb, inv)
-        assert set(got) == set(want)
-        for k in want:
-            assert torch.equal(got[k].cpu().reshape(-1), want[k].reshape(-1)), (d, k)
+
+
+@pytest.mark.parametrize("name", vc.TABLE_CASES)
+def test_vertex_count_sort_kernel(dev, name, monkeypatch):
+    """The counting sort by entry equals the twin (keys, a stable torch.sort,
+    the fill) exactly, with no torch.sort on the card: segments above the
+    shared-memory cap (one key holding every vertex, 3 merge passes), empty
+    keys, a table size that is not a power of two, 2D levels through perm and
+    inv; four launches a level (six and the merge passes with long
+    segments); two runs equal."""
+    v, d, r, size, e_max, tile, rb, perm, inv = vc.table_case(name)
+    on = lambda a, device: None if a is None else torch.from_numpy(a.astype(np.int32)).to(device)
+    want = cops.level_tables(v, d, r, size, e_max, "cpu", tile, rb, on(perm, "cpu"),
+                             on(inv, "cpu"))
+    monkeypatch.setattr(torch, "sort", None)        # the card's build sorts nothing with it
+    kernels.reset_launches()
+    got = cops.level_tables(v, d, r, size, e_max, dev, tile, rb, on(perm, dev), on(inv, dev))
+    again = cops.level_tables(v, d, r, size, e_max, dev, tile, rb, on(perm, dev), on(inv, dev))
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if isinstance(w, torch.Tensor):
+            assert torch.equal(got[k].cpu(), w) and torch.equal(again[k], got[k]), k
+        else:
+            assert got[k] == w, k
+    cap = kernels.lib().cnc_vertex_segment_cap()
+    passes = max(0, int(np.ceil(np.log2(want["longest"] / cap))))
+    per_call = 4 + (2 + passes if want["longest"] > cap else 0)
+    assert kernels.launches["vertex_tables"] == 2 * per_call
+    if name == "one key holds every vertex":
+        assert passes == 3
 
 
 def test_context_models_on_the_card_match_the_cpu(dev):
@@ -1507,34 +1528,95 @@ def test_int_ctx_pool_faults_on_unsorted_entries(dev, where):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("f", [2, 4])
-@pytest.mark.parametrize("n_e", [0, 1, 4099])
-def test_int_pq_kernel(dev, f, n_e):
-    """K9c equals its twin (cnc_tpu's long division) and host_pq over the
-    whole operand range, with zero and negative sums, zero weights, exact
-    saturation and the row just below it; coverage and sign bits exact."""
-    rng = np.random.default_rng(n_e + f)
-    for m_scale in (1, 37, 2048):
-        wmax = (1 << 27) // m_scale
-        msum = rng.integers(-(1 << 30), 1 << 30, (n_e, f), dtype=np.int32)
-        wsum = rng.integers(0, wmax, (n_e,), dtype=np.int32)
-        if n_e > 8:
-            msum[0] = 0
-            msum[1] = -1
-            wsum[2] = 0
-            msum[3] = int(wsum[3]) * m_scale
-            msum[4] = int(wsum[4]) * m_scale - 1
-        sign = torch.where(torch.from_numpy(rng.random((5000, f))) > 0.5, 1, -1).to(torch.int32)
-        evals = torch.from_numpy(rng.integers(0, 4000, n_e).astype(np.int32))
-        args = (torch.from_numpy(msum), torch.from_numpy(wsum), m_scale)
-        want = intctx.int_pq(*args, sign, 1000, evals)
-        got = intctx.int_pq(*(a.to(dev) for a in args[:2]), m_scale, sign.to(dev), 1000,
-                            evals.to(dev))
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
-        np.testing.assert_array_equal(got[0].cpu().numpy(), intctx.host_pq(msum, wsum, m_scale))
-        pq_only = intctx.int_pq(*(a.to(dev) for a in args[:2]), m_scale)
-        assert pq_only[2] is None and torch.equal(pq_only[0], got[0])
+def _finish_case(d, f, plane, case, seed):
+    """One finished pool's arguments on the CPU (`intctx.int_ctx_pool_pq`):
+    every entry with a row or more, a share of the rows kept; `case` picks
+    the entries: n_e of 0, 1 or 4,099 (1 to 9 rows each), or three with the
+    middle one over many blocks."""
+    g = torch.Generator().manual_seed(seed)
+    levels, sign, mask = _int_levels(d, f, g)
+    rf = 66 if d == 3 else 258
+    counts = {"n_e 0": [], "n_e 1": [5], "n_e 4099": torch.randint(1, 10, (4099,), generator=g)
+              .tolist(), "straddle": [3, 40 * 1024 + 11, 2]}[case]
+    start_e, n_e = 11, len(counts)
+    slots = torch.repeat_interleave(torch.arange(n_e, dtype=torch.int32) + start_e,
+                                    torch.tensor(counts, dtype=torch.int64))
+    n = slots.shape[0]
+    c = torch.randint(0, rf, (n, d), generator=g, dtype=torch.int32)
+    ids = (c[:, 0] * rf + c[:, 1]) * rf + c[:, 2] if d == 3 else (c[:, 0] << 16) | c[:, 1]
+    mask_off = mask.shape[0]
+    mask = torch.cat([mask, torch.rand(rf ** d, generator=g) < 0.4])
+    pl = ovl = None
+    if plane:
+        pn_res = 34
+        mask = torch.cat([mask, torch.rand(pn_res * pn_res, generator=g) < 0.8])
+        pl = (torch.randint(-256, 257, (pn_res * pn_res, f), generator=g, dtype=torch.int32),
+              pn_res, mask.shape[0] - pn_res * pn_res)
+    if d == 3:
+        ovl = torch.randint(0, 64, (rf ** 3,), generator=g, dtype=torch.int32)
+    n_in = len(levels) * f + (f if plane else 0) + 1
+    ip = _int_params(g, n_in, f, d == 3)
+    evals = torch.randint(0, sign.shape[0] - 100, (n_e,), generator=g, dtype=torch.int32)
+    return (ip, (None if d == 3 else 2), ids, slots, start_e, n_e, rf, mask, mask_off, sign,
+            levels, 131, 1, 37), pl, ovl, evals
+
+
+FINISH_CASES = ([(3, False, f, c) for f in (2, 4) for c in ("n_e 0", "n_e 1", "n_e 4099",
+                                                              "straddle")]
+                + [(2, p, f, c) for p in (False, True) for f in (2, 4)
+                   for c in ("n_e 1", "n_e 4099", "straddle")])
+
+
+@pytest.mark.parametrize("d,plane,f,case", FINISH_CASES)
+@pytest.mark.parametrize("bits", [True, False])
+def test_int_ctx_pool_pq_kernel(dev, d, plane, f, case, bits):
+    """The pool finished in its own launch (K9c as its epilogue) equals the
+    twins (`int_ctx_pool_plain`, then `_int_pq_plain`) exactly, with and
+    without the sign bits: n_e of 0, 1 and 4,099, an entry over many
+    blocks (finished by the last block), F of 2 and 4, 3D and 2D with and
+    without the plane; two runs equal, one launch each (counted by
+    int_ctx_pool and int_pq), one copy to the host equal."""
+    args, pl, ovl, evals = _finish_case(d, f, plane, case, seed=d * 100 + f * 10 + len(case))
+    ev = evals if bits else None
+    want = intctx.int_ctx_pool_pq(*args, pl, ovl, 100, ev)
+    on_dev = _pool_on(args[:12] + (args[12], pl, ovl), dev)
+    kernels.reset_launches()
+    got = intctx.int_ctx_pool_pq(*on_dev[:13], args[13], *on_dev[13:], 100,
+                                 evals.to(dev) if bits else None)
+    again = intctx.int_ctx_pool_pq(*on_dev[:13], args[13], *on_dev[13:], 100,
+                                   evals.to(dev) if bits else None)
+    intctx.raise_on_pool_faults(dev)
+    n_launch = 0 if case == "n_e 0" else 2
+    assert kernels.launches["int_ctx_pool"] == kernels.launches["int_pq"] == n_launch
+    for a, b, c in zip(got, again, want):
+        assert (a is None) == (c is None) == (b is None) == (not bits and c is None)
+        if c is not None:
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    for a, c in zip(intctx.pull_probs(got), intctx.pull_probs(want)):
+        assert (a is None and c is None) or np.array_equal(a, c)
+    if case == "straddle":
+        assert bool(want[1][1])                     # the long entry has kept rows
+
+
+@pytest.mark.parametrize("broken", ["decrease", "out of range"])
+def test_int_ctx_pool_pq_faults_on_broken_windows(dev, broken):
+    """A window whose kept rows' entries decrease or leave the window sets
+    the fault word on the card; the twin raises."""
+    args, pl, ovl, evals = _finish_case(3, 4, False, "n_e 4099", seed=5)
+    args = list(args)
+    args[7] = torch.ones_like(args[7])          # every row kept
+    slots = args[3].clone()
+    if broken == "decrease":
+        slots[5000], slots[5001] = slots[5001].item() + 1, slots[5000].item()
+    else:
+        slots[-1] = 11 + 4099
+    args[3] = slots
+    with pytest.raises(ValueError, match="exactly those of entries"):
+        intctx.int_ctx_pool_pq(*args, pl, ovl, 100, evals)
+    on_dev = _pool_on(tuple(args[:13]) + (pl, ovl), dev)
+    intctx.int_ctx_pool_pq(*on_dev[:13], args[13], *on_dev[13:], 100, evals.to(dev))
+    with pytest.raises(ValueError, match="must not decrease"):
+        intctx.raise_on_pool_faults(dev)
 
 
 @pytest.mark.parametrize("f", [2, 4])
@@ -1575,9 +1657,11 @@ def test_int_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="plain twin"):
         intctx.int_mlp_pool(args[0], None, torch.zeros(10, 12, dtype=torch.int32, device=dev),
                             131, 0, torch.ones(10, dtype=torch.bool, device=dev), packed, 4)
-    with pytest.raises(ValueError, match="contiguous CUDA"):
+    with pytest.raises(ValueError, match="plain twin"):
         intctx.int_pq(torch.zeros(4, 4, dtype=torch.int32, device=dev),
-                      torch.zeros(4, dtype=torch.int32), 2048)
+                      torch.zeros(4, dtype=torch.int32, device=dev), 2048)
+    with pytest.raises(ValueError, match="a row or more an entry"):
+        intctx.int_ctx_pool_pq(*args[:5], args[2].shape[0] + 1, *args[6:13], 37, *args[13:])
 
 
 def test_codec_on_the_card_matches_the_cpu(dev, tmp_path):

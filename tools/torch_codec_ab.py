@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of cnc_torch's codec pools between trees, on one NVIDIA GPU, on
-cnc_tpu's committed 20,000-step bundle; and a bundle's PSNR on either device.
+"""A/B of cnc_torch's codec pools and table build between trees, on one
+NVIDIA GPU, on cnc_tpu's committed 20,000-step bundle; and a bundle's PSNR on
+either device.
 
     python3 tools/torch_codec_ab.py prepare WORK
     python3 tools/torch_codec_ab.py time WORK TREE LABEL >> LOG
@@ -23,15 +24,24 @@ training, the same inputs on both trees.
 `time` imports cnc_torch from TREE (a directory holding another version's
 `cnc_torch/`, e.g. a commit unpacked with `git archive`), builds its kernels
 into TREE/cnc_torch/_build and prints one JSON line:
-  * `pools`: the pool calls of one encode (`ContextModels.pool_3d_sums_int`
-    and `pool_2d_sums_int`, as the codec makes them), each replayed through
-    chip_smoke.device_ms behind a spin long enough to cover the tree's host
-    time in a pool: their count, the summed device ms of the pass, and the
-    device ms of the middle chunk of the last 3D level and of the xy plane's
-    last 2D level;
+  * `build`: the bundle's ContextModels built on the card: seconds and the
+    peak device memory (torch.cuda.max_memory_allocated);
+  * `tables`: the finest level's tables (514^3 vertices) built again alone:
+    ms, device ms, its peak device memory, and a digest of the tables (equal
+    across trees): the counting sort (`level_tables`) or, in a tree before
+    it, the keys, a stable torch.sort and the fill;
+  * `pools`: the pools of one encode, each finished into the coder's
+    probabilities (`CNCCodec._pool3d` and `_pool2d`, as the codec makes
+    them: one launch a pool, or the pool and K9c's launch in a tree before
+    it), each replayed through chip_smoke.device_ms behind a spin long
+    enough to cover the tree's host time in a pool: their count, the summed
+    device ms of the pass, and the device ms of the middle chunk of the last
+    3D level and of the xy plane's last 2D level;
   * `kernels`: at those two pools, the tree's kernels alone by device ms:
-    `int_ctx_pool` or, in a tree before it, K9a `int_encode` and K9b `int_mlp_pool` on that
-    tree's window; each held to its twin with torch.equal;
+    `int_ctx_pool` (or, in a tree before it, K9a `int_encode` and K9b
+    `int_mlp_pool` on that tree's window), and the pool finished in its
+    launch (`int_ctx_pool_pq`) or K9c's own launch (`int_pq`); each held to
+    its twin with torch.equal;
   * `codec`: `refresh_cache_int` once, then CODEC_RUNS encodes and decodes
     of the tables: seconds, their median, the launches of each pass; each
     decode equal to the tables on the coded entries and +1 elsewhere;
@@ -143,15 +153,16 @@ def _site_args(entropy, codec, intctx, ip, signs, cache, pgs):
     ovl = cache["ovl_int"][str(l3)]
     m2 = cache["mask2d"][0]
     if hasattr(intctx, "int_ctx_pool"):
-        pos, slots, _ = entropy._entry_rows("3d", l3, start, chunk_e, w3, "pos_flat")
-        coords, slots2, _ = entropy._entry_rows("2d", l2, 0, t2.n_entries, t2.n_points,
-                                                "coords")
-        return {"3D": (ip, None, pos, slots, start, chunk_e, t3.resolution, cache["mask3d"],
-                       entropy.mask3d_offsets[l3], signs["xyz"], lv3, pg3, codec.m_shift3[l3],
-                       None, ovl),
-                "2D": (ip, l2, coords, slots2, 0, t2.n_entries, t2.resolution, m2,
-                       entropy.mask2d_offsets[l2], signs["xy"], lv2, pg2, codec.m_shift2[l2],
-                       plane, None)}
+        pos, slots, ev3 = entropy._entry_rows("3d", l3, start, chunk_e, w3, "pos_flat")
+        coords, slots2, ev2 = entropy._entry_rows("2d", l2, 0, t2.n_entries, t2.n_points,
+                                                  "coords")
+        # each pool's arguments, and its finish: (m_scale, table offset, evals)
+        return {"3D": ((ip, None, pos, slots, start, chunk_e, t3.resolution, cache["mask3d"],
+                        entropy.mask3d_offsets[l3], signs["xyz"], lv3, pg3, codec.m_shift3[l3],
+                        None, ovl), (codec.m_scale3[l3], t3.offset, ev3)),
+                "2D": ((ip, l2, coords, slots2, 0, t2.n_entries, t2.resolution, m2,
+                        entropy.mask2d_offsets[l2], signs["xy"], lv2, pg2, codec.m_shift2[l2],
+                        plane, None), (codec.m_scale2[l2], t2.offset, ev2))}
     (pos,), valid, slots, _ = entropy._entry_window("3d", l3, start, chunk_e, w3,
                                                     ("pos_flat",))
     mask = cache["mask3d"][entropy.mask3d_offsets[l3] + pos.long()] & valid
@@ -170,11 +181,25 @@ def _time_kernels(torch, cs, intctx, ip, sites):
     out = {}
     for key, a in sites.items():
         if hasattr(intctx, "int_ctx_pool"):
+            a, (m_scale, offset, evals) = a
             got = intctx.int_ctx_pool(*a)
             want = intctx.int_ctx_pool_plain(*a)
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"int_ctx_pool at {key} differs from its twin")
             out[key] = {"int_ctx_pool": cs.device_ms(lambda a=a: intctx.int_ctx_pool(*a))}
+            pq_args = (got[0], got[1], m_scale, a[9], offset, evals)
+            twin = intctx._int_pq_plain(*pq_args)
+            if hasattr(intctx, "int_ctx_pool_pq"):
+                fin = a[:13] + (m_scale,) + a[13:] + (offset, evals)
+                if not all(torch.equal(x, y) for x, y in zip(intctx.int_ctx_pool_pq(*fin), twin)):
+                    raise AssertionError(f"int_ctx_pool_pq at {key} differs from its twins")
+                out[key]["int_ctx_pool_pq"] = cs.device_ms(lambda f=fin: intctx.int_ctx_pool_pq(
+                    *f))
+            else:
+                if not all(torch.equal(x, y) for x, y in zip(intctx._int_pq_cuda(*pq_args),
+                                                              twin)):
+                    raise AssertionError(f"int_pq at {key} differs from its twin")
+                out[key]["int_pq"] = cs.device_ms(lambda p=pq_args: intctx._int_pq_cuda(*p))
             intctx.raise_on_pool_faults(a[2].device)
             continue
         enc_args, mlp_tail, level = a
@@ -192,6 +217,34 @@ def _time_kernels(torch, cs, intctx, ip, sites):
     return out
 
 
+def _time_tables(torch, cs, entropy, dev):
+    """The finest level's tables built alone with this tree's API: the
+    counting sort, or the keys, a stable torch.sort and the fill."""
+    import hashlib
+    from cnc_torch.ops import context_ops as cops
+    p = next(p for p in entropy._level_plans() if p["kind"] == "3d" and p["r"] == entropy.fine_res)
+    v, r, tbl, e_max = p["v"], p["r"], p["tbl"], p["e_max"]
+    if hasattr(cops, "level_tables"):
+        build = lambda: cops.level_tables(v, 3, r, tbl, e_max, dev)
+    else:
+        def build():
+            skey, loc = torch.sort(cops.vertex_keys(v, 3, r, tbl, dev), stable=True)
+            return cops.entry_fill(skey, loc, e_max, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = build()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    digest = hashlib.sha256()
+    for k in ("cum", "entry_values", "vert_entry", "pos_flat", "n_entries"):
+        digest.update(got[k].cpu().numpy().tobytes())
+    del got
+    return {"vertices": v, "ms": cs.time_ms(build, iters=5, warmup=1),
+            "device_ms": cs.device_ms(build, iters=5), "peak_gib": peak,
+            "digest": digest.hexdigest()[:16]}
+
+
 def time_tree(work: Path, tree: Path, label: str) -> None:
     import torch
     sys.path.insert(0, str(tree.resolve()))
@@ -207,7 +260,15 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
     saved = torch.load(work / "tables.pt")
     tables = {k: torch.where(saved["signs"][k], 1.0, -1.0).to(dev) for k in TABLES}
     covered = {k: saved["covered"][k].to(dev) for k in TABLES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
     entropy, codec, ent_params, pgs, binaries = _model(dev)
+    torch.cuda.synchronize()
+    out["build"] = {"s": time.time() - t0,
+                    "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    out["tables"] = _time_tables(torch, cs, entropy, dev)
     torch.cuda.synchronize()
     t0 = time.time()
     cache = entropy.refresh_cache_int(binaries)
@@ -218,18 +279,18 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
 
     # ---- one encode, its pools recorded, then the streams against the bundle's
     calls = []
-    for name in ("pool_3d_sums_int", "pool_2d_sums_int"):
-        def recording(*a, _fn=getattr(entropy, name), _name=name, **kw):
+    for name in ("_pool3d", "_pool2d"):
+        def recording(*a, _fn=getattr(codec, name), _name=name, **kw):
             calls.append((_name, a, kw))
             return _fn(*a, **kw)
-        setattr(entropy, name, recording)
+        setattr(codec, name, recording)
     enc_dir = work / f"encode_{label}"
     try:
         pgs_enc, _, coded_mb = codec.encode(ent_params, tables, binaries, str(enc_dir),
                                             cache=cache)
     finally:
-        for name in ("pool_3d_sums_int", "pool_2d_sums_int"):
-            delattr(entropy, name)
+        for name in ("_pool3d", "_pool2d"):
+            delattr(codec, name)
     names = sorted(p.name for p in BUNDLE.glob("b_*"))
     made = sorted(p.name for p in enc_dir.glob("b_*"))
     same = lambda n: (json.loads((BUNDLE / n).read_text()) == json.loads((enc_dir / n)
@@ -248,7 +309,7 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
     spin = cs.SPIN_CYCLES
     cs.SPIN_CYCLES = spin * SPIN_SCALE
     try:
-        per = [cs.device_ms(lambda n=n, a=a, kw=kw: getattr(entropy, n)(*a, **kw), iters=3)
+        per = [cs.device_ms(lambda n=n, a=a, kw=kw: getattr(codec, n)(*a, **kw), iters=3)
                for n, a, kw in calls]
     finally:
         cs.SPIN_CYCLES = spin
@@ -257,8 +318,8 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
     at = lambda want: next(t for (n, a, _), t in zip(calls, per) if want(n, a))
     out["pools"] = {
         "count": len(calls), "pass_device_ms": sum(per), "largest_device_ms": max(per),
-        "3D": at(lambda n, a: n == "pool_3d_sums_int" and a[3] == l3 and a[5] == mid),
-        "2D": at(lambda n, a: n == "pool_2d_sums_int" and a[2] == l2)}
+        "3D": at(lambda n, a: n == "_pool3d" and a[0] == l3 and a[5] == mid),
+        "2D": at(lambda n, a: n == "_pool2d" and a[0] == l2)}     # xy: the first plane pooled
     del calls
 
     # ---- the kernels alone at those two pools
@@ -301,7 +362,12 @@ def summary(path: Path) -> None:
     print(f"{runs[0]['card']}; {len(runs)} runs ({', '.join(r['tree'] for r in runs)})")
     print("| item | " + " | ".join(trees) + " |")
     print("| --- |" + " --- |" * len(trees))
-    rows = [("pools a pass", lambda r: r["pools"]["count"]),
+    rows = [("ContextModels build s", lambda r: r["build"]["s"]),
+            ("ContextModels build peak GiB", lambda r: r["build"]["peak_gib"]),
+            ("finest level's tables ms", lambda r: r["tables"]["ms"]),
+            ("finest level's tables device ms", lambda r: r["tables"]["device_ms"]),
+            ("finest level's tables peak GiB", lambda r: r["tables"]["peak_gib"]),
+            ("pools a pass", lambda r: r["pools"]["count"]),
             ("one pass's pools, device ms summed", lambda r: r["pools"]["pass_device_ms"]),
             ("the largest pool, device ms", lambda r: r["pools"]["largest_device_ms"]),
             ("pool: last 3D level, middle chunk, device ms", lambda r: r["pools"]["3D"]),
@@ -319,6 +385,8 @@ def summary(path: Path) -> None:
             vals = [get(r) for r in by(t) if get(r) is not None]
             cells.append(f"{mean(vals):.4f}" if vals else "-")
         print(f"| {name} | " + " | ".join(cells) + " |")
+    digests = {r["tables"]["digest"] for r in runs}
+    print(f"finest level's tables: {len(digests)} digest(s) over every run ({sorted(digests)})")
     for t in trees:
         launches = {json.dumps(x["encode_launches"], sort_keys=True) for r in by(t)
                     for x in r["codec"]["runs"]}

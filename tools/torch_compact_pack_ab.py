@@ -12,7 +12,8 @@ inputs every tree's compactions are timed on: the occupancy grid, the mask
 and cap of one rate estimate's 3D context compaction after EARLY_STEPS (the
 step chip_smoke.py checks it at; most of the mask set, in long runs) and
 after PREP_STEPS, and the largest compaction of the table build (a level's
-entry heads).
+entry heads), where the build compacts (it does not since its counting sort
+by entry).
 
 `time` imports cnc_torch from TREE (a directory holding another version's
 `cnc_torch/`, e.g. a commit unpacked with `git archive`), builds its kernels
@@ -97,9 +98,9 @@ def prepare(work: Path) -> None:
     from cnc_torch.models import radiance_field as rf
     from cnc_torch.ops import scatter_ops
     built = []
-    heads_mask, heads_cap = max(_recorded_compactions(scatter_ops,
-                                                      lambda: built.append(_trainer())),
-                                key=lambda c: c[0].numel())
+    in_build = _recorded_compactions(scatter_ops, lambda: built.append(_trainer()))
+    heads_mask, heads_cap = (max(in_build, key=lambda c: c[0].numel()) if in_build
+                             else (None, None))
     tr = built[0]
 
     def estimate():
@@ -117,12 +118,14 @@ def prepare(work: Path) -> None:
         ctx[steps] = (mask.clone(), cap)
     work.mkdir(parents=True, exist_ok=True)
     torch.save({"occ": tr.occ_state.binaries.clone(), "ctx": ctx,
-                "heads_mask": heads_mask.clone(), "heads_cap": heads_cap}, work / "inputs.pt")
+                "heads_mask": None if heads_mask is None else heads_mask.clone(),
+                "heads_cap": heads_cap}, work / "inputs.pt")
     print(json.dumps({"prepared": {"steps": PREP_STEPS,
                                    "occupied_cells": int(tr.occ_state.binaries.sum()),
                                    "ctx": {k: [int(m.sum()), m.numel(), c]
                                            for k, (m, c) in ctx.items()},
-                                   "heads": [heads_mask.numel(), heads_cap]}}))
+                                   "heads": None if heads_mask is None else
+                                   [heads_mask.numel(), heads_cap]}}))
 
 
 def time_tree(work: Path, tree: Path, label: str) -> None:
@@ -154,8 +157,9 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
     sites = {"3D context": (late.cuda(), late_cap),
              f"3D context, step {EARLY_STEPS}": (early.cuda(), early_cap),
              "pn coord lists": pn_calls[0],
-             "occupancy": (occ.reshape(-1), occ.numel()),
-             "build entry heads": (inputs["heads_mask"].cuda(), inputs["heads_cap"])}
+             "occupancy": (occ.reshape(-1), occ.numel())}
+    if inputs["heads_mask"] is not None:
+        sites["build entry heads"] = (inputs["heads_mask"].cuda(), inputs["heads_cap"])
     masks = {"mask3d": cache["mask3d"], "mask2d": cache["mask2d"]}
 
     # ---- the process's first profile: one call at each site
