@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
      plain PyTorch twin on the card, at the shapes the serving path gives it,
      and count the device operations of one K3 call at each of its sites'
      shapes and of one mask packing at each refresh site's (the process's
-     first profile: one each),
+     first profile: one each), and of one whole autograd backward of a
+     sampled frac plane (K7b: the fill and one launch),
      and time both with CUDA events (the encode kernels and the march also by
      their device work alone, without the wrapper's host time: `device_ms`;
      the encode's forward must equal the twin bit for bit, and every field of
@@ -63,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
      the occupancy update's grid: torch.equal,
      the count equal, device ms, bound, `nonzero`), [K7] the step's three frac planes (each
      equal to the plain plane, one launch and one allocation a plane, the
-     backward against float64), and [K1v], [K2v] at each call site
+     backward, K7b, against float64, by device ms alone and as the whole
+     autograd backward), and [K1v], [K2v] at each call site
      (the 3D mixed-level context, the 2D windows, the frac planes) with its
      launches per step, on the arguments one rate estimate gives them);
      those launches are taken out of the counts again.  `fit` then runs on to RATE_STEPS and
@@ -385,9 +387,11 @@ def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, 
             - torch.cumsum(torch.cat([ind.new_zeros(1, f), ind]), 0)[bounds_l[:-1]][:, i]
             for i in range(f)], -1)):
         raise AssertionError("[K7i] index_add_ of the sign rows differs from the twin's counts")
-    records["pn_hist_int"] = dict(max_abs_err=0.0, ms=time_ms(lambda: intctx._frac_plane_cuda(
-        *args)), plain_ms=time_ms(lambda: intctx.int_frac_plane(*args), iters=5, warmup=1),
-        bound_ms=b, bound_by=by, library_ms=time_ms(library))
+    k7i = lambda: intctx._frac_plane_cuda(*args)
+    records["pn_hist_int"] = dict(max_abs_err=0.0, ms=time_ms(k7i), device_ms=device_ms(k7i),
+                                  plain_ms=time_ms(lambda: intctx.int_frac_plane(*args), iters=5,
+                                                   warmup=1),
+                                  bound_ms=b, bound_by=by, library_ms=time_ms(library))
     log_parts["pn_hist_int"] = (f"rows={rows} listed={n_valid} distinct_entries={n_entries}"
                                 f" bins={bins} plane={entropy.pn_res}^2")
     del ind, bin_of_row
@@ -529,7 +533,8 @@ def check_codec_kernels(torch, intctx, entropy, codec, ip, sign3, sign2, cache, 
     for name, r in records.items():
         o = r.get("other")
         log(f"[{name}] exact; {log_parts[name].strip()} ms={r['ms']:.4f}"
-            f" plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+            + (f" device_ms={r['device_ms']:.4f}" if r.get("device_ms") is not None else "")
+            + f" plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
             f" library_ms={r['library_ms']}"
             + (f"; 2D ms={o['ms']:.4f} plain_ms={o['plain_ms']:.4f}"
                f" bound_ms={o['bound_ms']:.4f}" if o else ""))
@@ -1259,8 +1264,9 @@ def encode_args(torch, a):
 def check_frac_planes(torch, kernels, cops, calls, gen, dev):
     """K7 on the three frac planes of one real rate step: each plane through
     the kernel equal to the plain plane (torch.equal); one plane's launches
-    and allocations through the public wrapper; its backward (taken with
-    pn_frac_grad) against the twin run in float64."""
+    and allocations through the public wrapper; its backward (K7b, taken
+    with pn_frac_grad) against the twin run in float64, the kernel alone
+    and the whole autograd backward (the fill and the launch) timed."""
     planes = [(args[0].detach().contiguous(),) + tuple(args[1:]) for args, _ in
               calls["pn_frac_plane"]]
     for i, args in enumerate(planes):
@@ -1300,12 +1306,13 @@ def check_frac_planes(torch, kernels, cops, calls, gen, dev):
         plain_ms=time_ms(lambda: cops._pn_frac_plane_plain(*args)), bound_ms=b, bound_by=by,
         library_ms=time_ms(library), launches_per_plane=1, allocations_per_plane=allocations,
         planes_per_step=len(planes))}
-    # the backward through autograd against the twin's in float64: that
+    # K7b, the backward through autograd, against the twin's in float64: that
     # differences reverse cumulative sums over all rows, which float32 rounds
     # at 1e-3 of the result, so the float32 twin's own distance is printed
     cot = torch.randn(pn_res * pn_res, f, generator=gen, device=dev)
     leaf = table.clone().requires_grad_()
-    (got_dt,) = torch.autograd.grad(cops.pn_frac_plane(leaf, *args[1:]), leaf, cot)
+    out = cops.pn_frac_plane(leaf, *args[1:])
+    (got_dt,) = torch.autograd.grad(out, leaf, cot, retain_graph=True)
     (want_dt,) = torch.autograd.grad(cops._pn_frac_plane_plain(leaf, *args[1:]), leaf, cot)
     leaf64 = table.double().requires_grad_()
     (exact_dt,) = torch.autograd.grad(cops._pn_frac_plane_plain(leaf64, *args[1:]), leaf64,
@@ -1315,34 +1322,71 @@ def check_frac_planes(torch, kernels, cops, calls, gen, dev):
     if not bwd_err <= K7B_REL_TOL:
         raise AssertionError(f"[K7] backward rel err {bwd_err} > {K7B_REL_TOL}")
     del leaf64
+    # the library's yardstick: index_add_ of each row's scaled indicator row
     cnt = (bnd[1:] - bnd[:-1]).float()[:, None]
-    g_bins = (torch.randn(bins, f, generator=gen, device=dev) / (cnt + 1e-6)).contiguous()
+    g_bins = cot.reshape(pn_res, pn_res, f)[1:-1, 1:-1].transpose(0, 1).reshape(-1, f) / (
+        cnt + 1e-6)
     flat = ((fine_offset + sel.long())[:, None] * f
             + torch.arange(f, device=dev)[None, :]).reshape(-1)
     vals = (g_bins[bin_of_row] * ind).reshape(-1)
-    bb, bby = bound_ms(rows * 5 + 2 * n_entries * 4 * f + (bins + 1) * 4 + bins * 4 * f,
-                       int(ind.sum()))
-    backward = lambda: cops._pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd,
-                                                   g_bins)
+    # bytes: the forward's reads, the gradient plane and d_table: a row a
+    # distinct entry with a bit set (the kernel alone) or the whole table
+    # written once (the backward: the fill and the launch); operations: a
+    # compare a counted value, a divide a bin's value, an add a set bit
+    n_set = torch.unique(sel[row_valid & (ind > 0).any(1)]).numel()
+    reads = n_valid * 4 + n_entries * 4 * f + (bins + 1) * 4 + 4 + pn_res * pn_res * 4 * f
+    n_ops = (n_valid + bins) * f + int(ind.sum())
+    kb, _ = bound_ms(reads + n_set * 4 * f, n_ops)
+    bb, bby = bound_ms(reads + table.numel() * 4, n_ops)
+    d_table = torch.zeros_like(table)
+    kernel = lambda: cops._pn_hist_backward_launch(table, fine_offset, eidx, bounds, n, pn_res,
+                                                   sample_cap, cot, d_table)
+    whole = lambda: torch.autograd.grad(out, leaf, cot, retain_graph=True)
     records["pn_hist_bwd"] = dict(
-        max_abs_err=float((got_dt - exact_dt).abs().max()), ms=time_ms(backward, iters=10),
-        device_ms=device_ms(backward),
+        max_abs_err=float((got_dt - exact_dt).abs().max()), ms=time_ms(whole, iters=10),
+        device_ms=device_ms(whole), kernel_device_ms=device_ms(kernel),
+        fill_device_ms=device_ms(lambda: torch.zeros_like(table)),
         plain_ms=time_ms(lambda: torch.autograd.grad(
             cops._pn_frac_plane_plain(leaf, *args[1:]), leaf, cot), iters=5, warmup=1),
-        bound_ms=bb, bound_by=bby,
+        bound_ms=bb, bound_by=bby, kernel_bound_ms=kb,
         library_ms=time_ms(lambda: torch.zeros(table.numel(), device=dev).index_add_(
             0, flat, vals), iters=10))
-    r = records["pn_frac_plane"]
+    del d_table
+    r, rb = records["pn_frac_plane"], records["pn_hist_bwd"]
     log(f"[K7 pn_frac_plane] {len(planes)} planes in the step, each equal to the twin's;"
         f" pn_res={pn_res} F={f} sample_cap={sample_cap} rows={rows} counted={n_valid}"
         f" bins={bins} distinct_entries={n_entries}; one plane: {r['launches_per_plane']}"
         f" launch, {allocations} allocation, ms={r['ms']:.4f} device_ms={r['device_ms']:.4f}"
         f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (index_add_ of the"
-        f" indicator rows: the counts alone) bound_ms={b:.5f} ({by}); backward rel_err"
+        f" indicator rows: the counts alone) bound_ms={b:.5f} ({by}); backward (K7b) rel_err"
         f" {bwd_err:.3g} against the twin in float64 (limit {K7B_REL_TOL}; the float32 twin"
-        f" against it {twin_err:.3g}), its kernel ms={records['pn_hist_bwd']['ms']:.4f}"
-        f" device_ms={records['pn_hist_bwd']['device_ms']:.4f}")
+        f" against it {twin_err:.3g}); the whole autograd backward ms={rb['ms']:.4f}"
+        f" device_ms={rb['device_ms']:.4f} bound_ms={bb:.5f} ({bby}), its fill device_ms="
+        f"{rb['fill_device_ms']:.4f}, the kernel alone device_ms={rb['kernel_device_ms']:.4f}"
+        f" bound_ms={kb:.5f} ({n_set} entries with a bit set); library_ms="
+        f"{rb['library_ms']:.4f} (zeros and index_add_ of the scaled indicator rows)"
+        f" plain_ms={rb['plain_ms']:.4f}")
     return records
+
+
+def frac_plane_backward(torch, cops, dev):
+    """One whole autograd backward of a sampled frac plane (K7b), for its
+    device operations in the process's first profile: a seeded bin-sorted
+    list of 50,000 rows in 2^16 over 64^2 bins, 2^13 sampled, F 4."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    pn_res, cap, n, fine_offset, fine = 66, 1 << 16, 50_000, 37, 4096
+    n_bins = (pn_res - 2) ** 2
+    bins = torch.sort(torch.randint(0, n_bins, (n,), generator=gen, device=dev))[0]
+    bins = torch.cat([bins, torch.full((cap - n,), n_bins, device=dev)])
+    bounds = torch.searchsorted(bins, torch.arange(n_bins + 1, device=dev)).to(torch.int32)
+    eidx = torch.randint(0, fine, (cap,), generator=gen, device=dev, dtype=torch.int32)
+    table = torch.where(torch.rand(fine_offset + fine, 4, generator=gen, device=dev) > 0.4,
+                        1.0, -1.0).requires_grad_()
+    with torch.enable_grad():
+        out = cops.pn_frac_plane(table, fine_offset, eidx, bounds,
+                                 torch.tensor(n, dtype=torch.int32, device=dev), pn_res, 1 << 13)
+    cot = torch.randn(out.shape, generator=gen, device=dev)
+    return lambda: torch.autograd.grad(out, table, cot, retain_graph=True)
 
 
 def check_rate_kernels(torch, tr, rf, cops, enc, gen):
@@ -1962,14 +2006,18 @@ def main() -> int:
                     for site, (_, _, cap) in K3_SITES.items()}
         op_calls.update({f"pack {site}": (lambda m=m: enc.pack_mask_bits(m))
                          for site, m in pack_masks.items()})
+        op_calls["K7b backward"] = frac_plane_backward(torch, cops, dev)
         device_ops = count_device_ops(torch, op_calls)
-        del k3_masks, pack_masks
-        log("[K3, pack] device operations per call, in the process's first profile"
-            " (K3 at each site's n and cap, the packing at each refresh site's shape): "
-            + json.dumps(device_ops))
-        if not all(len(v) == 1 for v in device_ops.values()):
+        del k3_masks, pack_masks, op_calls
+        log("[K3, pack, K7b] device operations per call, in the process's first profile"
+            " (K3 at each site's n and cap, the packing at each refresh site's shape, one"
+            " whole autograd backward of a frac plane): " + json.dumps(device_ops))
+        if not all(len(v) == 1 for k, v in device_ops.items() if k != "K7b backward"):
             raise AssertionError(f"[K3, pack] a call ran more than one device operation:"
                                  f" {device_ops}")
+        if len(device_ops["K7b backward"]) != 2:
+            raise AssertionError(f"[K7b] the backward ran {device_ops['K7b backward']}, not the"
+                                 f" fill and one launch")
         device_ops = {k: len(v) for k, v in device_ops.items()}
 
         # K4: 8,192 rays of the view, strided over the image so most hit the object
@@ -2297,6 +2345,7 @@ def main() -> int:
     check_order_faults(cops, dev, f"[rate] after {RATE_WARM_STEPS} steps:")
     records.update(check_rate_kernels(torch, trr, rf, cops, enc, gen))
     records["compact"]["device_ops"] = device_ops["K3 3D context"]
+    records["pn_hist_bwd"]["device_ops"] = device_ops["K7b backward"]
     k3_sites = {"3D context": dict(records["compact"]), **k3_sites}
     for site, rec in k3_sites.items():
         rec["call_site"] = K3_SITES[site][0]
@@ -2457,7 +2506,9 @@ def main() -> int:
                         pass_device_ms=r.get("pass_device_ms"),
                         bound_two_kernels_ms=r.get("bound_two_kernels_ms"), other=r.get("other"),
                         **{k: r[k] for k in ("added_device_ms", "finishing_launches_per_pass",
-                                             "pulls_per_pool", "longest", "level_peak_gib")
+                                             "pulls_per_pool", "longest", "level_peak_gib",
+                                             "kernel_device_ms", "kernel_bound_ms",
+                                             "fill_device_ms", "device_ops")
                            if k in r},
                         rate_launches_per_step=rate_per_step.get(name)))
     log(f"[done] {time.time() - t_start:.1f} s")

@@ -841,13 +841,15 @@ def _frac_plane_cuda(sign3, pn_ax, fine_offset, pn_res, f):
     eidx, bounds, n = pn_ax["entry_idx"], pn_ax["bounds"], pn_ax["n"]
     _check_int("pn_hist_int", sign3, eidx, bounds, n)
     scale = pn_res - 2
-    if sign3.shape[1] != f or f not in (2, 4) or sign3.data_ptr() % (4 * f) \
-            or bounds.shape != (scale * scale + 1,) or n.numel() != 1:
+    if sign3.shape[1] != f or f not in (2, 4) or sign3.data_ptr() % (4 * f) or pn_res < 3 \
+            or bounds.shape != (scale * scale + 1,) or n.numel() != 1 or eidx.dim() != 1 \
+            or eidx.numel() < 1:
         raise ValueError("pn_hist_int: a sign table of 4F-byte aligned rows of F = 2 or 4 ints, "
-                         "bounds [(pn_res - 2)**2 + 1] and a one-element count")
+                         "entry_idx [cap >= 1], bounds [(pn_res - 2)**2 + 1] and a one-element "
+                         "count")
     plane = torch.empty((pn_res * pn_res, f), dtype=torch.int32, device=sign3.device)
     kernels.call("cnc_pn_hist_int", kernels.ptr(sign3), int(fine_offset), sign3.shape[0],
-                 kernels.ptr(eidx), eidx.shape[0], kernels.ptr(n), kernels.ptr(bounds), pn_res,
+                 kernels.ptr(eidx), kernels.ptr(bounds), kernels.ptr(n), eidx.shape[0], pn_res,
                  f, kernels.ptr(plane))
     kernels.launches["pn_hist_int"] += 1
     return plane

@@ -1,6 +1,8 @@
-// K7: the dimension-wise prior's frac plane, in one launch per plane.
+// The dimension-wise prior's frac planes: K7 (the rate's float plane), K7i
+// (the codec's integer plane) and K7b (K7's backward), one launch each, all
+// three on one walk over runs of bins.
 //
-// Replaces: cnc_tpu/models/context_models.py pn_frac_plane (756-836): the
+// K7 replaces: cnc_tpu/models/context_models.py pn_frac_plane (756-836): the
 // stride sampling of the cached coord list (808-820), a gather of the finest
 // level's rows at the bin-sorted entry indices, the straight-through
 // indicator _pos_indicator (53-66, entry > 0.9), the row mask, _csum_diffs
@@ -28,270 +30,353 @@
 // divide and the add rounded to nearest as torch does: the plane equals the
 // twin's bit for bit.
 //
-// One block a tile of 8 x-columns by 8 y, one warp a column's run of 8 bins,
-// whose rows are contiguous (the refresh sorts the coord list by bin).  The
-// warp finds the run's boundaries (the sampled map from its estimate), then
-// walks the run's rows with consecutive lanes on consecutive rows, four rows
-// a lane in flight: the entry_idx loads first (coalesced), then each lane's
-// bin by stepping from the bin of its 32 rows' first, then the table rows,
-// then the counts: the lanes of one bin are grouped (__match_any_sync) and
-// the group's leader adds its ballots' counts to the bin's shared counters.
-// Integers, so exact in any order.  The block then writes its tile with
-// consecutive threads on consecutive x, which are consecutive plane rows.
+// K7i replaces the codec's plane: cnc_tpu/codec/intctx.py int_frac_plane
+// (298-321): the unsampled rows of an int32 sign table (full coverage),
+// pos[b, f] = #{valid rows of bin b with sign > 0}, frac_q = pos * Q_FEAT //
+// max(bounds[b+1] - bounds[b], 1), where the bin's length is the raw one
+// (rows at or past m count in it and never in pos), the zero border and
+// the same layout.  Plain twin: cnc_torch/codec/intctx.py `int_frac_plane`.
+// Integers only, so it equals the twin bit for bit.
+//
+// K7b replaces the gradient of pn_frac_plane: the indicator's
+// straight-through rule through _csum_diffs, d_table[fine_offset + e, f] +=
+// g[(y + 1) * pn_res + (x + 1), f] / (f32(map[b+1] - map[b]) + 1e-6f) for
+// every valid row of bin b whose entry e has table value > 0.9, into a
+// table the wrapper zeroes (autograd adds it into the 3D table's gradient).
+// It takes the forward's own inputs and the plane-layout gradient g.  Plain
+// twins: autograd through `_pn_frac_plane_plain`, and `pn_hist_backward_plain`
+// in this kernel's arguments.  Float atomics: the sums' order varies.
+//
+// The walk.  One block a tile of 8 x-columns by 8 y, one warp a column's run
+// of 8 bins, whose rows are contiguous (the refresh sorts the coord list by
+// bin).  The warp finds the run's boundaries (the sampled map from its
+// estimate), then walks the run's rows with consecutive lanes on
+// consecutive rows, four rows a lane in flight: the entry_idx loads first
+// (coalesced), then each lane's bin by stepping from the bin of its 32
+// rows' first, then the table rows, then the row's work.  K7 and K7i count:
+// the lanes of one bin are grouped (__match_any_sync) and the group's
+// leader adds its ballots' counts to the bin's shared counters, and the
+// block writes its tile with consecutive threads on consecutive x, which
+// are consecutive plane rows.  K7b first reads the tile's gradient rows the
+// same way into per-bin scales in shared memory, then each row with a bit
+// set adds its bin's scales, masked by the indicator, in one vector atomic.
 // (A warp a run of 64 bins with one row a lane in flight, and a tile of
 // 8 x 16 bins whose rows the whole block walks, measured 3.3-3.6x and 1.4-1.7x
-// slower on the step's planes; see PERF.md.)
+// slower on the rate step's planes; counting by group heads from a shuffle
+// and a ballot instead of __match_any_sync, and eight rows a lane in flight
+// in K7i's longer runs, no faster; see PERF.md.)
 //
-// Bound on the H100: bytes; one entry_idx word a sampled row (2^21 rows a
-// plane), one random 16-byte table row a distinct entry out of the 8 MB
-// finest level, which the L2 holds, the boundaries and the 4 MB plane.
-//
-// The backward (reached only with pn_frac_grad) is the indicator's
-// straight-through rule: d_table[fine_offset + sel[r], f] += g[bin(r), f]
-// where the entry is > 0.9 and the row valid, as atomics into a zeroed table;
-// the wrapper passes g = d_plane / (cnt + 1e-6) at each bin and the rows and
-// boundaries the plain index math gives.
-//
-// K7i, the integer mode, replaces the codec's plane: cnc_tpu/codec/intctx.py
-// int_frac_plane (298-321), a gather of the int32 sign table's finest level at
-// every listed entry (full coverage: no stride sampling), the sign counts per
-// bin by per-feature int32 cumulative sums differenced at the boundaries,
-// frac_q = pos * Q_FEAT // max(cnt, 1), the zero border and the x-fastest
-// [pn_res^2, F] layout.  Plain twin: cnc_torch/codec/intctx.py
-// `int_frac_plane`.  One thread per plane row: border rows write zeros; an
-// inner row (x, y) walks bin (x - 1) * (pn_res - 2) + (y - 1), counting its
-// valid rows (row < min(n, rows)) whose sign is positive; cnt is the bin's
-// length, as the twin takes it.  Integers, so it equals the twin exactly.
-// Bound: bytes, one 16-byte sign row per listed row (2^24 rows at full width,
-// about 300 MB with sel) plus the 4 MB plane.
+// Bounds on the H100, all bytes.  K7: one entry_idx word a counted row
+// (2^21 sampled rows a plane), one random 16-byte table row a distinct
+// entry out of the 8 MB finest level, which the L2 holds, the boundaries
+// and the 4 MB plane.  K7i: the same with every listed row (about 10.2M of
+// a 2^24 list at full width): an entry_idx word a listed row, a 16-byte
+// sign row a distinct entry, the boundaries and the 4 MB plane (about 55 MB,
+// as chip_smoke.py counts it).  K7b: the forward's reads, the gradient plane,
+// and a 16-byte d_table row written a distinct entry set; with the zero
+// fill of the whole 3D table (about 64 MB at full width) for the backward
+// as autograd runs it.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-template <int F>
-__device__ __forceinline__ void load_row(const float* __restrict__ table, long long row,
-                                         float* v) {
+template <typename T, int F>
+__device__ __forceinline__ void load_row(const T* __restrict__ table, long long row, T* v) {
+  using V4 = typename std::conditional<std::is_same<T, int>::value, int4, float4>::type;
+  using V2 = typename std::conditional<std::is_same<T, int>::value, int2, float2>::type;
   if constexpr (F == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(table) + row);
+    const V4 q = __ldg(reinterpret_cast<const V4*>(table) + row);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   } else {
-    const float2 q = __ldg(reinterpret_cast<const float2*>(table) + row);
+    const V2 q = __ldg(reinterpret_cast<const V2*>(table) + row);
     v[0] = q.x; v[1] = q.y;
   }
 }
+
+template <typename T, int F>
+__device__ __forceinline__ void store_row(T* __restrict__ out, long long row, const T* v) {
+  using V4 = typename std::conditional<std::is_same<T, int>::value, int4, float4>::type;
+  using V2 = typename std::conditional<std::is_same<T, int>::value, int2, float2>::type;
+  if constexpr (F == 4) reinterpret_cast<V4*>(out)[row] = V4{v[0], v[1], v[2], v[3]};
+  else reinterpret_cast<V2*>(out)[row] = V2{v[0], v[1]};
+}
+
+__device__ __forceinline__ bool positive(float v) { return v > 0.9f; }   // _pos_indicator
+__device__ __forceinline__ bool positive(int v) { return v > 0; }        // a sign
 
 // A block's bins: 8 x-columns by 8 y, a warp a column's run of 8 bins; each
 // lane takes kRowsAhead rows at a time.
 constexpr int kTileX = 8, kTileY = 8, kRowsAhead = 4;
 constexpr int kPlaneThreads = kTileX * 32;
+constexpr int kQFeat = 256;   // codec/intctx.py Q_FEAT
+
+// The rows a plane counts: rows below take are valid; the rest of the
+// sampled mode's arithmetic.
+struct Rows {
+  int cap, take, src_max;
+  float stride, inv_stride;
+};
+
+__device__ __forceinline__ Rows plane_rows(const int* n_listed, int cap, int sample_cap,
+                                           bool sampled) {
+  Rows r;
+  const int m = min(*n_listed, cap);
+  r.cap = cap;
+  r.take = sampled ? min(m, sample_cap) : m;
+  r.stride = __fdiv_rn(static_cast<float>(m), static_cast<float>(max(r.take, 1)));
+  r.inv_stride = __frcp_rn(r.stride);
+  r.src_max = max(m - 1, 0);
+  return r;
+}
 
 // src(j) of the sampled mode, rounded as torch rounds it.
-__device__ __forceinline__ int sample_src(int j, float stride, int src_max) {
-  return min(static_cast<int>(floorf(__fmul_rn(static_cast<float>(j), stride))), src_max);
+__device__ __forceinline__ int sample_src(int j, const Rows& r) {
+  return min(static_cast<int>(floorf(__fmul_rn(static_cast<float>(j), r.stride))), r.src_max);
 }
 
 // The first j in [0, take] with j == take or src(j) >= v.  src is monotone
 // in j, so the estimate v / stride (by the reciprocal inv_stride) moved while
 // a neighbour decides is exact; it moves a step or two at most.
-__device__ __forceinline__ int sample_map(int v, int take, float stride, float inv_stride,
-                                          int src_max) {
+__device__ __forceinline__ int sample_map(int v, const Rows& r) {
   if (v <= 0) return 0;
-  if (v > src_max) return take;
-  int j = min(max(static_cast<int>(ceilf(static_cast<float>(v) * inv_stride)), 0), take);
-  while (j > 0 && sample_src(j - 1, stride, src_max) >= v) --j;
-  while (j < take && sample_src(j, stride, src_max) < v) ++j;
+  if (v > r.src_max) return r.take;
+  int j = min(max(static_cast<int>(ceilf(static_cast<float>(v) * r.inv_stride)), 0), r.take);
+  while (j > 0 && sample_src(j - 1, r) >= v) --j;
+  while (j < r.take && sample_src(j, r) < v) ++j;
   return j;
 }
 
-template <int F>
+// The block's tile of bins; false for a block past the last tile.
+struct Tile {
+  int x0, y0, nx, ny;
+};
+
+__device__ __forceinline__ bool plane_tile(int scale, Tile& t) {
+  const int tiles_y = (scale + kTileY - 1) / kTileY;
+  if (static_cast<int>(blockIdx.x) >= ((scale + kTileX - 1) / kTileX) * tiles_y) return false;
+  t.x0 = (blockIdx.x / tiles_y) * kTileX;
+  t.y0 = (blockIdx.x % tiles_y) * kTileY;
+  t.nx = min(kTileX, scale - t.x0);
+  t.ny = min(kTileY, scale - t.y0);
+  return true;
+}
+
+// The border ring: rows y = 0 and y = pn_res - 1, columns x = 0 and
+// x = pn_res - 1, by the first blocks' threads.
+template <typename T, int F>
+__device__ __forceinline__ void zero_border(T* __restrict__ plane, int pn_res) {
+  const int gid = blockIdx.x * kPlaneThreads + threadIdx.x;
+  if (gid >= 2 * pn_res) return;
+  const long long a = gid < pn_res ? gid : static_cast<long long>(gid - pn_res) * pn_res;
+  const long long b = gid < pn_res ? static_cast<long long>(pn_res - 1) * pn_res + gid
+                                   : a + pn_res - 1;
+  const T zero[F] = {};
+  store_row<T, F>(plane, a, zero);
+  store_row<T, F>(plane, b, zero);
+}
+
+// A warp's run (column x0 + warp, bins y0 .. y0 + ny - 1): its ny + 1 row
+// boundaries into map, and (where raw is given) the boundaries as they are.
+template <bool kSampled>
+__device__ __forceinline__ void load_map(const int* __restrict__ bounds, int scale, const Tile& t,
+                                         int warp, const Rows& r, int* map, int* raw) {
+  for (int i = threadIdx.x & 31; i <= t.ny; i += 32) {
+    const int v = bounds[static_cast<long long>(t.x0 + warp) * scale + t.y0 + i];
+    map[i] = kSampled ? sample_map(v, r) : min(max(v, 0), r.cap);
+    if (raw) raw[i] = v;
+  }
+}
+
+// The run's rows [map[0], map[ny]), consecutive lanes on consecutive rows,
+// kRowsAhead rows a lane in flight.  visit(bin, row, v) runs on every lane
+// of the warp in step, once for each of its kRowsAhead rows: bin in
+// [0, ny) for a valid row, else -1; row the clamped table row of its entry;
+// v its F values.
+template <typename T, int F, bool kSampled, typename Visit>
+__device__ __forceinline__ void walk_run(const T* __restrict__ table, long long fine_offset,
+                                         long long table_rows, const int* __restrict__ entry_idx,
+                                         const int* map, int ny, const Rows& r, Visit&& visit) {
+  const int lane = threadIdx.x & 31;
+  const int j1 = map[ny];
+  int b_first = 0;
+  for (int jb = map[0]; jb < j1; jb += 32 * kRowsAhead) {
+    int e[kRowsAhead], bin[kRowsAhead];
+#pragma unroll
+    for (int u = 0; u < kRowsAhead; ++u) {      // the entries' loads first
+      const int j = jb + 32 * u + lane;
+      e[u] = 0;
+      if (j < j1 && j < r.take)
+        e[u] = kSampled ? entry_idx[min(sample_src(j, r), r.cap - 1)] : entry_idx[j];
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsAhead; ++u) {      // each lane's bin, stepped from its rows' first
+      const int j = jb + 32 * u + lane;
+      int b = b_first;
+      while (b + 1 < ny && map[b + 1] <= j) ++b;
+      bin[u] = j < j1 && j < r.take ? b : -1;
+      b_first = __shfl_sync(~0u, b, 31);
+    }
+    long long row[kRowsAhead];
+    T v[kRowsAhead][F];
+#pragma unroll
+    for (int u = 0; u < kRowsAhead; ++u) {      // then the table rows'
+      row[u] = min(max(fine_offset + e[u], 0LL), table_rows - 1);
+      load_row<T, F>(table, row[u], v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsAhead; ++u) visit(bin[u], row[u], v[u]);
+  }
+}
+
+// K7 (T = float) and K7i (T = int, unsampled): the whole plane.
+template <typename T, int F, bool kSampled>
 __global__ void __launch_bounds__(kPlaneThreads)
-pn_frac_plane_kernel(const float* __restrict__ table, long long fine_offset, long long table_rows,
-                     const int* __restrict__ entry_idx, const int* __restrict__ bounds,
-                     const int* __restrict__ n_listed, int cap, int sample_cap, int pn_res,
-                     float* __restrict__ plane) {
-  __shared__ int s_map[kTileX][kTileY + 1];   // each run's row boundaries
+pn_plane_kernel(const T* __restrict__ table, long long fine_offset, long long table_rows,
+                const int* __restrict__ entry_idx, const int* __restrict__ bounds,
+                const int* __restrict__ n_listed, int cap, int sample_cap, int pn_res,
+                T* __restrict__ plane) {
+  constexpr bool kInt = std::is_same<T, int>::value;
+  __shared__ int s_map[kTileX][kTileY + 1];            // each run's row boundaries
+  __shared__ int s_raw[kInt ? kTileX : 1][kTileY + 1];  // K7i: the bounds as given
   __shared__ int s_pos[kTileX][kTileY * F];
+  zero_border<T, F>(plane, pn_res);
   const int scale = pn_res - 2;
+  Tile t;
+  if (!plane_tile(scale, t)) return;
+  const Rows r = plane_rows(n_listed, cap, sample_cap, kSampled);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // the border ring: rows y = 0 and y = pn_res - 1, columns x = 0 and x = pn_res - 1
-  const int gid = blockIdx.x * kPlaneThreads + threadIdx.x;
-  if (gid < 2 * pn_res) {
-    const long long a = gid < pn_res ? gid : static_cast<long long>(gid - pn_res) * pn_res;
-    const long long b = gid < pn_res ? static_cast<long long>(pn_res - 1) * pn_res + gid
-                                     : a + pn_res - 1;
-#pragma unroll
-    for (int f = 0; f < F; ++f) plane[a * F + f] = plane[b * F + f] = 0.f;
-  }
-  const int tiles_y = (scale + kTileY - 1) / kTileY;
-  if (static_cast<int>(blockIdx.x) >= ((scale + kTileX - 1) / kTileX) * tiles_y) return;
-  const int tx0 = (blockIdx.x / tiles_y) * kTileX, ty0 = (blockIdx.x % tiles_y) * kTileY;
-  const int nx = min(kTileX, scale - tx0), ny = min(kTileY, scale - ty0);
-
-  const int m = min(*n_listed, cap);
-  const bool sampled = sample_cap > 0;
-  const int take = sampled ? min(m, sample_cap) : m;   // rows below it are valid
-  const float stride = __fdiv_rn(static_cast<float>(m), static_cast<float>(max(take, 1)));
-  const float inv_stride = __frcp_rn(stride);
-  const int src_max = max(m - 1, 0);
-
-  if (warp < nx) {
-    // the run's boundaries
-    for (int t = lane; t <= ny; t += 32) {
-      const int v = bounds[static_cast<long long>(tx0 + warp) * scale + ty0 + t];
-      s_map[warp][t] = sampled ? sample_map(v, take, stride, inv_stride, src_max)
-                               : min(max(v, 0), cap);
-    }
-    for (int i = lane; i < kTileY * F; i += 32) s_pos[warp][i] = 0;
+  if (warp < t.nx) {
+    int* pos = s_pos[warp];
+    load_map<kSampled>(bounds, scale, t, warp, r, s_map[warp], kInt ? s_raw[warp] : nullptr);
+    for (int i = lane; i < kTileY * F; i += 32) pos[i] = 0;
     __syncwarp();
-
-    // the run's rows, consecutive lanes on consecutive rows; a lane's bin is
-    // found by stepping from the bin of its 32 rows' first
-    const int* map = s_map[warp];
-    const int j1 = map[ny];
-    int b_first = 0;
-    for (int jb = map[0]; jb < j1; jb += 32 * kRowsAhead) {
-      int e[kRowsAhead], bin[kRowsAhead];
+    walk_run<T, F, kSampled>(table, fine_offset, table_rows, entry_idx, s_map[warp], t.ny, r,
+                             [&](int bin, long long, const T* v) {
+      // the lanes of one bin add their counts once, by their lowest lane
+      const unsigned grp = __match_any_sync(~0u, bin);
+      const bool leader = bin >= 0 && __ffs(grp) - 1 == lane;
 #pragma unroll
-      for (int u = 0; u < kRowsAhead; ++u) {      // the entries' loads first
-        const int j = jb + 32 * u + lane;
-        e[u] = 0;
-        if (j < j1 && j < take)
-          e[u] = sampled ? entry_idx[min(sample_src(j, stride, src_max), cap - 1)]
-                         : entry_idx[j];
+      for (int f = 0; f < F; ++f) {
+        const int c = __popc(__ballot_sync(~0u, bin >= 0 && positive(v[f])) & grp);
+        if (leader && c) pos[bin * F + f] += c;
       }
-#pragma unroll
-      for (int u = 0; u < kRowsAhead; ++u) {
-        const int j = jb + 32 * u + lane;
-        int b = b_first;
-        while (b + 1 < ny && map[b + 1] <= j) ++b;
-        bin[u] = j < j1 && j < take ? b : -1;
-        b_first = __shfl_sync(~0u, b, 31);
-      }
-      float v[kRowsAhead][F];
-#pragma unroll
-      for (int u = 0; u < kRowsAhead; ++u)        // then the table rows'
-        load_row<F>(table, min(max(fine_offset + e[u], 0LL), table_rows - 1), v[u]);
-#pragma unroll
-      for (int u = 0; u < kRowsAhead; ++u) {
-        // the lanes of one bin add their counts once, by their lowest lane
-        const unsigned grp = __match_any_sync(~0u, bin[u]);
-        const bool leader = bin[u] >= 0 && __ffs(grp) - 1 == lane;
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const int c = __popc(__ballot_sync(~0u, bin[u] >= 0 && v[u][f] > 0.9f) & grp);
-          if (leader && c) s_pos[warp][bin[u] * F + f] += c;
-        }
-        __syncwarp();
-      }
-    }
+      __syncwarp();
+    });
   }
   __syncthreads();
 
   // the tile: consecutive threads on consecutive x, i.e. consecutive plane rows
-  for (int i = threadIdx.x; i < kTileX * ny; i += kPlaneThreads) {
+  for (int i = threadIdx.x; i < kTileX * t.ny; i += kPlaneThreads) {
     const int xi = i % kTileX, yi = i / kTileX;
-    if (xi >= nx) continue;
-    const float den = __fadd_rn(static_cast<float>(s_map[xi][yi + 1] - s_map[xi][yi]), 1e-6f);
-    float o[F];
+    if (xi >= t.nx) continue;
+    T o[F];
+    if constexpr (kInt) {
+      // pos >= 0 and the bin length >= 1 after the clamp: truncation floors
+      const int len = max(s_raw[xi][yi + 1] - s_raw[xi][yi], 1);
 #pragma unroll
-    for (int f = 0; f < F; ++f) o[f] = __fdiv_rn(static_cast<float>(s_pos[xi][yi * F + f]), den);
-    float* out = plane + (static_cast<long long>(ty0 + yi + 1) * pn_res + tx0 + xi + 1) * F;
-    if constexpr (F == 4) *reinterpret_cast<float4*>(out) = make_float4(o[0], o[1], o[2], o[3]);
-    else *reinterpret_cast<float2*>(out) = make_float2(o[0], o[1]);
-  }
-}
-
-template <int F>
-__global__ void pn_hist_backward_kernel(const float* __restrict__ table, long long fine_offset,
-                                        long long table_rows, const int* __restrict__ sel,
-                                        const unsigned char* __restrict__ row_valid,
-                                        const int* __restrict__ bnd,
-                                        const float* __restrict__ g,
-                                        float* __restrict__ d_table, int n_bins, int n_rows) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_bins) return;
-  const int lo = min(max(bnd[b], 0), n_rows), hi = min(max(bnd[b + 1], 0), n_rows);
-  float gb[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) gb[f] = g[static_cast<long long>(b) * F + f];
-  for (int r = lo; r < hi; ++r) {
-    if (!row_valid[r]) continue;
-    const long long row = min(max(fine_offset + sel[r], 0LL), table_rows - 1);
-    float v[F];
-    load_row<F>(table, row, v);
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      if (v[f] > 0.9f) atomicAdd(d_table + row * F + f, gb[f]);
-  }
-}
-
-constexpr int kQFeat = 256;   // codec/intctx.py Q_FEAT
-
-template <int F>
-__global__ void pn_hist_int_kernel(const int* __restrict__ sign, long long fine_offset,
-                                   long long tbl_rows, const int* __restrict__ sel,
-                                   long long n_rows, const int* __restrict__ n_listed,
-                                   const int* __restrict__ bnd, int pn_res,
-                                   int* __restrict__ plane) {
-  const long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (o >= static_cast<long long>(pn_res) * pn_res) return;
-  const int xo = static_cast<int>(o % pn_res), yo = static_cast<int>(o / pn_res);
-  int* out = plane + o * F;
-  if (xo == 0 || yo == 0 || xo == pn_res - 1 || yo == pn_res - 1) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) out[f] = 0;
-    return;
-  }
-  const long long b = static_cast<long long>(xo - 1) * (pn_res - 2) + (yo - 1);
-  const long long n_valid = min(static_cast<long long>(*n_listed), n_rows);
-  const int b0 = bnd[b], b1 = bnd[b + 1];
-  const long long lo = min(max(static_cast<long long>(b0), 0LL), n_rows);
-  const long long hi = min(max(static_cast<long long>(b1), 0LL), n_rows);
-  int cnt[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) cnt[f] = 0;
-  for (long long r = lo; r < hi && r < n_valid; ++r) {
-    const long long row = min(max(fine_offset + sel[r], 0LL), tbl_rows - 1);
-    int v[F];
-    if constexpr (F == 4) {
-      const int4 q = __ldg(reinterpret_cast<const int4*>(sign) + row);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+      for (int f = 0; f < F; ++f) o[f] = s_pos[xi][yi * F + f] * kQFeat / len;
     } else {
-      const int2 q = __ldg(reinterpret_cast<const int2*>(sign) + row);
-      v[0] = q.x; v[1] = q.y;
+      const float den = __fadd_rn(static_cast<float>(s_map[xi][yi + 1] - s_map[xi][yi]), 1e-6f);
+#pragma unroll
+      for (int f = 0; f < F; ++f) o[f] = __fdiv_rn(static_cast<float>(s_pos[xi][yi * F + f]), den);
     }
-#pragma unroll
-    for (int f = 0; f < F; ++f) cnt[f] += v[f] > 0 ? 1 : 0;
+    store_row<T, F>(plane, static_cast<long long>(t.y0 + yi + 1) * pn_res + t.x0 + xi + 1, o);
   }
-  // pos >= 0 and the bin length >= 1 after the clamp: truncation floors
-  const int len = max(b1 - b0, 1);
-#pragma unroll
-  for (int f = 0; f < F; ++f) out[f] = cnt[f] * kQFeat / len;
 }
 
-}  // namespace
+// K7b: the gradient g [pn_res^2, F] of K7's plane into d_table.
+template <int F, bool kSampled>
+__global__ void __launch_bounds__(kPlaneThreads)
+pn_plane_backward_kernel(const float* __restrict__ table, long long fine_offset,
+                         long long table_rows, const int* __restrict__ entry_idx,
+                         const int* __restrict__ bounds, const int* __restrict__ n_listed,
+                         int cap, int sample_cap, int pn_res, const float* __restrict__ g,
+                         float* __restrict__ d_table) {
+  __shared__ int s_map[kTileX][kTileY + 1];
+  __shared__ float s_scale[kTileX][kTileY * F];     // g / (cnt + 1e-6) a bin
+  const int scale = pn_res - 2;
+  Tile t;
+  if (!plane_tile(scale, t)) return;
+  const Rows r = plane_rows(n_listed, cap, sample_cap, kSampled);
+  const int warp = threadIdx.x >> 5;
+  if (warp < t.nx) load_map<kSampled>(bounds, scale, t, warp, r, s_map[warp], nullptr);
+  __syncthreads();
+  // the tile's gradient rows: consecutive threads on consecutive plane rows
+  for (int i = threadIdx.x; i < kTileX * t.ny; i += kPlaneThreads) {
+    const int xi = i % kTileX, yi = i / kTileX;
+    if (xi >= t.nx) continue;
+    const float den = __fadd_rn(static_cast<float>(s_map[xi][yi + 1] - s_map[xi][yi]), 1e-6f);
+    float gv[F];
+    load_row<float, F>(g, static_cast<long long>(t.y0 + yi + 1) * pn_res + t.x0 + xi + 1, gv);
+#pragma unroll
+    for (int f = 0; f < F; ++f) s_scale[xi][yi * F + f] = __fdiv_rn(gv[f], den);
+  }
+  __syncthreads();
+  if (warp >= t.nx) return;
+  const float* sc = s_scale[warp];
+  walk_run<float, F, kSampled>(table, fine_offset, table_rows, entry_idx, s_map[warp], t.ny, r,
+                               [&](int bin, long long row, const float* v) {
+    if (bin < 0) return;
+    float a[F];
+    bool any = false;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const bool on = positive(v[f]);
+      a[f] = on ? sc[bin * F + f] : 0.f;
+      any |= on;
+    }
+    if (!any) return;
+    if constexpr (F == 4)
+      atomicAdd(reinterpret_cast<float4*>(d_table) + row, make_float4(a[0], a[1], a[2], a[3]));
+    else
+      atomicAdd(reinterpret_cast<float2*>(d_table) + row, make_float2(a[0], a[1]));
+  });
+}
 
-// sign [tbl_rows, f] int32 (rows 4f-byte aligned), sel [n_rows] int32 finest-
-// level entries sorted by bin, n_listed a device int32 (rows at or past it are
-// not valid), bnd [(pn_res-2)^2 + 1] int32; plane [pn_res^2, f] int32, every
-// element written; f in (2, 4).
-CNC_EXPORT int cnc_pn_hist_int(const int* sign, long long fine_offset, long long tbl_rows,
-                               const int* sel, long long n_rows, const int* n_listed,
-                               const int* bnd, int pn_res, int f, int* plane, void* stream) {
-  const long long n_out = static_cast<long long>(pn_res) * pn_res;
-  if (n_out == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const unsigned blocks = cnc_blocks(n_out, threads);
+long long plane_tiles(int pn_res) {
+  const int scale = pn_res - 2;
+  return static_cast<long long>((scale + kTileX - 1) / kTileX) * ((scale + kTileY - 1) / kTileY);
+}
+
+// Enough blocks for the tiles and for the border ring's 2 * pn_res threads.
+unsigned plane_blocks(int pn_res) {
+  const long long tiles = plane_tiles(pn_res);
+  const long long border = cnc_blocks(2LL * pn_res, kPlaneThreads);
+  return static_cast<unsigned>(tiles > border ? tiles : border);
+}
+
+template <typename T, bool kSampled>
+int launch_plane(const T* table, long long fine_offset, long long table_rows,
+                 const int* entry_idx, const int* bounds, const int* n_listed, int cap,
+                 int sample_cap, int pn_res, int f, T* plane, cudaStream_t s) {
+  const unsigned blocks = plane_blocks(pn_res);
   switch (f) {
-    case 2: pn_hist_int_kernel<2><<<blocks, threads, 0, s>>>(sign, fine_offset, tbl_rows, sel, n_rows, n_listed, bnd, pn_res, plane); break;
-    case 4: pn_hist_int_kernel<4><<<blocks, threads, 0, s>>>(sign, fine_offset, tbl_rows, sel, n_rows, n_listed, bnd, pn_res, plane); break;
+    case 2: pn_plane_kernel<T, 2, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane); break;
+    case 4: pn_plane_kernel<T, 4, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return cnc_last_error();
 }
+
+template <bool kSampled>
+int launch_backward(const float* table, long long fine_offset, long long table_rows,
+                    const int* entry_idx, const int* bounds, const int* n_listed, int cap,
+                    int sample_cap, int pn_res, int f, const float* g, float* d_table,
+                    cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>(plane_tiles(pn_res));
+  switch (f) {
+    case 2: pn_plane_backward_kernel<2, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, g, d_table); break;
+    case 4: pn_plane_backward_kernel<4, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, g, d_table); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return cnc_last_error();
+}
+
+}  // namespace
 
 // table [table_rows, f] f32 (rows 4*f-byte aligned), entry_idx [cap] int32,
 // bounds [(pn_res-2)^2 + 1] int32 ascending in [0, cap], n_listed a device
@@ -303,33 +388,35 @@ CNC_EXPORT int cnc_pn_frac_plane(const float* table, long long fine_offset, long
                                  void* stream) {
   if (pn_res < 3 || cap <= 0 || sample_cap < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int scale = pn_res - 2;
-  const long long tiles = static_cast<long long>((scale + kTileX - 1) / kTileX) *
-                          ((scale + kTileY - 1) / kTileY);
-  const long long border = cnc_blocks(2LL * pn_res, kPlaneThreads);   // blocks that zero the ring
-  const unsigned blocks = static_cast<unsigned>(tiles > border ? tiles : border);
-  switch (f) {
-    case 2: pn_frac_plane_kernel<2><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane); break;
-    case 4: pn_frac_plane_kernel<4><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return cnc_last_error();
+  return sample_cap > 0
+             ? launch_plane<float, true>(table, fine_offset, table_rows, entry_idx, bounds,
+                                         n_listed, cap, sample_cap, pn_res, f, plane, s)
+             : launch_plane<float, false>(table, fine_offset, table_rows, entry_idx, bounds,
+                                          n_listed, cap, 0, pn_res, f, plane, s);
 }
 
-// g [n_bins, f] f32, d_table [table_rows, f] f32 zeroed by the caller.
+// K7i: sign [tbl_rows, f] int32 (rows 4*f-byte aligned), the rest as
+// cnc_pn_frac_plane's unsampled mode; plane [pn_res^2, f] int32.
+CNC_EXPORT int cnc_pn_hist_int(const int* sign, long long fine_offset, long long tbl_rows,
+                               const int* entry_idx, const int* bounds, const int* n_listed,
+                               int cap, int pn_res, int f, int* plane, void* stream) {
+  if (pn_res < 3 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_plane<int, false>(sign, fine_offset, tbl_rows, entry_idx, bounds, n_listed, cap,
+                                  0, pn_res, f, plane, static_cast<cudaStream_t>(stream));
+}
+
+// K7b: the forward's arguments, g [pn_res^2, f] f32 (rows 4*f-byte aligned)
+// and d_table [table_rows, f] f32 (rows 4*f-byte aligned), zeroed by the
+// caller; adds into d_table.
 CNC_EXPORT int cnc_pn_hist_backward(const float* table, long long fine_offset,
-                                    long long table_rows, const int* sel,
-                                    const unsigned char* row_valid, const int* bnd,
-                                    const float* g, float* d_table, int n_bins, int n_rows, int f,
-                                    void* stream) {
-  if (n_bins == 0) return 0;
+                                    long long table_rows, const int* entry_idx, const int* bounds,
+                                    const int* n_listed, int cap, int sample_cap, int pn_res,
+                                    int f, const float* g, float* d_table, void* stream) {
+  if (pn_res < 3 || cap <= 0 || sample_cap < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const unsigned blocks = cnc_blocks(n_bins, threads);
-  switch (f) {
-    case 2: pn_hist_backward_kernel<2><<<blocks, threads, 0, s>>>(table, fine_offset, table_rows, sel, row_valid, bnd, g, d_table, n_bins, n_rows); break;
-    case 4: pn_hist_backward_kernel<4><<<blocks, threads, 0, s>>>(table, fine_offset, table_rows, sel, row_valid, bnd, g, d_table, n_bins, n_rows); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return cnc_last_error();
+  return sample_cap > 0
+             ? launch_backward<true>(table, fine_offset, table_rows, entry_idx, bounds, n_listed,
+                                     cap, sample_cap, pn_res, f, g, d_table, s)
+             : launch_backward<false>(table, fine_offset, table_rows, entry_idx, bounds,
+                                      n_listed, cap, 0, pn_res, f, g, d_table, s);
 }

@@ -40,8 +40,9 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 # integer kernels: int_ctx_pool (one launch a pool, csrc/int_context.cu), int_pq
 # (those of its launches that also finish the coder's probabilities, K9c, as
 # their epilogue: K9c has no launch of its own) and pn_hist_int (the integer
-# mode of csrc/pn_hist.cu), counted apart from pn_frac_plane
-# (one launch a frac plane) and pn_hist_bwd (its backward);
+# mode of csrc/pn_hist.cu, one launch a codec plane), counted apart from
+# pn_frac_plane (one launch a frac plane) and pn_hist_bwd (its backward: one
+# launch a backward, after the fill of d_table);
 # pack_mask_bits: the packing of the encode's occupancy masks (once per cache
 # refresh, csrc/grid_encode.cu); segment_pool / segment_pool_bwd: the backward
 # and the forward of segment_gather; segment_mean / segment_mean_bwd: one call
@@ -78,7 +79,7 @@ _SIGNATURES = {
     "cnc_segment_mean": ((_P, _P, _P, _P, _LL, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "cnc_segment_mean_backward": ((_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P, _P), _I),
     "cnc_pn_frac_plane": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I),
-    "cnc_pn_hist_backward": ((_P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "cnc_pn_hist_backward": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
     "cnc_footprint": ((_P, _I, _I, _I, _P, _I, _P, _P, _P), _I),
     "cnc_vertex_scratch_words": ((_LL,), _LL),
     "cnc_vertex_segment_cap": ((), _I),
@@ -90,7 +91,7 @@ _SIGNATURES = {
     "cnc_int_ctx_pool": ((_P, _P, _LL, _I, _I, _I, _I, _P, _LL, _LL, _P, _LL, _I, _I, _IP, _LP,
                           _LP, _LP, _P, _I, _LL, _P, _P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P, _LL, _I, _P), _I),
-    "cnc_pn_hist_int": ((_P, _LL, _LL, _P, _LL, _P, _P, _I, _I, _P, _P), _I),
+    "cnc_pn_hist_int": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P, _P), _I),
 }
 
 _lib = None

@@ -285,31 +285,6 @@ def _pn_hist_plain(table, fine_offset, sel, row_valid, bnd):
     return cs[b[1:]] - cs[b[:-1]]
 
 
-def _check_pn_args(name, table, sel, row_valid, bnd):
-    kernels.require_cuda(name, table, sel, row_valid, bnd)
-    if (table.dtype != torch.float32 or sel.dtype != torch.int32 or bnd.dtype != torch.int32
-            or row_valid.dtype != torch.bool):
-        raise ValueError(f"{name}: the kernel takes a float32 table, int32 sel and bnd and a "
-                         "bool row mask")
-    f = table.shape[1]
-    if f not in (2, 4) or table.data_ptr() % (4 * f):
-        raise ValueError(f"{name}: the kernel takes {4 * f}-byte aligned rows of 2 or 4 floats")
-    if row_valid.shape != sel.shape or bnd.dim() != 1 or bnd.shape[0] < 1:
-        raise ValueError(f"{name}: sel and row_valid must be [rows], bnd [bins + 1]")
-    return f
-
-
-def _pn_hist_backward_cuda(table, fine_offset, sel, row_valid, bnd, g):
-    f = _check_pn_args("pn_hist_bwd", table, sel, row_valid, bnd)
-    kernels.require_cuda("pn_hist_bwd", g)
-    d_table = torch.zeros_like(table)
-    kernels.call("cnc_pn_hist_backward", kernels.ptr(table), fine_offset, table.shape[0],
-                 kernels.ptr(sel), kernels.ptr(row_valid), kernels.ptr(bnd), kernels.ptr(g),
-                 kernels.ptr(d_table), bnd.shape[0] - 1, sel.shape[0], f)
-    kernels.launches["pn_hist_bwd"] += 1
-    return d_table
-
-
 def _pn_rows(entry_idx, bounds, n, sample_cap):
     """The rows a frac plane counts, as cnc_tpu's pn_frac_plane forms them:
     (sel [rows] entry indices, row_valid [rows], bnd [bins + 1] the bins'
@@ -343,40 +318,92 @@ def _pn_frac_plane_plain(table, fine_offset, entry_idx, bounds, n, pn_res, sampl
     return plane.transpose(0, 1).reshape(-1, f)
 
 
-def _check_plane_args(table, entry_idx, bounds, n, pn_res):
-    kernels.require_cuda("pn_frac_plane", table, entry_idx, bounds, n)
+def pn_hist_backward_plain(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, g):
+    """K7b's plain twin in its kernel's arguments: the gradient g [pn_res**2,
+    F] of the frac plane into d_table [T, F].  Each valid row j of bin b =
+    x * (pn_res - 2) + y (map[b] <= j < map[b+1], the rows and map of
+    `_pn_rows`) adds, where its entry's value is > 0.9, its bin's scale
+    g[(y + 1) * pn_res + x + 1] / (f32(map[b+1] - map[b]) + 1e-6) into its
+    entry's row; in g's dtype."""
+    sel, row_valid, bnd = _pn_rows(entry_idx, bounds, n, sample_cap)
+    scale, dev = pn_res - 2, table.device
+    b = torch.arange(scale * scale, device=dev)
+    cnt = (bnd[1:] - bnd[:-1]).to(g.dtype)
+    bin_scale = g[(b % scale + 1) * pn_res + b // scale + 1] / (cnt + 1e-6)[:, None]
+    j = torch.arange(sel.shape[0], dtype=torch.int32, device=dev)
+    bin_of = torch.searchsorted(bnd, j, right=True).long() - 1   # the last b with map[b] <= j
+    inside = row_valid & (bin_of >= 0) & (bin_of < scale * scale)
+    rows = fine_offset + sel.long()
+    on = inside[:, None] & (table[rows] > 0.9)
+    add = torch.where(on, bin_scale[bin_of.clamp(0, scale * scale - 1)], 0.0)
+    return torch.zeros(table.shape, dtype=g.dtype, device=dev).index_add_(0, rows, add)
+
+
+def _check_plane_args(name, table, entry_idx, bounds, n, pn_res):
+    kernels.require_cuda(name, table, entry_idx, bounds, n)
     if (table.dtype != torch.float32 or entry_idx.dtype != torch.int32
             or bounds.dtype != torch.int32 or n.dtype != torch.int32 or n.numel() != 1):
-        raise ValueError("pn_frac_plane: the kernel takes a float32 table, int32 entry_idx and "
+        raise ValueError(f"{name}: the kernel takes a float32 table, int32 entry_idx and "
                          "bounds and a one-element int32 count")
     f = table.shape[1]
     if f not in (2, 4) or table.data_ptr() % (4 * f):
-        raise ValueError(f"pn_frac_plane: the kernel takes {4 * f}-byte aligned rows of 2 or 4 "
-                         "floats")
-    if pn_res < 3 or entry_idx.dim() != 1 or bounds.shape != ((pn_res - 2) ** 2 + 1,):
-        raise ValueError("pn_frac_plane: entry_idx must be [cap], bounds [(pn_res - 2)**2 + 1]")
+        raise ValueError(f"{name}: the kernel takes {4 * f}-byte aligned rows of 2 or 4 floats")
+    if (pn_res < 3 or entry_idx.dim() != 1 or entry_idx.numel() < 1
+            or bounds.shape != ((pn_res - 2) ** 2 + 1,)):
+        raise ValueError(f"{name}: entry_idx must be [cap], cap >= 1, bounds "
+                         "[(pn_res - 2)**2 + 1]")
     return f
+
+
+def _sample_arg(name, entry_idx, sample_cap):
+    """The kernels' sample_cap: 0 for the unsampled mode."""
+    if sample_cap is None or sample_cap >= entry_idx.shape[0]:
+        return 0
+    if sample_cap < 1:
+        raise ValueError(f"{name}: sample_cap must be positive")
+    return int(sample_cap)
 
 
 def _pn_frac_plane_cuda(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap=None):
     """K7: the whole plane in one launch, one allocation."""
-    f = _check_plane_args(table, entry_idx, bounds, n, pn_res)
-    cap = entry_idx.shape[0]
-    sampled = sample_cap is not None and sample_cap < cap
-    if sampled and sample_cap < 1:
-        raise ValueError("pn_frac_plane: sample_cap must be positive")
+    f = _check_plane_args("pn_frac_plane", table, entry_idx, bounds, n, pn_res)
+    sample = _sample_arg("pn_frac_plane", entry_idx, sample_cap)
     plane = torch.empty(pn_res * pn_res, f, dtype=torch.float32, device=table.device)
     kernels.call("cnc_pn_frac_plane", kernels.ptr(table), fine_offset, table.shape[0],
-                 kernels.ptr(entry_idx), kernels.ptr(bounds), kernels.ptr(n), cap,
-                 int(sample_cap) if sampled else 0, pn_res, f, kernels.ptr(plane))
+                 kernels.ptr(entry_idx), kernels.ptr(bounds), kernels.ptr(n),
+                 entry_idx.shape[0], sample, pn_res, f, kernels.ptr(plane))
     kernels.launches["pn_frac_plane"] += 1
     return plane
 
 
+def _pn_hist_backward_launch(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, g,
+                             d_table):
+    """K7b alone: adds the plane's gradient g [pn_res**2, F] into d_table."""
+    f = _check_plane_args("pn_hist_bwd", table, entry_idx, bounds, n, pn_res)
+    sample = _sample_arg("pn_hist_bwd", entry_idx, sample_cap)
+    kernels.require_cuda("pn_hist_bwd", table, g, d_table)
+    if (g.dtype != torch.float32 or g.shape != (pn_res * pn_res, f) or g.data_ptr() % (4 * f)
+            or d_table.dtype != torch.float32 or d_table.shape != table.shape
+            or d_table.data_ptr() % (4 * f)):
+        raise ValueError(f"pn_hist_bwd: g [pn_res**2, {f}] and d_table shaped as the table, "
+                         f"float32 with {4 * f}-byte aligned rows")
+    kernels.call("cnc_pn_hist_backward", kernels.ptr(table), fine_offset, table.shape[0],
+                 kernels.ptr(entry_idx), kernels.ptr(bounds), kernels.ptr(n),
+                 entry_idx.shape[0], sample, pn_res, f, kernels.ptr(g), kernels.ptr(d_table))
+    kernels.launches["pn_hist_bwd"] += 1
+
+
+def _pn_hist_backward_cuda(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, g):
+    """K7b: the zero fill of d_table and one launch."""
+    d_table = torch.zeros_like(table)
+    _pn_hist_backward_launch(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, g,
+                             d_table)
+    return d_table
+
+
 class _PnFracPlaneCuda(torch.autograd.Function):
-    """K7 forward; the backward (taken only with pn_frac_grad) forms the rows
-    and boundaries by the plain index math and scatters the indicator's
-    straight-through gradient with the backward kernel."""
+    """K7 forward; the backward (taken only with pn_frac_grad) is K7b on the
+    forward's own inputs: the fill of d_table and one launch."""
 
     @staticmethod
     def forward(ctx, table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap):
@@ -388,12 +415,8 @@ class _PnFracPlaneCuda(torch.autograd.Function):
     def backward(ctx, g):
         table, entry_idx, bounds, n = ctx.saved_tensors
         fine_offset, pn_res, sample_cap = ctx.args
-        sel, row_valid, bnd = _pn_rows(entry_idx, bounds, n, sample_cap)
-        f = table.shape[1]
-        cnt = (bnd[1:] - bnd[:-1]).to(torch.float32)[:, None]
-        g_bins = g.reshape(pn_res, pn_res, f)[1:-1, 1:-1].transpose(0, 1).reshape(-1, f)
-        d_table = _pn_hist_backward_cuda(table, fine_offset, sel.contiguous(), row_valid, bnd,
-                                         (g_bins / (cnt + 1e-6)).contiguous())
+        d_table = _pn_hist_backward_cuda(table, fine_offset, entry_idx, bounds, n, pn_res,
+                                         sample_cap, g.contiguous())
         return d_table, None, None, None, None, None, None
 
 
@@ -411,7 +434,7 @@ def pn_frac_plane(table: torch.Tensor, fine_offset: int, entry_idx: torch.Tensor
     sample of at most `sample_cap` rows when that is below cap), frac =
     pos / (cnt + 1e-6).  `table` gets the straight-through gradient of the
     indicator.  CPU tensors take the plain twin, CUDA tensors the kernels of
-    csrc/pn_hist.cu (one launch; the backward kernel with a gradient).
+    csrc/pn_hist.cu (one launch; with a gradient, K7b's fill and one launch).
     """
     if table.is_cuda:
         return _PnFracPlaneCuda.apply(table.contiguous(), int(fine_offset), entry_idx, bounds, n,

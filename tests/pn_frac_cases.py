@@ -8,6 +8,10 @@ row's finest-level entry), the rest parked past the last bin with entry 0;
 `bounds` the bins' row boundaries (searchsorted of the sorted bins), a sign
 table whose finest level holds +-1 and values at the 0.9 threshold, and the
 stride-sampling cap.  numpy only, seeded.
+
+`run_walk` mirrors the walk csrc/pn_hist.cu's three kernels share (K7, K7i,
+K7b): tiles, a warp's run of bins, lanes on consecutive rows and each
+lane's bin by stepping; `bin_scale` is K7b's per-bin scale.
 """
 
 import numpy as np
@@ -95,3 +99,63 @@ def sampled_map(bounds: np.ndarray, n: int, cap: int, sample_cap: int) -> np.nda
             break
         j = np.where(up, j + 1, j)
     return np.where(v <= 0, 0, np.where(v > src_max, take, j))
+
+
+TILE_X, TILE_Y, ROWS_AHEAD = 8, 8, 4     # csrc/pn_hist.cu kTileX, kTileY, kRowsAhead
+
+
+def walk_map(bounds: np.ndarray, n: int, cap: int, sample_cap) -> tuple:
+    """(map, take) of the kernels: the sampled boundary map and its take
+    when 0 < sample_cap < cap (the wrappers' sampled mode), else the bounds
+    clamped to [0, cap] and take = min(n, cap)."""
+    m = min(n, cap)
+    if sample_cap is not None and sample_cap < cap:
+        return sampled_map(bounds, n, cap, sample_cap), min(m, sample_cap)
+    return np.clip(np.asarray(bounds, np.int64), 0, cap), m
+
+
+def run_walk(bounds: np.ndarray, n: int, cap: int, sample_cap, pn_res: int) -> tuple:
+    """The rows the kernels' walk visits and the bin each lane gives its
+    row: (rows, bins), int64 arrays in visiting order.  A block a tile of
+    TILE_X x-columns by TILE_Y y, a warp a column's run of bins; the warp
+    steps over the run's rows [map[0], map[ny]) ROWS_AHEAD * 32 at a time,
+    lane l of group u on row jb + 32 u + l; a lane's bin is stepped up from
+    the bin of the previous group's lane 31 while the next boundary is at or
+    below its row; lanes past the run or at or past take visit nothing."""
+    scale = pn_res - 2
+    bmap, take = walk_map(bounds, n, cap, sample_cap)
+    lanes = np.arange(32)
+    rows, bins = [], []
+    for x0 in range(0, scale, TILE_X):
+        for y0 in range(0, scale, TILE_Y):
+            nx, ny = min(TILE_X, scale - x0), min(TILE_Y, scale - y0)
+            for w in range(nx):
+                base = (x0 + w) * scale + y0
+                run = bmap[base:base + ny + 1]
+                j1, b_first = int(run[ny]), 0
+                for jb in range(int(run[0]), j1, 32 * ROWS_AHEAD):
+                    for u in range(ROWS_AHEAD):
+                        j = jb + 32 * u + lanes
+                        b = np.full(32, b_first)
+                        while True:
+                            step = (b + 1 < ny) & (run[np.minimum(b + 1, ny)] <= j)
+                            if not step.any():
+                                break
+                            b = b + step
+                        ok = (j < j1) & (j < take)
+                        rows.append(j[ok])
+                        bins.append(base + b[ok])
+                        b_first = int(b[31])
+    cat = lambda xs: np.concatenate(xs).astype(np.int64) if xs else np.zeros(0, np.int64)
+    return cat(rows), cat(bins)
+
+
+def bin_scale(g: np.ndarray, bmap: np.ndarray, pn_res: int) -> np.ndarray:
+    """K7b's scale of each bin b = x * (pn_res - 2) + y: the plane's
+    gradient at row (y + 1) * pn_res + x + 1 over (f32(map[b+1] - map[b]) +
+    1e-6), rounded in float32 as the kernel rounds it: [bins, F]."""
+    scale = pn_res - 2
+    b = np.arange(scale * scale)
+    cnt = (bmap[1:] - bmap[:-1]).astype(np.float32) + np.float32(1e-6)
+    return (g[(b % scale + 1) * pn_res + b // scale + 1].astype(np.float32)
+            / cnt[:, None]).astype(np.float32)

@@ -23,7 +23,9 @@ context's dozen runs over 2^21 rows; the frac plane in one launch and one
 allocation, bit-equal to its twin at the edges of tests/pn_frac_cases.py
 (nothing listed, one row, fewer rows than the sample, full and overflowed
 lists, sample caps at and above the list's, empty bins at both ends, many
-rows a bin, most bins empty), its backward against the twin in float64;
+rows a bin, most bins empty), its backward against the twin in float64,
+and K7b alone (the fill and one launch) against its plain function in
+float64 at the same edges, two runs;
 the footprint grids on an empty and a full occupancy in 2D and 3D, and at
 Rb = 128 with rows of 18 to 2,050 corners, boxes several threads share and
 mask_out at byte offsets 1-3; the masked encode with every corner masked and
@@ -40,7 +42,8 @@ cap, empty keys, a table size that is not a power of two, 2D levels
 through perm and inv; no torch.sort, launches counted); a few rate steps
 on the card.  For the
 codec's integer kernels (the fused pool int_ctx_pool, the pool finished by
-K9c in its launch, K7i), held to their twins with torch.equal: the
+K9c in its launch, K7i, also at tests/pn_frac_cases.py's edges), held to
+their twins with torch.equal: the
 finished pool at n_e of 0, 1 and 4,099, an entry over many blocks, F of 2
 and 4, 3D and 2D with and without the plane, with and without the sign
 bits, and its fault word; the pool with no row kept, every row kept,
@@ -49,7 +52,8 @@ product wraps, overlap weights of 0, F of 2 and 4, 2D with and without the
 plane and with no context level, two runs equal, and its fault word on
 entries that decrease inside a warp, between warps, batches and blocks,
 across a block with no kept row, or leave their range; the wrappers'
-refusals; and a tiny encode on the card whose
+refusals (the frac planes': dtype, alignment, F, the shapes of bounds and
+of the gradient); and a tiny encode on the card whose
 streams equal the same encode through the twins on the CPU, decoded back on
 the card.  For the
 per-ray march (every field equal to the twin's, the per-ray hit counts and
@@ -1636,6 +1640,83 @@ def test_pn_hist_int_kernel(dev, f, listed):
     want = intctx.frac_plane(sign, pn, 150, pn_res, f)
     got = intctx.frac_plane(sign.to(dev), {k: v.to(dev) for k, v in pn.items()}, 150, pn_res, f)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("name", list(PN_CASES))
+def test_pn_hist_int_kernel_at_the_pn_cases(dev, f, name):
+    """K7i at the edges of tests/pn_frac_cases.py (the sign table of the
+    case's table; K7i reads no sample cap): one launch, one allocation,
+    equal to its twin."""
+    case = pn_case(name, f)
+    sign = intctx.sign_table(torch.from_numpy(case["table"]))
+    pn = {"entry_idx": torch.from_numpy(case["entry_idx"]),
+          "bounds": torch.from_numpy(case["bounds"]),
+          "n": torch.tensor(case["n"], dtype=torch.int32)}
+    args = (case["fine_offset"], case["pn_res"], f)
+    want = intctx.frac_plane(sign, pn, *args)
+    sign_d, pn_d = sign.to(dev), {k: v.to(dev) for k, v in pn.items()}
+    torch.cuda.synchronize(dev)
+    kernels.reset_launches()
+    before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    got = intctx.frac_plane(sign_d, pn_d, *args)
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] - before == 1
+    assert kernels.launches["pn_hist_int"] == 1 and sum(kernels.launches.values()) == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("name", list(PN_CASES))
+def test_pn_hist_backward_kernel(dev, f, name):
+    """K7b alone (the fill and one launch) at the edges of
+    tests/pn_frac_cases.py, against its plain function run in float64 within
+    K7B_REL_TOL (1e-5, chip_smoke.py) of the largest entry, two runs within
+    the same bound (float atomics: the sums' order varies)."""
+    case = pn_case(name, f)
+    table = torch.from_numpy(case["table"]).to(dev)
+    eidx, bounds = (torch.from_numpy(case[k]).to(dev) for k in ("entry_idx", "bounds"))
+    n = torch.tensor(case["n"], dtype=torch.int32, device=dev)
+    res, sample_cap = case["pn_res"], case["sample_cap"]
+    g = torch.randn(res * res, f, generator=torch.Generator(device=dev).manual_seed(f),
+                    device=dev)
+    want = cops.pn_hist_backward_plain(table.double(), case["fine_offset"], eidx, bounds, n, res,
+                                       sample_cap, g.double())
+    tol = 1e-5 * max(float(want.abs().max()), 1e-30)
+    for _ in range(2):
+        kernels.reset_launches()
+        got = cops._pn_hist_backward_cuda(table, case["fine_offset"], eidx, bounds, n, res,
+                                          sample_cap, g)
+        assert kernels.launches["pn_hist_bwd"] == 1 and sum(kernels.launches.values()) == 1
+        torch.testing.assert_close(got.double(), want, rtol=0, atol=tol)
+
+
+def test_pn_walk_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    case = pn_case("masked_tail", 4)
+    table = torch.from_numpy(case["table"]).to(dev)
+    eidx, bounds = (torch.from_numpy(case[k]).to(dev) for k in ("entry_idx", "bounds"))
+    n = torch.tensor(case["n"], dtype=torch.int32, device=dev)
+    res, cap = case["pn_res"], case["sample_cap"]
+    pn = {"entry_idx": eidx, "bounds": bounds, "n": n}
+    sign = intctx.sign_table(table)
+    odd = torch.empty(sign.numel() + 1, dtype=torch.int32, device=dev)[1:].view(sign.shape)
+    odd.copy_(sign)                                             # rows 4 bytes off 16
+    for bad, kw in ((sign.float(), {}), (odd, {}), (sign[:, :3].contiguous(), {"f": 3}),
+                    (sign, {"bounds": bounds[:-1]}), (sign, {"n": n.long()})):
+        with pytest.raises(ValueError):
+            intctx.frac_plane(bad, {**pn, **{k: v for k, v in kw.items() if k != "f"}}, 37, res,
+                              kw.get("f", 4))
+    g = torch.zeros(res * res, 4, device=dev)
+    odd_g = torch.empty(g.numel() + 1, device=dev)[1:].view(g.shape)
+    odd_g.zero_()
+    bwd = lambda t=table, b=bounds, gg=g: cops._pn_hist_backward_cuda(t, 37, eidx, b, n, res,
+                                                                       cap, gg)
+    for bad in (dict(gg=g.double()), dict(gg=odd_g), dict(gg=g[:-1].contiguous()),
+                dict(gg=g[:, :2].contiguous()), dict(b=bounds[:-1]),
+                dict(t=table[:, :3].contiguous(), gg=g[:, :3].contiguous())):
+        with pytest.raises(ValueError):
+            bwd(**bad)
+    with pytest.raises(ValueError):
+        cops._pn_hist_backward_cuda(table, 37, eidx, bounds, n, res, 0, g)   # sample_cap 0
 
 
 def test_int_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of cnc_torch's codec pools and table build between trees, on one
-NVIDIA GPU, on cnc_tpu's committed 20,000-step bundle; and a bundle's PSNR on
-either device.
+"""A/B of cnc_torch's codec pools, frac planes (K7i) and table build between
+trees, on one NVIDIA GPU, on cnc_tpu's committed 20,000-step bundle; and a
+bundle's PSNR on either device.
 
     python3 tools/torch_codec_ab.py prepare WORK
     python3 tools/torch_codec_ab.py time WORK TREE LABEL >> LOG
@@ -42,6 +42,9 @@ into TREE/cnc_torch/_build and prints one JSON line:
     `int_mlp_pool` on that tree's window), and the pool finished in its
     launch (`int_ctx_pool_pq`) or K9c's own launch (`int_pq`); each held to
     its twin with torch.equal;
+  * `planes`: K7i, the integer frac plane of each axis (three a pass) on
+    the tables' signs, alone: ms, device ms, launches, and a digest (equal
+    across trees); each equal to its twin;
   * `codec`: `refresh_cache_int` once, then CODEC_RUNS encodes and decodes
     of the tables: seconds, their median, the launches of each pass; each
     decode equal to the tables on the coded entries and +1 elsewhere;
@@ -63,6 +66,7 @@ decode and render seconds, the PSNR and SSIM and the device.
 from __future__ import annotations
 
 import filecmp
+import hashlib
 import json
 import statistics
 import sys
@@ -72,6 +76,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 BUNDLE = REPO / "runs_20k" / "bitstreams" / "l0.002_k4"
 TABLES = ("xyz", "xy", "xz", "yz")
+AXES = ("xy", "xz", "yz")
 CODEC_RUNS = 3
 SPIN_SCALE = 8        # device_ms's spin, times chip_smoke's (about 8 ms)
 
@@ -220,7 +225,6 @@ def _time_kernels(torch, cs, intctx, ip, sites):
 def _time_tables(torch, cs, entropy, dev):
     """The finest level's tables built alone with this tree's API: the
     counting sort, or the keys, a stable torch.sort and the fill."""
-    import hashlib
     from cnc_torch.ops import context_ops as cops
     p = next(p for p in entropy._level_plans() if p["kind"] == "3d" and p["r"] == entropy.fine_res)
     v, r, tbl, e_max = p["v"], p["r"], p["tbl"], p["e_max"]
@@ -276,6 +280,22 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
     out["cache_s"] = time.time() - t0
     ip = codec._int_params(ent_params)
     signs = {k: intctx.sign_table(tables[k]) for k in TABLES}
+
+    # ---- K7i: the pass's three frac planes, each alone
+    out["planes"] = {}
+    for ax in AXES:
+        args = (signs["xyz"], cache["pn"][ax], entropy.fine_offset, entropy.pn_res,
+                entropy.cfg.n_features)
+        plane = lambda a=args: intctx.frac_plane(*a)
+        kernels.reset_launches()
+        got = plane()
+        launched = {k: v for k, v in kernels.launches.items() if v}
+        if not torch.equal(got, intctx.int_frac_plane(*args)):
+            raise AssertionError(f"{label}: K7i's {ax} plane differs from its twin")
+        out["planes"][ax] = {"ms": cs.time_ms(plane), "device_ms": cs.device_ms(plane),
+                             "launches": launched,
+                             "digest": hashlib.sha256(got.cpu().numpy().tobytes())
+                             .hexdigest()[:16]}
 
     # ---- one encode, its pools recorded, then the streams against the bundle's
     calls = []
@@ -376,6 +396,9 @@ def summary(path: Path) -> None:
         for k in sorted({k for r in runs for k in r["kernels"][key]}):
             rows.append((f"kernel {k} at the {key} pool, device ms",
                          lambda r, key=key, k=k: r["kernels"][key].get(k)))
+    for ax in AXES:
+        rows += [(f"K7i {ax} plane, device ms", lambda r, ax=ax: r["planes"][ax]["device_ms"]),
+                 (f"K7i {ax} plane, ms", lambda r, ax=ax: r["planes"][ax]["ms"])]
     rows += [("refresh_cache_int s", lambda r: r["cache_s"]),
              ("encode s (median of the run's)", lambda r: r["codec"]["encode_s"]),
              ("decode s (median of the run's)", lambda r: r["codec"]["decode_s"])]
@@ -387,6 +410,10 @@ def summary(path: Path) -> None:
         print(f"| {name} | " + " | ".join(cells) + " |")
     digests = {r["tables"]["digest"] for r in runs}
     print(f"finest level's tables: {len(digests)} digest(s) over every run ({sorted(digests)})")
+    digests = {json.dumps({ax: r["planes"][ax]["digest"] for ax in AXES}) for r in runs}
+    print(f"K7i planes: {len(digests)} digest set(s) over every run; launches a plane "
+          + " / ".join(sorted({json.dumps(r["planes"][ax]["launches"]) for r in runs
+                               for ax in AXES})))
     for t in trees:
         launches = {json.dumps(x["encode_launches"], sort_keys=True) for r in by(t)
                     for x in r["codec"]["runs"]}

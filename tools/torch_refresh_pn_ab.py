@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of cnc_torch's footprint-grid kernel (K8) and frac-plane kernel (K7)
-between trees, on one NVIDIA GPU, at the shapes of the lambda = 2e-3
-training step.
+"""A/B of cnc_torch's footprint-grid kernel (K8) and frac-plane kernels (K7
+and its backward, K7b) between trees, on one NVIDIA GPU, at the shapes of
+the lambda = 2e-3 training step.
 
     python3 tools/torch_refresh_pn_ab.py prepare WORK
     python3 tools/torch_refresh_pn_ab.py time WORK TREE LABEL >> LOG
@@ -19,9 +19,10 @@ into TREE/cnc_torch/_build and prints one JSON line:
     median of STEP_WINDOWS windows of 20 steps of `fit` (occupancy updates
     and cache refreshes included);
   * `profile`: the process's first torch.profiler window: one frac plane
-    (the xy axis) and, after a sync, one rate estimate's forward and
-    backward on that trainer: the device operations each ran (kernels,
-    memsets, copies) and the wrappers' launch counts of the estimate;
+    (the xy axis), one whole autograd backward of that plane and, after a
+    sync each, one rate estimate's forward and backward on that trainer:
+    the device operations each ran (kernels, memsets, copies) and the
+    wrappers' launch counts of the estimate;
   * `refresh`: `refresh_cache` on the saved grid (ms, the median of five),
     and each of its footprint launches by its device work alone (device ms,
     CUDA events behind a spin kernel, chip_smoke.device_ms), with its
@@ -32,7 +33,12 @@ into TREE/cnc_torch/_build and prints one JSON line:
     allocations, the wrappers' launches), the tree's K7 kernel alone (the
     parent's histogram kernel on the rows its composition forms; the one
     launch otherwise), and a digest of the plane, which must be the same
-    in every tree.
+    in every tree;
+  * `backward`: the xy plane's backward (K7b, as with pn_frac_grad) for a
+    seeded cotangent: the whole autograd backward from the cotangent to
+    d_table (ms, device ms), the tree's backward kernel alone into a zeroed
+    table (device ms; the fill left out), the zero fill alone, and the
+    result against the twin run in float64 (chip_smoke.K7B_REL_TOL).
 
 Times vary between calls by up to 1.5x: compare trees only within one call,
 in turns (parent, new, new, parent).  `summary` gives each tree's mean over
@@ -155,26 +161,42 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
                 + entropy.rate_bits_3d(tr.ent_params, tables["xyz"], starts["3d"], est_cache))
         torch.autograd.grad(bits, wrt, allow_unused=True)
 
+    pn = cache["pn"]["xy"]
+    pn_args = (entropy.fine_offset, pn["entry_idx"], pn["bounds"], pn["n"], entropy.pn_res,
+               sample_cap)
+    leaf = table.clone().requires_grad_()
+    plane_out = cops.pn_frac_plane(leaf, *pn_args)
+    cot = torch.randn(plane_out.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                      device="cuda")
+    backward = lambda: torch.autograd.grad(plane_out, leaf, cot, retain_graph=True)
     plane_of["xy"]()
+    backward()
     estimate()
     torch.cuda.synchronize()
-    before = dict(kernels.launches)
+    regions = ("ab_plane", "ab_backward", "ab_estimate")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("ab_plane"):
             plane_of["xy"]()
             torch.cuda.synchronize()
+        with record_function("ab_backward"):
+            backward()
+            torch.cuda.synchronize()
+        before = dict(kernels.launches)
         with record_function("ab_estimate"):
             estimate()
             torch.cuda.synchronize()
     events = prof.events()
-    split = min(e.time_range.start for e in events if e.name == "ab_estimate")
+    starts = [min(e.time_range.start for e in events if e.name == name) for name in regions]
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and not e.name.startswith("ab_")]
-    in_plane = [e for e in device if e.time_range.start < split]
+    owner = lambda e: max(i for i, t in enumerate(starts) if t <= e.time_range.start)
+    in_region = [[e for e in device if owner(e) == i] for i in range(len(regions))]
     out["profile"] = {
-        "plane_device_ops": len(in_plane),
-        "plane_ops_by_name": sorted({e.name[:80] for e in in_plane}),
-        "estimate_device_ops": len(device) - len(in_plane),
+        "plane_device_ops": len(in_region[0]),
+        "plane_ops_by_name": sorted({e.name[:80] for e in in_region[0]}),
+        "backward_device_ops": len(in_region[1]),
+        "backward_ops_by_name": sorted({e.name[:80] for e in in_region[1]}),
+        "estimate_device_ops": len(in_region[2]),
         "estimate_wrapper_launches": {k: v - before[k] for k, v in kernels.launches.items()
                                       if v != before[k]}}
 
@@ -241,6 +263,37 @@ def time_tree(work: Path, tree: Path, label: str) -> None:
             kernel = lambda: cops._pn_hist_cuda(*kargs)
         rec.update(kernel_ms=cs.time_ms(kernel), kernel_device_ms=cs.device_ms(kernel))
         out["planes"][ax] = rec
+
+    # ---- K7b: the xy plane's backward, whole and the tree's kernel alone
+    (got,) = backward()
+    leaf64 = table.double().requires_grad_()
+    (exact,) = torch.autograd.grad(cops._pn_frac_plane_plain(leaf64, *pn_args), leaf64,
+                                   cot.double())
+    err = cs.rel_err(got, exact.float())
+    if not err <= cs.K7B_REL_TOL:
+        raise AssertionError(f"{label}: the backward's rel err {err} > {cs.K7B_REL_TOL}")
+    del leaf64, exact
+    d_table = torch.zeros_like(table)
+    if hasattr(cops, "_pn_hist_backward_launch"):     # K7b on the forward's inputs
+        kernel = lambda: cops._pn_hist_backward_launch(table, *pn_args, cot, d_table)
+    else:                                             # the kernel on the rows _pn_rows forms
+        seen = []
+        bwd = cops._pn_hist_backward_cuda
+        cops._pn_hist_backward_cuda = lambda *a: seen.append(a) or bwd(*a)
+        try:
+            backward()
+        finally:
+            cops._pn_hist_backward_cuda = bwd
+        t, off, sel, row_valid, bnd, g = seen[0]
+        p = kernels.ptr
+        kernel = lambda: kernels.call("cnc_pn_hist_backward", p(t), off, t.shape[0], p(sel),
+                                      p(row_valid), p(bnd), p(g), p(d_table), bnd.shape[0] - 1,
+                                      sel.shape[0], t.shape[1])
+    out["backward"] = {"rel_err_f64": err, "ms": cs.time_ms(backward),
+                       "device_ms": cs.device_ms(backward),
+                       "kernel_device_ms": cs.device_ms(kernel),
+                       "fill_device_ms": cs.device_ms(lambda: torch.zeros_like(table)),
+                       "launches": _launched(kernels, backward)}
     print(json.dumps(out))
 
 
@@ -284,6 +337,17 @@ def summary(path: Path) -> None:
               + " |")
     cells = [f"{by(t)[0]['profile']['plane_device_ops']}" for t in trees]
     print("| one plane (xy): device operations in the first profile | " + " | ".join(cells)
+          + " |")
+    for key, name in (("device_ms", "xy backward (K7b), whole autograd, device ms"),
+                      ("ms", "xy backward (K7b), whole autograd, ms"),
+                      ("kernel_device_ms", "xy backward kernel alone, device ms"),
+                      ("fill_device_ms", "xy backward's zero fill alone, device ms"),
+                      ("rel_err_f64", "xy backward rel err against float64")):
+        cells = [f"{mean([r['backward'][key] for r in by(t)]):.4g}" for t in trees]
+        print(f"| {name} | " + " | ".join(cells) + " |")
+    cells = [f"{by(t)[0]['profile']['backward_device_ops']}: "
+             + ", ".join(by(t)[0]["profile"]["backward_ops_by_name"]) for t in trees]
+    print("| one xy backward: device operations in the first profile | " + " | ".join(cells)
           + " |")
     cells = [", ".join(str(r["profile"]["estimate_device_ops"]) for r in by(t)) for t in trees]
     print("| one rate estimate (fwd + bwd): device operations, each run | " + " | ".join(cells)
