@@ -106,7 +106,22 @@ Phases (any failure raises and the script exits non-zero):
      set through `render_image`, its PSNR within BUNDLE_DB of the port's CPU
      figure and the TPU's record printed beside it; decode and render
      seconds and their launches logged;
- 12. print the kernels line, the card line and the final JSON line.
+ 12. [pipeline] the configuration of cnc_tpu's recorded 2,000- and 20,000-step
+     rows at full width (PIPE_*): `Trainer.fit` to step 199 with a
+     checkpoint every 100 steps (ms per step over steps 150-199, the save's
+     seconds and MB); a fresh python3 process (`chip_smoke.py
+     --pipeline-resume DIR`) builds the Trainer, which resumes from the file
+     at step 100 with the field equal to it, and runs
+     `driver.run_with_trainer` to step 299 (evaluation, encode, decode,
+     evaluation, MLP quantization) and `append_result_row`, with the counts
+     set to 0 before the entropy model's build and read after; the row must
+     have runs_20k's 23 columns, psnr_codec lie within PIPE_CODEC_DB of psnr,
+     the coded MB within 15% of the analytic, and every kernel of the path
+     have launched; then `python3 -m cnc_torch.cli nerf_synthetic
+     --decode_only` in a third process must read the row's psnr_codec within
+     PIPE_CLI_DB; the order-fault words clear in both processes;
+ 13. print the kernels line (each kernel's `pipeline_launches` from the
+     resumed process), the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
 run outside the repository (cnc_torch missing).
@@ -202,6 +217,23 @@ BUNDLES = {   # tag: (bundle, the port's CPU PSNR of view 0, the TPU's record)
     "bundle depth10k l0.0007": ("runs_depth10k/bitstreams/l0.0007_k4", 36.66496, 36.6773),
 }
 BUNDLE_DB = 0.01
+# [pipeline]: the configuration of cnc_tpu's recorded 2,000- and 20,000-step
+# rows (tools/overnight_r5.sh:47-51, tools/rd_sweep_depth.py:127-151; the
+# config in runs_20k/bitstreams/l0.002_k4/meta.json) at full width.  The
+# parent trains steps 0-199 with a checkpoint every 100 steps; a fresh process
+# resumes from the file (step 100: a checkpoint records the step whose update
+# it follows, and the resumed run takes that step again, as in cnc_tpu) and
+# runs the pipeline to step 299 under the CLI's default scene name, so the
+# CLI's --decode_only finds the bundle.
+PIPE_STEPS = 200
+PIPE_CKPT_EVERY = 100
+PIPE_END = 299
+PIPE_EVAL_IMAGES = 2
+PIPE_SCENE = "chair"
+PIPE_CODEC_DB = 0.05        # |psnr_codec - psnr| (tests/test_pipeline.py:80)
+PIPE_CLI_DB = 0.01          # the CLI's decode against the row's psnr_codec
+PIPE_CODED_REL = 0.15       # coded MB against the analytic MB
+PIPE_ROW_REFERENCE = "runs_20k/results/Procedural_depth/output.txt"
 
 
 def log(msg: str) -> None:
@@ -1875,6 +1907,215 @@ def run_codec(torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, rec
 
 
 
+def pipeline_config(out_dir: Path):
+    """The recorded configuration, its checkpoint under out_dir."""
+    import dataclasses
+    from cnc_torch.config import CNCConfig, EntropyConfig, ModelConfig, RenderConfig, TrainConfig
+    return CNCConfig(
+        model=ModelConfig(),
+        entropy=EntropyConfig(sample_num=100000, ctx_grad=False, v_ctx_cap=1 << 20),
+        render=dataclasses.replace(RenderConfig(), sample_budget=65536),
+        train=dataclasses.replace(TrainConfig(), lmbda=2e-3, rate_update_interval=4,
+                                  init_batch_size=1024, min_ray_bucket=1024,
+                                  max_ray_bucket=1024, target_sample_batch_size=65536,
+                                  checkpoint_every=PIPE_CKPT_EVERY,
+                                  checkpoint_path=str(out_dir / "ckpt.npz")))
+
+
+def pipeline_datasets(dev):
+    """tools/rd_sweep_depth.py's datasets: 24 train and 8 test views of
+    `blocks` at 256x256 (the CLI's procedural fallback too)."""
+    from cnc_torch.data import scenes
+    return (scenes.ProceduralDataset("blocks", 24, 256, 256, "train", device=dev),
+            scenes.ProceduralDataset("blocks", 8, 256, 256, "test", device=dev))
+
+
+# the kernels the pipeline launches at the recorded configuration: the
+# training step's, the rate's, the table build's and the codec's.  Its
+# ctx_grad is off, so the context lookups are constants of the rate graph and
+# K1v's backward (K2v) is not on the path.
+PIPE_KERNELS = ("grid_encode", "grid_encode_bwd", "march", "volrend", "volrend_bwd", "compact",
+                "grid_encode_v", "segment_pool", "segment_pool_bwd", "segment_mean",
+                "segment_mean_bwd", "pn_frac_plane", "footprint", "pack_mask_bits",
+                "vertex_tables", "int_ctx_pool", "int_pq", "pn_hist_int")
+
+
+def pipeline_resume(out_dir: str) -> int:
+    """The fresh process of [pipeline]: build the Trainer (it resumes from
+    the checkpoint), check the resumed state against the file, run the
+    pipeline to PIPE_END with the counts set to 0 just before the entropy
+    model's build and read just after, append the TSV row, and print the
+    result as one JSON line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cnc_torch import kernels
+    from cnc_torch.ops import context_ops as cops
+    from cnc_torch.render import volrend
+    from cnc_torch.train import driver
+    from cnc_torch.train.trainer import Trainer
+    from cnc_torch.utils import checkpoint as ckpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = Path(out_dir)
+    cfg = pipeline_config(out)
+    train_set, test_set = pipeline_datasets(dev)
+    kernels.lib()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    entropy = driver.build_entropy(cfg, device=dev)
+    tr = Trainer(cfg, train_set, entropy=entropy)          # resumes in __init__
+    torch.cuda.synchronize()
+    ready_s = time.time() - t0
+    with np.load(ckpt.norm_path(cfg.train.checkpoint_path), allow_pickle=False) as npz:
+        saved_step = int(npz["step"])
+        equal = all(np.array_equal(p.detach().cpu().numpy(), npz[f"params|{k}"])
+                    for k, p in ckpt._named(tr.field).items())
+        equal &= all(np.array_equal(p.detach().cpu().numpy(), npz[f"ent|{k}"])
+                     for k, p in ckpt._named(tr.ent_params).items())
+    resumed = dict(step=tr.step, saved_step=saved_step, equal=bool(equal),
+                   lr=tr.optimizer.param_groups[0]["lr"], num_rays=tr.num_rays)
+    if not (tr.step == saved_step == PIPE_CKPT_EVERY and equal):
+        raise AssertionError(f"[pipeline] the resumed trainer is not the file's: {resumed}")
+    logs = []
+    res = driver.run_with_trainer(tr, test_set, PIPE_SCENE, out_root=str(out),
+                                  max_steps=PIPE_END, max_eval_images=PIPE_EVAL_IMAGES,
+                                  log_fn=logs.append, log_every=100)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    row = driver.append_result_row(res, PIPE_SCENE, "Procedural", str(out))
+    check_order_faults(cops, dev, "[pipeline, resumed]")
+    check_walk_faults(volrend, dev, "[pipeline, resumed]")
+    log(f"[pipeline, resumed] step {resumed['step']} (the file's {saved_step}) to {tr.step - 1}:"
+        f" psnr {res.psnr:.4f} psnr_codec {res.psnr_codec:.4f} ssim {res.ssim:.4f};"
+        f" coded {res.embed_MB_codec:.4f} MB (analytic {res.embed_MB_est:.4f}), total"
+        f" {res.total_size_MB():.4f} MB, {res.compression_x():.2f}x; train"
+        f" {res.elapsed_train_s:.2f} s, encode {res.encode_s:.2f} s, decode {res.decode_s:.2f} s;"
+        f" entropy model and resumed trainer {ready_s:.2f} s")
+    print(json.dumps({"resumed": resumed, "ready_s": ready_s, "steps": tr.step,
+                      "result": dataclasses.asdict(res), "total_MB": res.total_size_MB(),
+                      "compression_x": res.compression_x(), "row": row, "launches": launches,
+                      "log": logs[:3] + logs[-6:]}))
+    return 0
+
+
+def run_pipeline_phase(torch, kernels, volrend, cops, dev) -> dict:
+    """[pipeline]: the recorded configuration trained to step 199 with a
+    checkpoint at step 100 (its save timed, its size read); a fresh process
+    resumes from the file and runs the pipeline (run_with_trainer to step
+    299, evaluation, encode, decode, evaluation, MLP quantization, the TSV
+    row); the row's width, its codec PSNR and coded size and the kernels'
+    launches checked; then the CLI's --decode_only in a third process, its
+    PSNR held to the row's.  Returns the resumed process's launch counts."""
+    import shutil
+    import numpy as np
+    from cnc_torch.train import driver
+    from cnc_torch.train.trainer import Trainer
+    from cnc_torch.utils import checkpoint as ckpt
+    out = Path("chiprun_out") / "pipeline"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cfg = pipeline_config(out)
+    t0 = time.time()
+    train_set, test_set = pipeline_datasets(dev)
+    torch.cuda.synchronize()
+    data_s = time.time() - t0
+    kernels.reset_launches()
+    t0 = time.time()
+    entropy = driver.build_entropy(cfg, device=dev)
+    tr = Trainer(cfg, train_set, entropy=entropy)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    ends, saves = [], []
+    save = ckpt.save_checkpoint
+
+    def timed_save(path, trainer):
+        torch.cuda.synchronize()
+        t = time.time()
+        save(path, trainer)
+        saves.append(time.time() - t)
+
+    with swapped((ckpt, "save_checkpoint", timed_save)):
+        tr.fit(PIPE_STEPS - 1, log_every=0,
+               step_callback=lambda s, aux: ends.append((time.time(), aux.get("embed_MB"))))
+    torch.cuda.synchronize()
+    train_launches = dict(kernels.launches)
+    ck = Path(ckpt.norm_path(cfg.train.checkpoint_path))
+    size_mb = ck.stat().st_size / 2**20
+    with np.load(ck) as npz:
+        ck_step = int(npz["step"])
+    ms_step = (ends[199][0] - ends[150][0]) / 49 * 1e3
+    mb = [e[1] for e in ends if e[1] is not None]
+    log(f"[pipeline] the recorded configuration (lambda {cfg.train.lmbda}, the rate every"
+        f" {cfg.train.rate_update_interval} steps, ctx_grad off, {cfg.train.max_ray_bucket} rays,"
+        f" sample budget {cfg.render.sample_budget}, v_ctx_cap {cfg.entropy.v_ctx_cap}):"
+        f" datasets {data_s:.1f} s, entropy model and trainer {build_s:.2f} s; {PIPE_STEPS} steps,"
+        f" {ms_step:.2f} ms per step over steps 150-199; estimated rate {float(mb[0]):.3f} MB at"
+        f" step 0, {float(mb[-1]):.3f} at step {4 * (len(mb) - 1)}; checkpoint at step"
+        f" {ck_step}: {len(saves)} save(s) of {saves[0]:.2f} s, {size_mb:.1f} MB;"
+        f" launches {json.dumps({k: v for k, v in train_launches.items() if v})}")
+    check_order_faults(cops, dev, "[pipeline]")
+    check_walk_faults(volrend, dev, "[pipeline]")
+    if len(saves) != 1:
+        raise AssertionError(f"[pipeline] {len(saves)} checkpoint saves in {PIPE_STEPS} steps,"
+                             f" not 1")
+    del tr, entropy, train_set, test_set
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--pipeline-resume",
+                           str(out)], capture_output=True, text=True, timeout=900)
+    resume_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[pipeline] the resumed process failed:\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-8000:]}")
+    lines = proc.stdout.strip().splitlines()
+    child = json.loads(lines[-1])
+    for line in lines[:-1]:
+        log(line)
+    res = child["result"]
+    row = child["row"]
+    want_cols = len(Path(PIPE_ROW_REFERENCE).read_text().splitlines()[0].split("\t"))
+    launches = child["launches"]
+    log(f"[pipeline] resumed process {resume_s:.1f} s in all; row ({len(row)} columns,"
+        f" {PIPE_ROW_REFERENCE} has {want_cols}): {' '.join(row)}; launches"
+        f" {json.dumps({k: v for k, v in launches.items() if v})}; its log: {child['log']}")
+    if len(row) != want_cols:
+        raise AssertionError(f"[pipeline] the row has {len(row)} columns, not {want_cols}")
+    if not abs(res["psnr_codec"] - res["psnr"]) <= PIPE_CODEC_DB:
+        raise AssertionError(f"[pipeline] the codec moved the psnr: {res['psnr']} ->"
+                             f" {res['psnr_codec']}")
+    if not abs(res["embed_MB_codec"] - res["embed_MB_est"]) <= PIPE_CODED_REL * res["embed_MB_est"]:
+        raise AssertionError(f"[pipeline] coded {res['embed_MB_codec']} MB against the analytic"
+                             f" {res['embed_MB_est']}")
+    missing = [k for k in PIPE_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"[pipeline] kernels not launched in the pipeline: {missing}")
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "cnc_torch.cli", "nerf_synthetic",
+                           "--decode_only", "--out_root", str(out), "--max_eval_images",
+                           str(PIPE_EVAL_IMAGES)], capture_output=True, text=True, timeout=600)
+    cli_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[pipeline] the CLI's --decode_only failed:\n{proc.stderr[-8000:]}")
+    got = [line for line in proc.stdout.splitlines() if line.startswith("decode_only: psnr=")]
+    if len(got) != 1:
+        raise AssertionError(f"[pipeline] the CLI printed no psnr:\n{proc.stdout}")
+    cli_psnr = float(got[0].split("=")[1].split()[0])
+    diff = cli_psnr - res["psnr_codec"]
+    log(f"[pipeline] CLI --decode_only in {cli_s:.1f} s: {got[0]!r}; the row's psnr_codec"
+        f" {res['psnr_codec']:.4f}, difference {diff:+.4f} dB (limit {PIPE_CLI_DB})")
+    if not abs(diff) <= PIPE_CLI_DB:
+        raise AssertionError(f"[pipeline] the CLI's decode reads {cli_psnr}, the row"
+                             f" {res['psnr_codec']}")
+    # the checkpoint (a few hundred MB) stays out of what the run brings back
+    ck.unlink()
+    return launches
+
+
 def check_bundles(torch, kernels, volrend, dev) -> None:
     """[bundles]: decode each of cnc_tpu's committed bundles with the
     kernels (decode checks every stream's sha256 itself), render test view 0
@@ -2449,6 +2690,10 @@ def main() -> int:
     # ---- 11. cnc_tpu's 20,000-step bundle, decoded and rendered on the card
     check_bundles(torch, kernels, volrend, dev)
 
+    # ---- 12. [pipeline]: train, checkpoint, resume in a fresh process, the
+    # pipeline and its row, the CLI's decode
+    pipeline_launches = run_pipeline_phase(torch, kernels, volrend, cops, dev)
+
     # ---- 12. report: `launches` is the count over the path named beside it
     # (one view, the lambda = 0 training run, the probe's one drive, the rate
     # path from the model's build to the run's last step, the three
@@ -2510,7 +2755,8 @@ def main() -> int:
                                              "kernel_device_ms", "kernel_bound_ms",
                                              "fill_device_ms", "device_ops")
                            if k in r},
-                        rate_launches_per_step=rate_per_step.get(name)))
+                        rate_launches_per_step=rate_per_step.get(name),
+                        pipeline_launches=pipeline_launches.get(name, 0)))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)
@@ -2521,4 +2767,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--pipeline-resume":
+        sys.exit(pipeline_resume(sys.argv[2]))
     sys.exit(main())

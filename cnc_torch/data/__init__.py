@@ -1,1 +1,1 @@
-"""Cameras and procedural scenes."""
+"""Cameras, procedural scenes and the file datasets (Blender, Tanks&Temples)."""

@@ -162,13 +162,16 @@ def render_rays_eval(field: rf.RadianceField, mcfg: ModelConfig, rcfg: RenderCon
 
 def render_image(field: rf.RadianceField, mcfg: ModelConfig, rcfg: RenderConfig,
                  aabb, binaries, rays_o, rays_d, render_bkgd,
-                 chunk: Optional[int] = None, device=None, stats: Optional[dict] = None):
+                 chunk: Optional[int] = None, device=None, stats: Optional[dict] = None,
+                 progress_fn=None):
     """Render a full image in chunks of rays through render_rays_eval.
 
     rays_o/rays_d: [H, W, 3].  Runs on `device` (default: cuda; raises when
     there is none and `device="cpu"` was not asked for).  The field must
     already live on that device.  Returns (rgb [H,W,3], opacity [H,W,1],
-    depth [H,W,1]).  `stats`: see render_rays_eval.
+    depth [H,W,1]).  `stats`: see render_rays_eval.  progress_fn(done,
+    total), when given, is called every 8 chunks and after the last, once
+    the latest chunk has finished on the device.
     """
     dev = resolve_device(device)
     field_dev = next(field.parameters()).device
@@ -186,9 +189,15 @@ def render_image(field: rf.RadianceField, mcfg: ModelConfig, rcfg: RenderConfig,
     if pad:
         o = torch.cat([o, o[-1:].expand(pad, 3)])
         d = torch.cat([d, d[-1:].expand(pad, 3)])
-    outs = [render_rays_eval(field, mcfg, rcfg, aabb, binaries, o[i:i + chunk].contiguous(),
-                             d[i:i + chunk].contiguous(), render_bkgd, stats=stats)
-            for i in range(0, o.shape[0], chunk)]
+    total = o.shape[0] // chunk
+    outs = []
+    for i in range(0, o.shape[0], chunk):
+        outs.append(render_rays_eval(field, mcfg, rcfg, aabb, binaries, o[i:i + chunk].contiguous(),
+                                     d[i:i + chunk].contiguous(), render_bkgd, stats=stats))
+        if progress_fn is not None and (len(outs) % 8 == 0 or len(outs) == total):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            progress_fn(len(outs), total)
     rgb = torch.cat([x[0] for x in outs])[:n].reshape(h, w, 3)
     opacity = torch.cat([x[1] for x in outs])[:n].reshape(h, w, 1)
     depth = torch.cat([x[2] for x in outs])[:n].reshape(h, w, 1)

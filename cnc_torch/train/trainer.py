@@ -5,7 +5,9 @@ script's hot loop (train_CNC_nerf_synthetic.py:302-366): per step the
 occupancy EMA update every 16 steps, a random ray batch, the budgeted render,
 MSE (+ lambda * bits_per_param once an entropy model is attached), two Adam
 optimizers, and dynamic ray batching toward 2^18 samples per step.
-Checkpoints are not ported yet and raise.
+Checkpoints are cnc_tpu's npz layout (`utils/checkpoint.py`): a Trainer
+whose `train.checkpoint_path` exists resumes from it, and `fit` saves there
+every `train.checkpoint_every` steps.
 
 What differs from cnc_tpu is XLA mechanics, not semantics: there are no jit
 caches, no mesh and no `warm_compile`; PyTorch runs the step eagerly.  One
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Dict, Optional
 
@@ -29,6 +32,7 @@ from ..config import CNCConfig
 from ..grids import occupancy as occ
 from ..models import radiance_field as rf
 from ..render import renderer
+from ..utils import checkpoint as ckpt
 from ..utils import metrics as M
 from ..utils.device import resolve_device
 from . import optim
@@ -59,9 +63,6 @@ class Trainer:
 
     def __init__(self, cfg: CNCConfig, dataset, entropy=None, seed: Optional[int] = None,
                  device=None):
-        if cfg.train.checkpoint_path:
-            raise NotImplementedError("checkpoint save/resume (train.checkpoint_path) comes "
-                                      "with port slice 5, the full pipeline")
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -71,6 +72,10 @@ class Trainer:
                              f"{self.device}")
         self.aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=self.device)
         self.reset_state(seed=seed)
+        # resume from an existing checkpoint when configured
+        cp = cfg.train.checkpoint_path
+        if cp and os.path.exists(ckpt.norm_path(cp)):
+            ckpt.load_checkpoint(cp, self)
 
     # ---------------------------------------------------------------- reset
     def reset_state(self, lmbda: Optional[float] = None,
@@ -88,6 +93,7 @@ class Trainer:
             self.cfg = dataclasses.replace(self.cfg, train=tr)
         cfg = self.cfg
         seed = cfg.train.seed if seed is None else seed
+        self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         init_gen = torch.Generator().manual_seed(seed)
         self.field = rf.RadianceField(cfg.model, init_gen, device=self.device)
@@ -215,6 +221,13 @@ class Trainer:
             if cfg.train.target_sample_batch_size > 0 and n_marched > 0:
                 self.num_rays = int(bucket * (cfg.train.target_sample_batch_size
                                               / float(n_marched)))
+            # saved before the step counter moves on, as cnc_tpu does: a file
+            # written after step s's update records s, and a run resumed
+            # from it takes step s again
+            cp = cfg.train.checkpoint_path
+            if (cp and cfg.train.checkpoint_every > 0 and s > 0
+                    and s % cfg.train.checkpoint_every == 0):
+                ckpt.save_checkpoint(cp, self)
             if log_every and s % log_every == 0:
                 mse = float(aux["mse"])
                 msg = (f"elapsed_time={time.time() - tic:.2f}s | step={s} | mse={mse:.5f} | "
@@ -234,20 +247,26 @@ class Trainer:
         return time.time() - tic
 
     # ----------------------------------------------------------------- eval
-    def eval_image(self, index: int, dataset=None):
+    def eval_image(self, index: int, dataset=None, progress_fn=None):
         ds = dataset or self.dataset
         rays, gt = ds.image_and_rays(index)
         rgb, _, _ = renderer.render_image(
             self.field, self.cfg.model, self.cfg.render, self.aabb, self.occ_state.binaries,
-            rays.origins, rays.viewdirs, torch.ones(3), device=self.device)
+            rays.origins, rays.viewdirs, torch.ones(3), device=self.device,
+            progress_fn=progress_fn)
         return rgb, gt
 
-    def evaluate(self, dataset=None, max_images: Optional[int] = None):
+    def evaluate(self, dataset=None, max_images: Optional[int] = None, log_fn=None):
+        """Mean PSNR and SSIM over the first `max_images` views.  log_fn,
+        when given, receives a heartbeat every 8 chunks of each view's
+        render, so a long eval stays visible to a log-staleness watchdog."""
         ds = dataset or self.dataset
         n = len(ds) if max_images is None else min(max_images, len(ds))
         psnrs, ssims = [], []
         for i in range(n):
-            rgb, gt = self.eval_image(i, ds)
+            prog = (None if log_fn is None else
+                    (lambda c, t, _i=i: log_fn(f"  eval image {_i + 1}/{n}: chunk {c}/{t}")))
+            rgb, gt = self.eval_image(i, ds, progress_fn=prog)
             psnrs.append(float(M.psnr(rgb, gt)))
             ssims.append(float(M.ssim(rgb, gt)))
         # LPIPS needs VGG weights the repo does not ship: recorded as None

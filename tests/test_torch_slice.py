@@ -92,7 +92,8 @@ def test_load_field_reads_cnc_tpu_checkpoint(scene_setup, tmp_path):
 
 
 def _port_files():
-    return sorted((ROOT / "cnc_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "cnc_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_cnc_tpu():
@@ -124,3 +125,8 @@ def test_entry_points_raise_without_cuda_and_device(monkeypatch, scene_setup):
                                np.ones(3, np.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tckpt.load_field("unused.npz", cfg)
+    from cnc_torch.data.nerf_synthetic import SubjectLoader
+    from cnc_torch.data.tanks import SubjectLoaderTanks
+    for loader in (SubjectLoader, SubjectLoaderTanks):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            loader("unused", "nowhere", "test")

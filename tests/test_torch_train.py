@@ -198,11 +198,22 @@ def test_training_improves_psnr():
     assert first == losses[:1]
 
 
-def test_trainer_refuses_what_is_not_ported(monkeypatch):
+def test_trainer_refuses_what_is_not_ported(monkeypatch, tmp_path):
+    """train.checkpoint_path resumes (it raised before checkpoints were
+    ported): a missing file starts the run at step 0, an existing one
+    resumes from it; and no card without device="cpu" raises."""
     cfg = tiny_config(tconfig)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttrainer.Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, checkpoint_path="run/ckpt")), None, device="cpu")
+    cp = str(tmp_path / "run" / "ckpt")
+    with_cp = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, checkpoint_path=cp))
+    tr = ttrainer.Trainer(with_cp, None, device="cpu")
+    assert tr.step == 0
+    tr.step, tr.num_rays = 7, 512
+    with torch.no_grad():
+        tr.field.tables["xyz"].add_(1.0)
+    ttrainer.ckpt.save_checkpoint(cp, tr)
+    resumed = ttrainer.Trainer(with_cp, None, device="cpu")
+    assert (resumed.step, resumed.num_rays) == (7, 512)
+    assert torch.equal(resumed.field.tables["xyz"], tr.field.tables["xyz"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrainer.Trainer(cfg, None)
