@@ -100,13 +100,32 @@ Phases (any failure raises and the script exits non-zero):
      PSNR must move by at most 1e-3 dB; then `save_bundle` and
      `decode_bundle` in a fresh python3 process, whose tables and render of
      test view 0 must equal this process's;
- 11. [bundles] cnc_tpu's committed bundles (BUNDLES: runs_20k's and the two
-     of runs_depth10k) through `decode_bundle` on the card, each stream's
-     sha256 checked by the decode, test view 0 of the 256x256 `blocks` test
-     set through `render_image`, its PSNR within BUNDLE_DB of the port's CPU
-     figure and the TPU's record printed beside it; decode and render
-     seconds and their launches logged;
- 12. [pipeline] the configuration of cnc_tpu's recorded 2,000- and 20,000-step
+ 11. [bundles] cnc_tpu's committed bundles (BUNDLES: runs_20k's, the two
+     of runs_depth10k and the 1920x1080 tanks run's) through `decode_bundle`
+     on the card, each stream's sha256 checked by the decode, test view 0
+     (of the 256x256 `blocks` test set; for the tanks bundle its own scene's,
+     drawn in memory by tools/torch_tanks_view.py) through `render_image`,
+     its PSNR within BUNDLE_DB of the port's CPU figure and the TPU's record
+     printed beside it; decode and render seconds and their launches logged;
+ 12. [breadth] the single-card modules beside the main path, at full width,
+     each held to the same inputs on the CPU in this process: K1s/K2s (the
+     encode masked by the summed-area table of the [train] phase's 128^3
+     occupancy grid) at grid_3d over 327,680 points and on the xy plane
+     with the grid projected along z, driven through `grid_encode(
+     occ_binary=)` forward and backward with the counts set to 0 just
+     before and read just after, then the forward bit-equal to its twin and
+     the backward within K2_REL_TOL of max |d_table|, with ms, device ms
+     and bound; a `ModelConfig(unbounded=True)` trainer 200 steps at lambda
+     = 0 (finite losses, the train-batch PSNR of steps 150-199 above that of
+     0-49, the training kernels launched; SectionTimers); `propnet_sampling`
+     over 4,096 rays (levels of 128 and 64 samples, 32 final; the
+     deterministic run within PROP_TOL of the CPU's, both stratified settings,
+     finite prop_loss); the vanilla NeRF (8x256, 65,536 points) and NDR
+     (16,384 points with times), outputs within MLP_REL_TOL of the CPU's,
+     gradients in norm and against the field in float64 (check_mlp_field);
+     LPIPS on an 800x800 pair with synthetic weights within LPIPS_REL_TOL;
+     the lens undistortion on 2^20 points within UNDISTORT_TOL;
+ 13. [pipeline] the configuration of cnc_tpu's recorded 2,000- and 20,000-step
      rows at full width (PIPE_*): `Trainer.fit` to step 199 with a
      checkpoint every 100 steps (ms per step over steps 150-199, the save's
      seconds and MB); a fresh python3 process (`chip_smoke.py
@@ -120,7 +139,7 @@ Phases (any failure raises and the script exits non-zero):
      have launched; then `python3 -m cnc_torch.cli nerf_synthetic
      --decode_only` in a third process must read the row's psnr_codec within
      PIPE_CLI_DB; the order-fault words clear in both processes;
- 13. print the kernels line (each kernel's `pipeline_launches` from the
+ 14. print the kernels line (each kernel's `pipeline_launches` from the
      resumed process), the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
@@ -211,12 +230,28 @@ RATE_GRAD_BAND, RATE_GRAD_TOL = 1e-3, 1e-4
 # 36.66496276855469 for the runs_depth10k pair), with the TPU's record
 # printed beside it.  runs_20k's CPU figure, 40.09655 dB, is also what
 # cnc_tpu's own decode and render on JAX's CPU backend read (40.09657).
-BUNDLES = {   # tag: (bundle, the port's CPU PSNR of view 0, the TPU's record)
-    "bundle 20k": ("runs_20k/bitstreams/l0.002_k4", 40.09655, 40.0573),
-    "bundle depth10k l0.002": ("runs_depth10k/bitstreams/l0.002_k4", 37.62526, 37.6302),
-    "bundle depth10k l0.0007": ("runs_depth10k/bitstreams/l0.0007_k4", 36.66496, 36.6773),
+# The tanks bundle (cnc_tpu's 800-step 1920x1080 NSVF run) is held on its own
+# scene's test view 0, drawn in memory by tools/torch_tanks_view.py as the
+# loader would read it; its CPU figure, 25.320985794067383, comes from
+# `python3 tools/torch_tanks_view.py psnr cpu --procs 8` (on the H100
+# machine's CPU: a 114 s decode and a 1,209 s render), and the TPU's record
+# is the mean of its test views (runs_tanks/results/TanksAndTemple/
+# output.txt), printed beside it and not held.
+BUNDLES = {   # tag: (bundle, the port's CPU PSNR of view 0, the TPU's record, the view)
+    "bundle 20k": ("runs_20k/bitstreams/l0.002_k4", 40.09655, 40.0573, "blocks"),
+    "bundle depth10k l0.002": ("runs_depth10k/bitstreams/l0.002_k4", 37.62526, 37.6302,
+                               "blocks"),
+    "bundle depth10k l0.0007": ("runs_depth10k/bitstreams/l0.0007_k4", 36.66496, 36.6773,
+                                "blocks"),
+    "bundle tanks": ("runs_tanks/bitstreams/Spheres", 25.32099, 25.2352, "tanks"),
 }
 BUNDLE_DB = 0.01
+# [breadth]: the proposal sampler's edges and weights against its CPU run
+# (max abs; the deterministic run, uniform in t, edges in [0.1, 5]), the MLP
+# fields' outputs and LPIPS (relative to the largest value) and their
+# gradients (in norm, see check_mlp_field), the undistorted coordinates (max
+# abs, in [-0.7, 0.7])
+PROP_TOL, MLP_REL_TOL, LPIPS_REL_TOL, UNDISTORT_TOL = 1e-5, 1e-4, 1e-4, 1e-5
 # [pipeline]: the configuration of cnc_tpu's recorded 2,000- and 20,000-step
 # rows (tools/overnight_r5.sh:47-51, tools/rd_sweep_depth.py:127-151; the
 # config in runs_20k/bitstreams/l0.002_k4/meta.json) at full width.  The
@@ -331,6 +366,7 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
     if kw.get("occ_mask") is not None:
         n_bytes += n_rows        # at least one mask byte per distinct row read
     n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
+    n_bytes, n_flops = sat_work(kw, n_bytes, n_flops, pts, res, offs, enc)
     b, by = bound_ms(n_bytes, n_flops)
     kernel = lambda: enc._encode_cuda(pts, table, res, offs, **kw)
     rec = dict(max_abs_err=err, ms=time_ms(kernel),
@@ -343,6 +379,21 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
         f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f}"
         f" plain_ms={rec['plain_ms']:.4f} bound_ms={b:.4f}")
     return rec
+
+
+def sat_work(kw, n_bytes, n_flops, pts, res, offs, enc):
+    """K1s/K2s's share of the bound: the summed-area table ((Rb+1)^D int32)
+    read once, and for each corner that is not on the border the footprint
+    box (6 operations an axis) and its 2^D-term inclusion-exclusion sum."""
+    sat = kw.get("occ_sat")
+    if sat is None:
+        return n_bytes, n_flops
+    gs, _ = enc._corner_sets(pts, res, offs)      # unmasked: the corners the kernel tests
+    inside = ~((pts < 0.0) | (pts > 1.0)).any(dim=-1)
+    d = pts.shape[1]
+    tested = sum(int(((g != 0) & inside[:, None]).sum()) for g in gs)
+    del gs
+    return n_bytes + sat.numel() * 4, n_flops + tested * (6 * d + 2 ** d)
 
 
 def volrend_bound(n_valid: int, n_rays: int, prefix: bool, backward: bool = False):
@@ -919,6 +970,7 @@ def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", *
     lib_err = rel_err(library(), want)
     n_bytes = pts.numel() * 4 + cot.numel() * 4 + 2 * n_rows * f * 4
     n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
+    n_bytes, n_flops = sat_work(kw, n_bytes, n_flops, pts, res, offs, enc)
     b, by = bound_ms(n_bytes, n_flops)
     kernel = lambda: enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw)
     rec = dict(max_abs_err=err, rel_err=err / scale, ms=time_ms(kernel, iters=10),
@@ -1623,7 +1675,7 @@ def check_rate_gradient(torch, tr, rf, cops, enc, ent_ops, label):
              (cops, "segment_gather", cops._segment_gather_plain),
              (cops, "pn_frac_plane", cops._pn_frac_plane_plain),
              (enc, "_encode", lambda pts, table, res, offs, mask=None, moffs=None, bits=None,
-              ids=None, n_calc=None:
+              ids=None, n_calc=None, occ_binary=None, occ_sat=None:
               enc._encode_plain(pts.detach(), table, res, offs, mask,
                                 None if mask is None else tuple(int(m) for m in moffs),
                                 ids, n_calc)))
@@ -2116,6 +2168,16 @@ def run_pipeline_phase(torch, kernels, volrend, cops, dev) -> dict:
     return launches
 
 
+def tanks_view():
+    """tools/torch_tanks_view.py, imported from this checkout."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / "torch_tanks_view.py"
+    spec = importlib.util.spec_from_file_location("torch_tanks_view", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def check_bundles(torch, kernels, volrend, dev) -> None:
     """[bundles]: decode each of cnc_tpu's committed bundles with the
     kernels (decode checks every stream's sha256 itself), render test view 0
@@ -2126,8 +2188,8 @@ def check_bundles(torch, kernels, volrend, dev) -> None:
     from cnc_torch.train import driver
     from cnc_torch.utils import metrics
     test = scenes.ProceduralDataset("blocks", 8, 256, 256, "test", device=dev)
-    rays, gt = test.image_and_rays(0)
-    for tag, (bundle, cpu_psnr, tpu_psnr) in BUNDLES.items():
+    views = {"blocks": test.image_and_rays(0)}
+    for tag, (bundle, cpu_psnr, tpu_psnr, view) in BUNDLES.items():
         if cpu_psnr is None:
             raise AssertionError(f"[{tag}] no CPU figure to hold the card to")
         torch.cuda.synchronize()
@@ -2138,6 +2200,13 @@ def check_bundles(torch, kernels, volrend, dev) -> None:
         decode_s = time.time() - t0
         decode_launches = {k: v for k, v in kernels.launches.items() if v}
         aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=dev)
+        if view == "tanks":
+            rays, gt, box, _ = tanks_view().view0(dev)
+            if not torch.equal(aabb.cpu(), torch.from_numpy(box)):
+                raise AssertionError(f"[{tag}] the bundle's box {cfg.render.aabb} is not the"
+                                     f" scene's {box}")
+        else:
+            rays, gt = views[view]
         render = lambda: renderer.render_image(field, cfg.model, cfg.render, aabb, binaries,
                                                rays.origins, rays.viewdirs,
                                                torch.ones(3, device=dev), device=dev)
@@ -2152,7 +2221,8 @@ def check_bundles(torch, kernels, volrend, dev) -> None:
         psnr = float(metrics.psnr(rgb, gt))
         diff = psnr - cpu_psnr
         log(f"[{tag}] {bundle}: decode_bundle {decode_s:.2f} s (launches"
-            f" {json.dumps(decode_launches)}); test view 0 (256x256) rendered in"
+            f" {json.dumps(decode_launches)}); test view 0 ({gt.shape[1]}x{gt.shape[0]},"
+            f" {view}) rendered in"
             f" {render_s:.3f} s (launches {json.dumps(render_launches)}), psnr {psnr:.5f} dB,"
             f" ssim {float(metrics.ssim(rgb, gt)):.6f}; the CPU plain path {cpu_psnr:.5f},"
             f" difference {diff:+.6f} dB (limit {BUNDLE_DB}); the TPU's record {tpu_psnr}")
@@ -2166,6 +2236,271 @@ def check_bundles(torch, kernels, volrend, dev) -> None:
             raise AssertionError(f"[{tag}] psnr {psnr} is {diff:+.6f} dB from the CPU's")
         check_walk_faults(volrend, dev, f"[{tag}]")
         del field, binaries
+
+
+def synth_lpips_weights(np, plan, seed=0):
+    """tests/test_lpips.py's synthetic VGG16 weights (He-scaled random
+    convolutions, zero biases, uniform linear heads)."""
+    rng = np.random.default_rng(seed)
+    w, cin = {}, 3
+    for i, (cout, _) in enumerate(plan):
+        w[f"conv{i}_w"] = (rng.standard_normal((3, 3, cin, cout)).astype(np.float32)
+                           * np.sqrt(2.0 / (9 * cin)))
+        w[f"conv{i}_b"] = np.zeros(cout, np.float32)
+        cin = cout
+    for j, c in enumerate([c for c, t in plan if t]):
+        w[f"lin{j}_w"] = rng.random(c).astype(np.float32)
+    return w
+
+
+def max_rel(torch, got, want) -> float:
+    """max |got - want| over max |want|, on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def check_sat_encode(torch, kernels, enc, sat_ops, rf, tr, gen, dev, records):
+    """[breadth] K1s/K2s: the encode masked by the summed-area table of the
+    [train] phase's 128^3 occupancy grid, at the default grid_3d over the
+    training capacity's 327,680 points, and on the xy plane of grid_2d with
+    that grid's projection along z.  The path (the public encode with
+    `occ_binary`, forward and backward through autograd, 3D then 2D) runs
+    with the counts set to 0 just before it and read just after; then each
+    kernel against its twin: the forward bit-equal, the backward within
+    K2_REL_TOL of max |d_table|, with ms, device ms and bound."""
+    cfg = tr.cfg
+    occ = tr.occ_state.binaries
+    occ2 = occ.any(dim=2).contiguous()          # projected along the xy plane's normal
+    n = cfg.render.sample_capacity
+    pts = torch.rand(n, 3, generator=gen, device=dev)
+    tables = {k: v.detach() for k, v in rf.quantized_tables(tr.field, cfg.model).items()}
+    sites = (("xyz", cfg.model.grid_3d, pts, occ), ("xy", cfg.model.grid_2d,
+                                                    pts[:, [0, 1]].contiguous(), occ2))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = []
+    for key, spec, p, grid in sites:
+        leaf = tables[key].clone().requires_grad_()
+        out = enc.grid_encode(p, leaf, spec, occ_binary=grid)
+        out.backward(torch.ones_like(out))
+        outs.append((out.detach(), leaf.grad))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    if not (launches.get("grid_encode_s") == 2 and launches.get("grid_encode_s_bwd") == 2):
+        raise AssertionError(f"[breadth] the SAT-masked encode did not go through K1s/K2s:"
+                             f" {launches}")
+    log(f"[breadth K1s/K2s] path: grid_encode(occ_binary=) forward and backward, 3D and xy;"
+        f" launches {json.dumps(launches)}; occupancy {int(occ.sum())}/{occ.numel()} cells,"
+        f" projected {int(occ2.sum())}/{occ2.numel()}")
+    counted = dict(kernels.launches)
+    fwd, bwd = {}, {}
+    for (key, spec, p, grid), (out, _) in zip(sites, outs):
+        sat = sat_ops.build_sat(grid)
+        if not torch.equal(sat.cpu(), sat_ops.build_sat(grid.cpu())):
+            raise AssertionError(f"[breadth] {key}: the table differs from the CPU's")
+        if not bool(out.any()):
+            raise AssertionError(f"[breadth] {key}: every corner was masked")
+        fwd[key] = check_grid_encode(torch, enc, spec, tables[key], p, f"{key}, SAT-masked",
+                                     name="K1s", occ_sat=sat)
+        bwd[key] = check_grid_encode_bwd(torch, enc, spec, tables[key], p, gen,
+                                         f"{key}, SAT-masked", name="K2s", occ_sat=sat)
+    kernels.launches.update(counted)     # comparison launches do not count
+    records["grid_encode_s"] = dict(fwd["xyz"], max_abs_err=max(r["max_abs_err"]
+                                                                for r in fwd.values()),
+                                    sites=fwd)
+    records["grid_encode_s_bwd"] = dict(bwd["xyz"], max_abs_err=max(r["max_abs_err"]
+                                                                    for r in bwd.values()),
+                                        sites=bwd)
+    return launches
+
+
+def check_mlp_field(torch, name, make, n_pts, call, dev):
+    """[breadth] one MLP field's forward and backward on the card against
+    the CPU (the same weights, from one CPU generator, and inputs), and the
+    gradients against the same field in float64 on the card.  Outputs: max
+    |card - cpu| over max |cpu| within MLP_REL_TOL.  Gradients: summed over
+    n_pts points through ReLU trunks (and, for NDR, through the warp's
+    1e-4-scale output layers), float32 itself misses them by more than 1e-4
+    (at these inputs the CPU's lie 2.7e-5 (vanilla) and 2.5e-3 (NDR) from
+    float64 in norm over all leaves, up to 5.7e-4 and 8.8e-3 on one leaf),
+    so, as the rate gradient is held, each float32 side is measured from
+    float64: the card's distance, over all leaves and on its worst leaf, at
+    most twice the CPU's plus MLP_REL_TOL / 10."""
+    cg = torch.Generator().manual_seed(n_pts)
+    x = torch.rand(n_pts, 3, generator=cg) * 3.0 - 1.5
+    v = torch.nn.functional.normalize(torch.randn(n_pts, 3, generator=cg), dim=-1)
+    t = torch.rand(n_pts, 1, generator=cg)
+    cots = (torch.randn(n_pts, 3, generator=cg), torch.randn(n_pts, generator=cg))
+    outs = []
+    for where, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                         (dev, torch.float64)):
+        m = make(where).to(dtype)
+        to = lambda a: a.to(where, dtype)
+        t0 = time.time()
+        rgb, sigma = call(m, to(x), to(v), to(t))
+        ((rgb * to(cots[0])).sum() + (sigma * to(cots[1])).sum()).backward()
+        torch.cuda.synchronize()
+        outs.append((rgb, sigma, {k: p.grad.double().cpu() for k, p in m.named_parameters()},
+                     (time.time() - t0) * 1e3))
+    (rg, sg, gg, ms_g), (rc, sc, gc, ms_c), (_, _, g64, _) = outs
+    out_err = max(max_rel(torch, rg, rc), max_rel(torch, sg, sc))
+    flat = lambda g: torch.cat([g[k].flatten() for k in sorted(g)])
+    norm_rel = lambda a, b: float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    card_all, cpu_all = norm_rel(flat(gg), flat(g64)), norm_rel(flat(gc), flat(g64))
+    card_leaf = max(norm_rel(gg[k], g64[k]) for k in g64)
+    cpu_leaf = max(norm_rel(gc[k], g64[k]) for k in g64)
+    slack = MLP_REL_TOL / 10
+    log(f"[breadth {name}] {n_pts} points, forward and backward: card {ms_g:.2f} ms"
+        f" (first call), cpu {ms_c:.1f} ms; outputs {out_err:.3g} relative (limit"
+        f" {MLP_REL_TOL}, TF32 off); the {len(gc)} gradients' distance from float64 in norm,"
+        f" card / cpu: all leaves {card_all:.3g} / {cpu_all:.3g}, the worst leaf"
+        f" {card_leaf:.3g} / {cpu_leaf:.3g} (limit twice the CPU's + {slack}); printed: card"
+        f" from cpu {norm_rel(flat(gg), flat(gc)):.3g} in norm, the largest entry error over a"
+        f" leaf's largest entry {max(max_rel(torch, gg[k], gc[k]) for k in gc):.3g}")
+    if not (out_err <= MLP_REL_TOL and card_all <= 2 * cpu_all + slack
+            and card_leaf <= 2 * cpu_leaf + slack):
+        raise AssertionError(f"[breadth {name}] outputs {out_err} from the CPU, gradients"
+                             f" {card_all}, {card_leaf} from float64")
+
+
+def check_lpips(torch, np, lpips, dev):
+    """[breadth] LPIPS of an 800x800 pair with the synthetic weights, on the
+    card against the CPU."""
+    w = synth_lpips_weights(np, lpips._VGG_PLAN)
+    cg = torch.Generator().manual_seed(13)
+    a = torch.rand(VIEW, VIEW, 3, generator=cg)
+    b = (a + 0.1 * torch.randn(VIEW, VIEW, 3, generator=cg)).clamp(0, 1)
+    lp_card = lpips.lpips(a.to(dev), b.to(dev), weights=w)
+    lp_ms = time_ms(lambda: lpips.lpips(a.to(dev), b.to(dev), weights=w), iters=3, warmup=0)
+    lp_cpu = lpips.lpips(a, b, weights=w)
+    lp_err = abs(lp_card - lp_cpu) / abs(lp_cpu)
+    log(f"[breadth LPIPS] {VIEW}x{VIEW} pair, synthetic VGG16 weights: card {lp_card:.6g}"
+        f" ({lp_ms:.2f} ms, the weights' upload included), cpu {lp_cpu:.6g}, relative"
+        f" difference {lp_err:.3g} (limit {LPIPS_REL_TOL}, TF32 off)")
+    if not lp_err <= LPIPS_REL_TOL:
+        raise AssertionError(f"[breadth LPIPS] the card is {lp_err} from the CPU")
+
+
+def check_undistort(torch, camera_undistort, dev):
+    """[breadth] the OpenCV lens undistortion of 2^20 points, on the card
+    against the CPU."""
+    cg = torch.Generator().manual_seed(14)
+    uv = torch.rand(1 << 20, 2, generator=cg) * 1.2 - 0.6
+    params = torch.tensor([-0.12, 0.03, 0.0008, -0.0011])
+    und = lambda u, p: camera_undistort.opencv_lens_undistortion(u, p)
+    got = und(uv.to(dev), params.to(dev))
+    und_ms = time_ms(lambda: und(uv.to(dev), params.to(dev)), iters=5, warmup=1)
+    und_err = float((got.cpu() - und(uv, params)).abs().max())
+    log(f"[breadth undistort] {uv.shape[0]} points, OpenCV (k1, k2, p1, p2): {und_ms:.3f} ms,"
+        f" max abs difference from the CPU {und_err:.3g} (limit {UNDISTORT_TOL})")
+    if not und_err <= UNDISTORT_TOL:
+        raise AssertionError(f"[breadth undistort] the card is {und_err} from the CPU")
+
+
+def analytic_sigmas(torch):
+    """Two proposal densities of t, peaked at t = 2 and t = 3.5 (as in
+    tests/test_utils.py's propnet test)."""
+    def a(t0, t1):
+        mid = (t0 + t1) / 2
+        return torch.exp(-((mid - 2.0) ** 2) * 4.0) * 5.0
+
+    def b(t0, t1):
+        mid = (t0 + t1) / 2
+        return torch.exp(-((mid - 3.5) ** 2) * 2.0) * 8.0 + 0.1
+    return [a, b]
+
+
+def run_breadth(torch, kernels, enc, tr, train_set, gen, dev, records) -> dict:
+    """[breadth]: the single-card modules beside the main path at full
+    width, each held to its CPU run in this process: K1s/K2s, an unbounded
+    trainer, the proposal sampler, the MLP fields, LPIPS and the lens
+    undistortion.  Returns the K1s/K2s path's launches."""
+    import dataclasses
+    import numpy as np
+    from cnc_torch.config import CNCConfig, ModelConfig, TrainConfig
+    from cnc_torch.grids import prop_net
+    from cnc_torch.models import mlp_fields
+    from cnc_torch.models import radiance_field as rf
+    from cnc_torch.ops import sat as sat_ops
+    from cnc_torch.train.trainer import Trainer
+    from cnc_torch.utils import camera_undistort, lpips, profiling
+
+    t_phase = time.time()
+    launches = check_sat_encode(torch, kernels, enc, sat_ops, rf, tr, gen, dev, records)
+
+    # the unbounded trainer: 200 steps at lambda = 0
+    timers = profiling.SectionTimers()
+    with timers.section("unbounded set-up"):
+        ucfg = CNCConfig(model=ModelConfig(unbounded=True),
+                         train=dataclasses.replace(TrainConfig(), lmbda=0.0))
+        utr = Trainer(ucfg, train_set)
+    mses = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with timers.section("unbounded fit, 200 steps"):
+        utr.fit(199, log_every=0, step_callback=lambda s, aux: mses.append(float(aux["mse"])))
+        profiling.force(next(utr.field.parameters()))
+    ulaunches = {k: v for k, v in kernels.launches.items() if v}
+    psnrs = [-10.0 * math.log10(max(m, 1e-10)) for m in mses]
+    early, late = statistics.mean(psnrs[:50]), statistics.mean(psnrs[150:200])
+    fit_s = timers.totals["unbounded fit, 200 steps"]
+    log(f"[breadth unbounded] Trainer(ModelConfig(unbounded=True)), lambda 0, blocks: 200 steps,"
+        f" {fit_s / 200 * 1e3:.2f} ms per step; train-batch psnr {early:.3f} over steps 0-49,"
+        f" {late:.3f} over 150-199; launches {json.dumps(ulaunches)}; section timers:\n"
+        + timers.summary())
+    if len(mses) != 200 or not all(math.isfinite(m) for m in mses):
+        raise AssertionError(f"[breadth unbounded] a loss is not finite: {len(mses)} steps")
+    if not late > early:
+        raise AssertionError(f"[breadth unbounded] psnr did not rise: {early} -> {late}")
+    if not all(ulaunches.get(k, 0) > 0 for k in ("grid_encode", "grid_encode_bwd", "march",
+                                                 "volrend", "volrend_bwd")):
+        raise AssertionError(f"[breadth unbounded] a training kernel did not launch: {ulaunches}")
+    del utr
+
+    # the proposal sampler: 4,096 rays, levels of 128 and 64 samples, 32 final
+    r = 4096
+    o = torch.zeros(r, 3, device=dev)
+    sig = analytic_sigmas(torch)
+    args = (sig, (128, 64), 32, 0.1, 5.0)
+    t0 = time.time()
+    t_s, t_e, aux = prop_net.propnet_sampling(None, o, o, *args, sampling_type="uniform")
+    torch.cuda.synchronize()
+    prop_ms = (time.time() - t0) * 1e3
+    c_s, c_e, c_aux = prop_net.propnet_sampling(None, o.cpu(), o.cpu(), *args,
+                                                sampling_type="uniform")
+    err_t = max(float((a.cpu() - b).abs().max()) for a, b in
+                [(t_s, c_s), (t_e, c_e)] + [(x[0], y[0]) for x, y in zip(aux["levels"],
+                                                                          c_aux["levels"])])
+    err_w = max(float((x[1].cpu() - y[1]).abs().max())
+                for x, y in zip(aux["levels"], c_aux["levels"]))
+    t_rf = torch.cat([t_s, t_e[:, -1:]], -1)
+    w_rf = torch.full((r, 32), 1.0 / 32, device=dev)
+    loss = float(prop_net.prop_loss(aux, t_rf, w_rf))
+    g = torch.Generator(device=dev).manual_seed(5)
+    s_s, s_e, s_aux = prop_net.propnet_sampling(g, o, o, *args, sampling_type="uniform",
+                                                stratified=True)
+    s_loss = float(prop_net.prop_loss(s_aux, torch.cat([s_s, s_e[:, -1:]], -1), w_rf))
+    log(f"[breadth propnet] {r} rays, levels (128, 64), 32 samples: {prop_ms:.2f} ms; against"
+        f" the CPU run: edges max abs {err_t:.3g}, weights {err_w:.3g} (limit {PROP_TOL});"
+        f" prop_loss {loss:.6g}, stratified {s_loss:.6g}")
+    if not (err_t <= PROP_TOL and err_w <= PROP_TOL):
+        raise AssertionError(f"[breadth propnet] the card is {err_t}, {err_w} from the CPU")
+    if not (math.isfinite(loss) and math.isfinite(s_loss) and bool(s_s.isfinite().all())):
+        raise AssertionError("[breadth propnet] a loss or an edge is not finite")
+
+    # the MLP fields: vanilla NeRF 8x256 over 65,536 points, NDR over 16,384
+    for name, make, n_pts, call in (
+            ("vanilla NeRF 8x256", lambda d: mlp_fields.VanillaNeRF(
+                torch.Generator().manual_seed(11), device=d), 65536,
+             lambda m, x, v, t: mlp_fields.forward(m, x, v)),
+            ("NDR", lambda d: mlp_fields.NDRField(torch.Generator().manual_seed(12), device=d),
+             16384, lambda m, x, v, t: mlp_fields.ndr_forward(m, x, v, t))):
+        check_mlp_field(torch, name, make, n_pts, call, dev)
+
+    check_lpips(torch, np, lpips, dev)
+    check_undistort(torch, camera_undistort, dev)
+    log(f"[breadth] {time.time() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2687,17 +3022,22 @@ def main() -> int:
     enc_launches, dec_launches, codec_launches = run_codec(
         torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, records)
 
-    # ---- 11. cnc_tpu's 20,000-step bundle, decoded and rendered on the card
+    # ---- 11. cnc_tpu's committed bundles, decoded and rendered on the card
     check_bundles(torch, kernels, volrend, dev)
 
-    # ---- 12. [pipeline]: train, checkpoint, resume in a fresh process, the
+    # ---- 12. [breadth]: K1s/K2s on the trained occupancy grid, the unbounded
+    # trainer, the proposal sampler, the MLP fields, LPIPS, the undistortion
+    breadth_launches = run_breadth(torch, kernels, enc, tr, train_set, gen, dev, records)
+
+    # ---- 13. [pipeline]: train, checkpoint, resume in a fresh process, the
     # pipeline and its row, the CLI's decode
     pipeline_launches = run_pipeline_phase(torch, kernels, volrend, cops, dev)
 
-    # ---- 12. report: `launches` is the count over the path named beside it
+    # ---- 14. report: `launches` is the count over the path named beside it
     # (one view, the lambda = 0 training run, the probe's one drive, the rate
     # path from the model's build to the run's last step, the three
-    # pn_frac_grad steps, or the codec path: int cache, encode and decode)
+    # pn_frac_grad steps, the codec path: int cache, encode and decode, or
+    # the SAT-masked encode's drive in [breadth])
     meta = {
         "grid_encode": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:104", "view"),
         "grid_encode_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "train"),
@@ -2730,9 +3070,14 @@ def main() -> int:
         "pn_hist_int": ("pn_hist.cu", "cnc_tpu/codec/intctx.py:298", "codec"),
         # the packed copy of the mask cnc_tpu reads as bools at encoding.py:90-94
         "pack_mask_bits": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:90", "rate"),
+        # K1s/K2s: the corner masking by the summed-area table
+        # (encoding.py:95-97, sat.py:94) and its scatter-add backward
+        "grid_encode_s": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:95", "breadth"),
+        "grid_encode_s_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "breadth"),
     }
     counted = {"view": launches, "train": train_launches, "probe": probe_launches,
-               "rate": rate_launches, "rate_pn_grad": pn_launches, "codec": codec_launches}
+               "rate": rate_launches, "rate_pn_grad": pn_launches, "codec": codec_launches,
+               "breadth": breadth_launches}
     out = []
     for name, (source, replaces, path) in meta.items():
         r = records[name]

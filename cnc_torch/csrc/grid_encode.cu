@@ -2,7 +2,7 @@
 //
 // Replaces (cnc_tpu, the XLA composition of one encode call):
 //   ops/encoding.py  _level_setup (145-152), _corner_setup (52-101, with the
-//                    flat occ_mask of 90-94, without the summed-area one),
+//                    flat occ_mask of 90-94 and the summed-area one of 95-97),
 //                    _gather_levels (104-142), grid_encode_diff_levels
 //                    (211-247), grid_encode_given_table (250-270)
 //   ops/scatter_ops.py grouped_gather_interp forward (56-96)
@@ -82,6 +82,22 @@
 // thousand rows, which the L2 serialises.  The sum order varies from run to
 // run, so the kernel is compared with its twin by a tolerance.
 //
+// K1s and K2s: the same two kernels instantiated with a summed-area table as
+// the mask source (template parameter Sat), the counterpart of cnc_tpu's
+// `occupancy_mask(occ_sat, cc, R, rb)` inside _corner_setup (ops/encoding.py
+// 95-97, ops/sat.py 68-98; the TPU form of the reference's corner walk,
+// gridencoder.cu:222-276).  For each live corner the footprint box is formed
+// as sat.footprint_box forms it, in float32 without FMA: scale = 1/(R-2)
+// rounded once, pn = (c - 0.5)*scale, lo/hi = trunc(clamp((pn -/+ scale)*Rb,
+// 0, Rb-1)); then its 2^D table entries are gathered, all in flight together,
+// and the corner is kept if the inclusion-exclusion count is > 0.  The table
+// is int32 [Rb+1]^D with the last axis fastest (8.6 MB at Rb = 128, in L2).
+// The packed mask wins when both are given (the wrapper passes one).  Plain
+// twin: ops/encoding.py `_encode_plain(occ_sat=)`, over ops/sat.py.  Bound on
+// the H100: the table rows as for K1, plus (2^D)^2 int32 gathers a (point,
+// level) that stay in L2; no path of the port passes a table today (no
+// module of cnc_tpu does), so the variant is simple and right first.
+//
 // The mask packing (`cnc_pack_mask_bits`) replaces no XLA composition:
 // cnc_tpu's encode reads the bool masks (ops/encoding.py 90-94) and the port
 // packs them once per cache refresh so that the encodes read a bit a corner.
@@ -137,9 +153,42 @@ struct Corners {
   bool live[1 << D];
 };
 
+// Whether the footprint of corner cc of a resolution-res level on the Rb
+// grid holds an occupied cell: the box of sat.footprint_box, then the 2^D
+// entries of the summed-area table `sat` ([rb+1]^D int32, last axis
+// fastest), all loaded before they are summed.
 template <int D>
+__device__ __forceinline__ bool footprint_any(const int* cc, int res, const int* __restrict__ sat,
+                                              int rb) {
+  const float scale = __frcp_rn(static_cast<float>(res - 2));
+  const float frb = static_cast<float>(rb), top = static_cast<float>(rb - 1);
+  int lo[D], hi[D];
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) {
+    const float pn = __fmul_rn(__fsub_rn(static_cast<float>(cc[ax]), 0.5f), scale);
+    lo[ax] = static_cast<int>(fminf(fmaxf(__fmul_rn(__fsub_rn(pn, scale), frb), 0.f), top));
+    hi[ax] = static_cast<int>(fminf(fmaxf(__fmul_rn(__fadd_rn(pn, scale), frb), 0.f), top));
+  }
+  int v[1 << D];
+#pragma unroll
+  for (int s = 0; s < (1 << D); ++s) {
+    long long idx = 0;
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) idx = idx * (rb + 1) + ((s >> ax) & 1 ? lo[ax] : hi[ax] + 1);
+    v[s] = __ldg(sat + idx);
+  }
+  int count = 0;
+#pragma unroll
+  for (int s = 0; s < (1 << D); ++s) count += (__popc(s) & 1) ? -v[s] : v[s];
+  return count > 0;
+}
+
+// Sat selects the mask source: the packed bits (or none, bits null) when
+// false, the summed-area table when true.
+template <int D, bool Sat>
 __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, int l,
                                               const uint32_t* __restrict__ bits,
+                                              const int* __restrict__ sat, int rb,
                                               Corners<D>& c) {
   const int res = lv.res[l];
   const uint32_t size = static_cast<uint32_t>(lv.size[l]);
@@ -157,6 +206,7 @@ __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, 
   }
   uint32_t word[1 << D];
   long long bit[1 << D];
+  int corner[1 << D][D];
 #pragma unroll
   for (int k = 0; k < (1 << D); ++k) {
     uint32_t cc[D];
@@ -169,6 +219,7 @@ __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, 
       wk = __fmul_rn(wk, up ? frac[ax] : __fsub_rn(1.f, frac[ax]));
       valid &= (v != 0) && (v != res - 1);
       cc[ax] = static_cast<uint32_t>(v);
+      corner[k][ax] = v;
     }
     c.w[k] = wk;
     c.live[k] = valid;
@@ -178,7 +229,11 @@ __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, 
     for (int ax = 1; ax < D; ++ax) flat = flat * res + cc[ax];
     bit[k] = lv.mask_off[l] + flat;
   }
-  if (bits) {
+  if constexpr (Sat) {
+#pragma unroll
+    for (int k = 0; k < (1 << D); ++k)
+      c.live[k] = c.live[k] && footprint_any<D>(corner[k], res, sat, rb);
+  } else if (bits) {
     // every corner's mask word in flight at once, then the bits
 #pragma unroll
     for (int k = 0; k < (1 << D); ++k) word[k] = c.live[k] ? __ldg(bits + (bit[k] >> 5)) : 0u;
@@ -261,12 +316,12 @@ __device__ __forceinline__ bool inside_unit(const float* x, int d) {
   return inside;
 }
 
-template <int D, int F>
+template <int D, int F, bool Sat>
 __global__ void __launch_bounds__(kThreads)
 grid_encode_forward_kernel(const float* __restrict__ points, const float* __restrict__ table,
                            float* __restrict__ out, int n, int n_out, int n_levels, Levels lv,
                            const uint32_t* __restrict__ bits, const int* __restrict__ min_ids,
-                           int wpt) {
+                           const int* __restrict__ sat, int rb, int wpt) {
   extern __shared__ float4 smem4[];
   const int tile = kThreads / wpt;
   const long long p0 = static_cast<long long>(blockIdx.x) * tile;
@@ -290,7 +345,7 @@ grid_encode_forward_kernel(const float* __restrict__ points, const float* __rest
       if (inside) {
         const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
         Corners<D> c;
-        level_corners<D>(x, lv, l, bits, c);
+        level_corners<D, Sat>(x, lv, l, bits, sat, rb, c);
         float v[1 << D][F];
 #pragma unroll
         for (int k = 0; k < (1 << D); ++k) {
@@ -357,12 +412,13 @@ __device__ __forceinline__ void reduce_peers(unsigned peers, float* v) {
   }
 }
 
-template <int D, int F>
+template <int D, int F, bool Sat>
 __global__ void __launch_bounds__(kThreads)
 grid_encode_backward_kernel(const float* __restrict__ points, const float* __restrict__ grad,
                             float* __restrict__ d_table, int n, int n_out, int n_levels,
                             Levels lv, const uint32_t* __restrict__ bits,
-                            const int* __restrict__ min_ids, int wpt) {
+                            const int* __restrict__ min_ids, const int* __restrict__ sat, int rb,
+                            int wpt) {
   extern __shared__ float4 smem4[];
   const int tile = kThreads / wpt;
   const long long p0 = static_cast<long long>(blockIdx.x) * tile;
@@ -385,7 +441,7 @@ grid_encode_backward_kernel(const float* __restrict__ points, const float* __res
     bool adds = false;
     if (inside) {
       const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
-      level_corners<D>(x, lv, l, bits, c);
+      level_corners<D, Sat>(x, lv, l, bits, sat, rb, c);
       float wsum = 0.f;
 #pragma unroll
       for (int k = 0; k < (1 << D); ++k) wsum += c.live[k] ? c.w[k] : 0.f;
@@ -429,40 +485,53 @@ bool fill_levels(Levels* lv, int d, int n_out, int n_levels, const int* res, con
 }
 
 // One launch of either kernel over all points: tiles of kThreads / wpt.
-template <int D, int F, bool Backward>
+template <int D, int F, bool Backward, bool Sat>
 int launch(const float* points, const float* in, float* out, int n, int n_out, int n_levels,
-           const Levels& lv, const uint32_t* bits, const int* min_ids, cudaStream_t stream) {
+           const Levels& lv, const uint32_t* bits, const int* min_ids, const int* sat, int rb,
+           cudaStream_t stream) {
   const int wpt = warps_per_point(n_out);
   const int tile = kThreads / wpt;
   const unsigned blocks = cnc_blocks(n, tile);
   const size_t smem = smem_bytes<D, F>(tile, n_out);
   if constexpr (Backward) {
-    grid_encode_backward_kernel<D, F><<<blocks, kThreads, smem, stream>>>(
-        points, in, out, n, n_out, n_levels, lv, bits, min_ids, wpt);
+    grid_encode_backward_kernel<D, F, Sat><<<blocks, kThreads, smem, stream>>>(
+        points, in, out, n, n_out, n_levels, lv, bits, min_ids, sat, rb, wpt);
   } else {
-    grid_encode_forward_kernel<D, F><<<blocks, kThreads, smem, stream>>>(
-        points, in, out, n, n_out, n_levels, lv, bits, min_ids, wpt);
+    grid_encode_forward_kernel<D, F, Sat><<<blocks, kThreads, smem, stream>>>(
+        points, in, out, n, n_out, n_levels, lv, bits, min_ids, sat, rb, wpt);
   }
   return cnc_last_error();
+}
+
+template <int D, int F, bool Backward>
+int launch_with(const float* points, const float* in, float* out, int n, int n_out,
+                int n_levels, const Levels& lv, const uint32_t* bits, const int* min_ids,
+                const int* sat, int rb, cudaStream_t stream) {
+  if (sat)
+    return launch<D, F, Backward, true>(points, in, out, n, n_out, n_levels, lv, nullptr,
+                                        min_ids, sat, rb, stream);
+  return launch<D, F, Backward, false>(points, in, out, n, n_out, n_levels, lv, bits, min_ids,
+                                       nullptr, 0, stream);
 }
 
 template <bool Backward>
 int encode(const float* points, const float* in, float* out, int n, int d, int f, int n_out,
            int n_levels, const int* res, const int* offsets, const int* sizes,
-           const uint32_t* bits, const long long* mask_offs, const int* min_ids, void* stream) {
+           const uint32_t* bits, const long long* mask_offs, const int* min_ids, const int* sat,
+           int rb, void* stream) {
   Levels lv;
   if (!fill_levels(&lv, d, n_out, n_levels, res, offsets, sizes, mask_offs) ||
-      (!min_ids && n_out != n_levels))
+      (!min_ids && n_out != n_levels) || (sat && (bits || rb < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto go = [&](auto kernel) {
-    return kernel(points, in, out, n, n_out, n_levels, lv, bits, min_ids, s);
+    return kernel(points, in, out, n, n_out, n_levels, lv, bits, min_ids, sat, rb, s);
   };
-  if (d == 2 && f == 2) return go(launch<2, 2, Backward>);
-  if (d == 2 && f == 4) return go(launch<2, 4, Backward>);
-  if (d == 3 && f == 2) return go(launch<3, 2, Backward>);
-  if (d == 3 && f == 4) return go(launch<3, 4, Backward>);
+  if (d == 2 && f == 2) return go(launch_with<2, 2, Backward>);
+  if (d == 2 && f == 4) return go(launch_with<2, 4, Backward>);
+  if (d == 3 && f == 2) return go(launch_with<3, 2, Backward>);
+  if (d == 3 && f == 4) return go(launch_with<3, 4, Backward>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -500,26 +569,30 @@ __global__ void pack_mask_bits_kernel(const unsigned char* __restrict__ mask, lo
 // wrapper has checked offsets[l] + sizes[l] <= rows < 2^31 and that each
 // level's mask grid lies inside `bits`.  bits (the packed mask, int32 words)
 // and min_ids (int32 [n]) are device pointers or null; without min_ids,
-// n_out == n_levels.
+// n_out == n_levels.  sat (K1s: the summed-area table, int32 [rb+1]^d) is a
+// device pointer or null, and null whenever bits is not.
 CNC_EXPORT int cnc_grid_encode_forward(const float* points, const float* table, float* out,
                                        int n, int d, int f, int n_out, int n_levels,
                                        const int* res, const int* offsets, const int* sizes,
                                        const uint32_t* bits, const long long* mask_offs,
-                                       const int* min_ids, void* stream) {
+                                       const int* min_ids, const int* sat, int rb,
+                                       void* stream) {
   return encode<false>(points, table, out, n, d, f, n_out, n_levels, res, offsets, sizes, bits,
-                       mask_offs, min_ids, stream);
+                       mask_offs, min_ids, sat, rb, stream);
 }
 
 // K2.  points [n, d] f32, grad [n, n_out*f] f32 (4*f-byte aligned), d_table
-// [rows, f] f32 zeroed by the caller and 4*f-byte aligned; levels, bits and
-// min_ids as in the forward.  Adds every point's share of grad into d_table.
+// [rows, f] f32 zeroed by the caller and 4*f-byte aligned; levels, bits,
+// min_ids and sat as in the forward (K2s with sat).  Adds every point's share
+// of grad into d_table.
 CNC_EXPORT int cnc_grid_encode_backward(const float* points, const float* grad, float* d_table,
                                         int n, int d, int f, int n_out, int n_levels,
                                         const int* res, const int* offsets, const int* sizes,
                                         const uint32_t* bits, const long long* mask_offs,
-                                        const int* min_ids, void* stream) {
+                                        const int* min_ids, const int* sat, int rb,
+                                        void* stream) {
   return encode<true>(points, grad, d_table, n, d, f, n_out, n_levels, res, offsets, sizes, bits,
-                      mask_offs, min_ids, stream);
+                      mask_offs, min_ids, sat, rb, stream);
 }
 
 // The packed copy of a bool mask [rows, cols] (contiguous on the device):

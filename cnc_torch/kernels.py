@@ -35,7 +35,8 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 
 # grid_encode_v / grid_encode_v_bwd: launches of the encode kernels in their
 # masked or mixed-level variants (the rate estimate's), counted apart from the
-# plain ones; vertex_tables: every launch of csrc/vertex_tables.cu (four a
+# plain ones; grid_encode_s / grid_encode_s_bwd: K1s/K2s, the encode kernels
+# masked by a summed-area table (`occ_binary` / `occ_sat`); vertex_tables: every launch of csrc/vertex_tables.cu (four a
 # hashed level: count, scan, place, order; one a dense level); the codec's
 # integer kernels: int_ctx_pool (one launch a pool, csrc/int_context.cu), int_pq
 # (those of its launches that also finish the coder's probabilities, K9c, as
@@ -51,7 +52,7 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 # csrc/volrend.cu)
 launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
             "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
-            "grid_encode_v_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0,
+            "grid_encode_v_bwd": 0, "grid_encode_s": 0, "grid_encode_s_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0,
             "pn_frac_plane": 0, "pn_hist_bwd": 0, "footprint": 0, "vertex_tables": 0,
             "int_ctx_pool": 0, "int_pq": 0, "pn_hist_int": 0,
             "pack_mask_bits": 0, "segment_mean": 0, "segment_mean_bwd": 0}
@@ -59,7 +60,7 @@ launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "v
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # host int arrays
 _LP = ctypes.POINTER(ctypes.c_longlong)
-_ENCODE = (_P, _P, _P, _I, _I, _I, _I, _I, _IP, _IP, _IP, _P, _LP, _P, _P)
+_ENCODE = (_P, _P, _P, _I, _I, _I, _I, _I, _IP, _IP, _IP, _P, _LP, _P, _P, _I, _P)
 _SIGNATURES = {
     "cnc_cuda_error_string": ((_I,), ctypes.c_char_p),
     "cnc_grid_encode_forward": (_ENCODE, _I),

@@ -120,13 +120,20 @@ class RadianceField(nn.Module):
         return forward(self, self.cfg, aabb, positions, directions, tables)
 
 
-def params_from_jax(np_params: Mapping, cfg: ModelConfig, device=None) -> RadianceField:
-    """A RadianceField holding cnc_tpu's param pytree (as numpy arrays).
+def params_from_jax(np_params: Mapping, cfg: Optional[ModelConfig], device=None) -> nn.Module:
+    """The port's field holding cnc_tpu's param pytree (as numpy arrays).
 
-    Keys as `cnc_tpu.models.radiance_field.init_radiance_field` makes them:
-    "xyz", "xy", "xz", "yz", "mlp_base"/"l0".."l1", "mlp_head"/"l0".."l2",
-    each layer {"w": [in, out], "b": [out]}.
+    A RadianceField for the keys `cnc_tpu.models.radiance_field.
+    init_radiance_field` makes: "xyz", "xy", "xz", "yz", "mlp_base"/"l0"..
+    "l1", "mlp_head"/"l0".."l2", each layer {"w": [in, out], "b": [out]}.
+    The MLP fields' trees (`init_vanilla_nerf`'s "trunk", ..., "meta";
+    `init_ndr_nerf`'s "blocks", "nerf") become `mlp_fields.VanillaNeRF` /
+    `NDRField`, whose shapes the tree itself gives (`cfg` unused).
     """
+    if "blocks" in np_params or "trunk" in np_params:
+        from . import mlp_fields
+        field = mlp_fields.NDRField if "blocks" in np_params else mlp_fields.VanillaNeRF
+        return field(device=device, params=np_params)
     return RadianceField(cfg, device=device, params=np_params)
 
 

@@ -31,8 +31,14 @@ same two kernels:
     `clip(min_level_ids[i] + j, 0, L-1)` for j < n_levels_calc;
   * `grid_encode_given_table`: one dense level over a caller's table.
 
-cnc_tpu's summed-area-table masking (`occ_sat`, `occ_binary`) is not ported:
-no module of cnc_tpu passes it to an encode.
+and cnc_tpu's summed-area-table masking, the TPU form of the reference's
+corner masking (gridencoder.cu:222-276): with `occ_binary` (an Rb^D bool
+occupancy grid) or its prebuilt table `occ_sat` (`ops/sat.build_sat`), a
+corner is also dropped when its +-1-cell footprint on the Rb grid holds no
+occupied cell.  The twin asks `sat.occupancy_mask`; on the card K1s/K2s, the
+same two kernels instantiated with the table as their mask source, read the
+table themselves (2^D gathers a live corner).  `occ_mask` wins when both
+forms are given, as in cnc_tpu.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import torch
 
 from .. import kernels
 from ..config import GridSpec
-from . import hash_ops, scatter_ops
+from . import hash_ops, sat as sat_ops, scatter_ops
 
 
 def _level_setup(points: torch.Tensor, resolution):
@@ -60,11 +66,13 @@ def _level_setup(points: torch.Tensor, resolution):
 
 
 def _corner_setup(frac: torch.Tensor, pg: torch.Tensor, offset, hashmap_size, resolution,
-                  occ_mask: Optional[torch.Tensor] = None, mask_offset=0):
+                  occ_mask: Optional[torch.Tensor] = None, mask_offset=0,
+                  occ_sat: Optional[torch.Tensor] = None):
     """Global table indices and weights of one level's 2^D corners.
 
     Returns (gidx [N, 2^D] int64, w [N, 2^D] f32); border corners, and
-    corners whose `occ_mask` bit is false, carry weight 0 and index 0.
+    corners whose `occ_mask` bit is false (or, without occ_mask, whose
+    footprint on the `occ_sat` grid is empty), carry weight 0 and index 0.
     offset / hashmap_size / resolution / mask_offset are ints (a static
     level) or per-point integer tensors (mixed levels).
     """
@@ -92,6 +100,9 @@ def _corner_setup(frac: torch.Tensor, pg: torch.Tensor, offset, hashmap_size, re
                 flat = flat * resolution + cc[ax]
             # points outside [0,1] (zeroed later) may fall off the grid
             valid = valid & occ_mask[(mask_offset + flat).clamp(0, occ_mask.numel() - 1)]
+        elif occ_sat is not None:
+            valid = valid & sat_ops.occupancy_mask(occ_sat, torch.stack(cc, dim=-1), resolution,
+                                                   occ_sat.shape[0] - 1)
         idx = hash_ops.grid_index(torch.stack(cc, dim=-1), resolution, hashmap_size)
         gidx_list.append(torch.where(valid, idx + offset, 0))
         w_list.append(torch.where(valid, w, 0.0))
@@ -118,7 +129,7 @@ def _gather_levels(table: torch.Tensor, gidx_list, w_list, points: torch.Tensor)
 
 
 def _corner_sets(points, resolutions, offsets, occ_mask=None, mask_offsets=None,
-                 min_level_ids=None, n_levels_calc=None):
+                 min_level_ids=None, n_levels_calc=None, occ_sat=None):
     """Per encoded level, the corner indices and weights ([N, 2^D] each) of
     one encode call, before any table access.  With `min_level_ids`,
     `resolutions`/`offsets`/`mask_offsets` describe every level of the table
@@ -130,7 +141,7 @@ def _corner_sets(points, resolutions, offsets, occ_mask=None, mask_offsets=None,
             frac, pg = _level_setup(points, r)
             moff = mask_offsets[li] if occ_mask is not None else 0
             gi, wi = _corner_setup(frac, pg, offsets[li], offsets[li + 1] - offsets[li], int(r),
-                                   occ_mask, moff)
+                                   occ_mask, moff, occ_sat)
             gs.append(gi)
             ws.append(wi)
         return gs, ws
@@ -143,19 +154,20 @@ def _corner_sets(points, resolutions, offsets, occ_mask=None, mask_offsets=None,
         r = res_arr[lvl]
         frac, pg = _level_setup(points, r)
         gi, wi = _corner_setup(frac, pg, off_arr[lvl], hs_arr[lvl], r, occ_mask,
-                               moff_arr[lvl] if occ_mask is not None else 0)
+                               moff_arr[lvl] if occ_mask is not None else 0, occ_sat)
         gs.append(gi)
         ws.append(wi)
     return gs, ws
 
 
 def _encode_plain(points, table, resolutions, offsets, occ_mask=None, mask_offsets=None,
-                  min_level_ids=None, n_levels_calc=None, occ_bits=None):
-    """The plain twin of K1 (and, through autograd, of K2).  It reads the
-    bools of `occ_mask`; `occ_bits`, the packed copy the kernels read, is
-    taken so that one set of arguments serves both, and not read."""
+                  min_level_ids=None, n_levels_calc=None, occ_bits=None, occ_sat=None):
+    """The plain twin of K1 (and, through autograd, of K2), and with
+    `occ_sat` of K1s (K2s).  It reads the bools of `occ_mask`; `occ_bits`,
+    the packed copy the kernels read, is taken so that one set of arguments
+    serves both, and not read."""
     gs, ws = _corner_sets(points, resolutions, offsets, occ_mask, mask_offsets, min_level_ids,
-                          n_levels_calc)
+                          n_levels_calc, occ_sat)
     return _gather_levels(table, gs, ws, points)
 
 
@@ -220,11 +232,11 @@ def _levels(name, d, f, resolutions, offsets, mask_offsets, n_levels_calc):
 
 
 def _check_cuda_args(name, points, other, f, resolutions, offsets, rows, occ_mask, mask_offsets,
-                     occ_bits, min_level_ids, n_levels_calc):
+                     occ_bits, min_level_ids, n_levels_calc, occ_sat=None):
     """What K1 and K2 take; returns (n_out, the kernel's level arguments).
     The level description is checked once (`_levels`), the tensors on every
     call."""
-    kernels.require_cuda(name, points, other, occ_mask, occ_bits, min_level_ids)
+    kernels.require_cuda(name, points, other, occ_mask, occ_bits, min_level_ids, occ_sat)
     if points.dtype != torch.float32 or other.dtype != torch.float32:
         raise ValueError(f"{name}: points, table and gradient must be float32")
     n, d = points.shape
@@ -252,28 +264,46 @@ def _check_cuda_args(name, points, other, f, resolutions, offsets, rows, occ_mas
     if min_level_ids is not None and (min_level_ids.dtype != torch.int32
                                       or min_level_ids.shape != (n,)):
         raise ValueError(f"{name}: min_level_ids must be int32 [N]")
+    rb = 0
+    if occ_sat is not None:
+        if occ_mask is not None:
+            raise ValueError(f"{name}: pass one mask form, occ_mask or occ_sat")
+        rb = occ_sat.shape[0] - 1
+        if (occ_sat.dtype != torch.int32 or occ_sat.dim() != d or rb < 1
+                or occ_sat.shape != (rb + 1,) * d or occ_sat.numel() >= 2 ** 31):
+            raise ValueError(f"{name}: occ_sat must be the int32 [Rb+1]^D table of "
+                             "sat.build_sat(occ_binary), D the points' dimension")
     bits = kernels.ptr(occ_bits) if occ_mask is not None else None
-    return n_out, (n_out, n_levels, res, offs, sizes, bits, moffs, kernels.ptr(min_level_ids))
+    return n_out, (n_out, n_levels, res, offs, sizes, bits, moffs, kernels.ptr(min_level_ids),
+                   kernels.ptr(occ_sat), rb)
+
+
+def _launch_name(occ_mask, min_level_ids, occ_sat):
+    """The forward's launch count a call adds to (the backward's is this
+    name + "_bwd"): K1s (the summed-area table), K1v (the rate estimate's
+    packed mask or mixed levels) or K1."""
+    if occ_sat is not None:
+        return "grid_encode_s"
+    return "grid_encode_v" if occ_mask is not None or min_level_ids is not None else "grid_encode"
 
 
 def _encode_cuda(points, table, resolutions, offsets, occ_mask=None, mask_offsets=None,
-                 occ_bits=None, min_level_ids=None, n_levels_calc=None):
+                 occ_bits=None, min_level_ids=None, n_levels_calc=None, occ_sat=None):
     n, d = points.shape
     f = table.shape[1]
     n_out, levels = _check_cuda_args("grid_encode", points, table, f, resolutions, offsets,
                                      table.shape[0], occ_mask, mask_offsets, occ_bits,
-                                     min_level_ids, n_levels_calc)
+                                     min_level_ids, n_levels_calc, occ_sat)
     out = torch.empty(n, n_out * f, dtype=torch.float32, device=points.device)
     kernels.call("cnc_grid_encode_forward", kernels.ptr(points), kernels.ptr(table),
                  kernels.ptr(out), n, d, f, *levels)
-    variant = occ_mask is not None or min_level_ids is not None
-    kernels.launches["grid_encode_v" if variant else "grid_encode"] += 1
+    kernels.launches[_launch_name(occ_mask, min_level_ids, occ_sat)] += 1
     return out
 
 
 def _encode_backward_cuda(points, grad, rows, resolutions, offsets, occ_mask=None,
                           mask_offsets=None, occ_bits=None, min_level_ids=None,
-                          n_levels_calc=None):
+                          n_levels_calc=None, occ_sat=None):
     """K2: d_table [rows, F] of `_encode_cuda` for the output gradient `grad`
     [N, L*F].  The sum runs through float atomics, so its order, and the last
     bits of the result, vary from run to run."""
@@ -283,12 +313,12 @@ def _encode_backward_cuda(points, grad, rows, resolutions, offsets, occ_mask=Non
         raise ValueError("grid_encode_bwd: grad must be [N, L*F]")
     f = grad.shape[1] // n_out
     _, levels = _check_cuda_args("grid_encode_bwd", points, grad, f, resolutions, offsets, rows,
-                                 occ_mask, mask_offsets, occ_bits, min_level_ids, n_levels_calc)
+                                 occ_mask, mask_offsets, occ_bits, min_level_ids, n_levels_calc,
+                                 occ_sat)
     d_table = torch.zeros(rows, f, dtype=torch.float32, device=points.device)
     kernels.call("cnc_grid_encode_backward", kernels.ptr(points), kernels.ptr(grad),
                  kernels.ptr(d_table), n, d, f, *levels)
-    variant = occ_mask is not None or min_level_ids is not None
-    kernels.launches["grid_encode_v_bwd" if variant else "grid_encode_bwd"] += 1
+    kernels.launches[_launch_name(occ_mask, min_level_ids, occ_sat) + "_bwd"] += 1
     return d_table
 
 
@@ -297,77 +327,96 @@ class _GridEncodeCuda(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits,
-                min_level_ids, n_levels_calc):
-        ctx.save_for_backward(points, occ_mask, occ_bits, min_level_ids)
+                min_level_ids, n_levels_calc, occ_sat):
+        ctx.save_for_backward(points, occ_mask, occ_bits, min_level_ids, occ_sat)
         ctx.levels = (table.shape[0], resolutions, offsets, mask_offsets, n_levels_calc)
         return _encode_cuda(points, table, resolutions, offsets, occ_mask, mask_offsets,
-                            occ_bits, min_level_ids, n_levels_calc)
+                            occ_bits, min_level_ids, n_levels_calc, occ_sat)
 
     @staticmethod
     def backward(ctx, grad):
-        points, occ_mask, occ_bits, min_level_ids = ctx.saved_tensors
+        points, occ_mask, occ_bits, min_level_ids, occ_sat = ctx.saved_tensors
         rows, resolutions, offsets, mask_offsets, n_levels_calc = ctx.levels
         d_table = _encode_backward_cuda(points, grad.contiguous(), rows, resolutions, offsets,
                                         occ_mask, mask_offsets, occ_bits, min_level_ids,
-                                        n_levels_calc)
-        return (None, d_table) + (None,) * 7
+                                        n_levels_calc, occ_sat)
+        return (None, d_table) + (None,) * 8
 
 
 def _encode(points, table, resolutions, offsets, occ_mask=None, mask_offsets=None,
-            occ_bits=None, min_level_ids=None, n_levels_calc=None):
+            occ_bits=None, min_level_ids=None, n_levels_calc=None, occ_binary=None,
+            occ_sat=None):
     if occ_mask is not None and mask_offsets is None:
         raise ValueError("occ_mask needs mask_offsets, one per level")
     moffs = tuple(int(m) for m in mask_offsets) if occ_mask is not None else None
+    if occ_mask is not None:
+        occ_sat = None                 # occ_mask wins, as in cnc_tpu
+    elif occ_sat is None and occ_binary is not None:
+        occ_sat = sat_ops.build_sat(occ_binary)
     if points.is_cuda:
         ids = None if min_level_ids is None else min_level_ids.to(torch.int32).contiguous()
         if occ_mask is not None:
             occ_mask = occ_mask.contiguous()
+        if occ_sat is not None:
+            occ_sat = occ_sat.contiguous()
         return _GridEncodeCuda.apply(points.detach().contiguous(), table.contiguous(),
                                      tuple(resolutions), tuple(offsets), occ_mask, moffs,
-                                     occ_bits, ids, n_levels_calc)
+                                     occ_bits, ids, n_levels_calc, occ_sat)
     return _encode_plain(points.detach(), table, resolutions, offsets, occ_mask, moffs,
-                         min_level_ids, n_levels_calc)
+                         min_level_ids, n_levels_calc, occ_sat=occ_sat)
 
 
 def encode_explicit(points: torch.Tensor, table: torch.Tensor,
                     resolutions: Sequence[int], offsets: Sequence[int],
+                    occ_binary: Optional[torch.Tensor] = None,
+                    occ_sat: Optional[torch.Tensor] = None,
                     occ_mask: Optional[torch.Tensor] = None,
                     mask_offsets: Optional[Sequence[int]] = None,
                     occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encode against explicit per-level (resolution, offset) lists.
 
     offsets has len(resolutions)+1 entries; a level's table size is the
-    difference.  occ_mask/mask_offsets: flat per-corner bool grids and each
-    level's start in them; occ_bits: `pack_mask_bits(occ_mask)`, which the
-    CUDA kernels read in its place (required with a CUDA occ_mask, unused by
-    the plain twin).  Returns [N, L*F] float32, level-major.  CPU tensors
-    take the plain twin, CUDA tensors the K1 kernel (and K2 in the
-    backward).  Only `table` gets a gradient.
+    difference.  occ_binary/occ_sat: an Rb^D bool occupancy grid or its
+    summed-area table (`sat.build_sat`; pass the table when calling
+    repeatedly), masking each corner whose footprint on the grid is empty.
+    occ_mask/mask_offsets: flat per-corner bool grids and each level's start
+    in them; occ_bits: `pack_mask_bits(occ_mask)`, which the CUDA kernels
+    read in its place (required with a CUDA occ_mask, unused by the plain
+    twin); occ_mask wins over the grid.  Returns [N, L*F] float32,
+    level-major.  CPU tensors take the plain twin, CUDA tensors the K1
+    kernel (K1s with the grid; K2, K2s in the backward).  Only `table` gets
+    a gradient.
     """
-    return _encode(points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits)
+    return _encode(points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits,
+                   occ_binary=occ_binary, occ_sat=occ_sat)
 
 
 def grid_encode(points: torch.Tensor, table: torch.Tensor, spec: GridSpec,
                 min_level: int = 0, max_level: Optional[int] = None,
+                occ_binary: Optional[torch.Tensor] = None,
+                occ_sat: Optional[torch.Tensor] = None,
                 occ_mask: Optional[torch.Tensor] = None,
                 mask_offsets: Optional[Sequence[int]] = None,
                 occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encode levels [min_level, max_level) of a GridSpec table.
 
     points [N, D] in [0, 1]; table [spec.total_entries, F]; occ_mask /
-    mask_offsets cover ALL levels of the spec (occ_bits as in
-    `encode_explicit`).
+    mask_offsets cover ALL levels of the spec (occ_binary, occ_sat and
+    occ_bits as in `encode_explicit`).
     Returns [N, (max_level-min_level) * F] float32, level-major.
     """
     min_level = max(min_level, 0)
     max_level = spec.n_levels if max_level is None else min(max_level, spec.n_levels)
     moffs = mask_offsets[min_level:max_level] if mask_offsets is not None else None
     return encode_explicit(points, table, spec.resolutions[min_level:max_level],
-                           spec.offsets[min_level:max_level + 1], occ_mask, moffs, occ_bits)
+                           spec.offsets[min_level:max_level + 1], occ_binary, occ_sat,
+                           occ_mask, moffs, occ_bits)
 
 
 def grid_encode_diff_levels(points: torch.Tensor, table: torch.Tensor, spec: GridSpec,
                             min_level_ids: torch.Tensor, n_levels_calc: int,
+                            occ_binary: Optional[torch.Tensor] = None,
+                            occ_sat: Optional[torch.Tensor] = None,
                             occ_mask: Optional[torch.Tensor] = None,
                             mask_offsets: Optional[Sequence[int]] = None,
                             occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -375,10 +424,13 @@ def grid_encode_diff_levels(points: torch.Tensor, table: torch.Tensor, spec: Gri
     contributes levels min_level_ids[i] .. min_level_ids[i]+J-1, each clipped
     into [0, L-1], in one call.  Returns [N, J*F]."""
     return _encode(points, table, spec.resolutions, spec.offsets, occ_mask, mask_offsets,
-                   occ_bits, min_level_ids, n_levels_calc)
+                   occ_bits, min_level_ids, n_levels_calc, occ_binary=occ_binary,
+                   occ_sat=occ_sat)
 
 
 def grid_encode_given_table(points: torch.Tensor, table: torch.Tensor, resolution: int,
+                            occ_binary: Optional[torch.Tensor] = None,
+                            occ_sat: Optional[torch.Tensor] = None,
                             occ_mask: Optional[torch.Tensor] = None,
                             mask_offset: int = 0,
                             occ_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -389,5 +441,6 @@ def grid_encode_given_table(points: torch.Tensor, table: torch.Tensor, resolutio
     dense table index; cnc_tpu keeps this orientation on both codec sides
     (the reference reads the transposed map).
     """
-    return encode_explicit(points, table, [resolution], [0, table.shape[0]], occ_mask,
-                           [mask_offset] if occ_mask is not None else None, occ_bits)
+    return encode_explicit(points, table, [resolution], [0, table.shape[0]], occ_binary,
+                           occ_sat, occ_mask, [mask_offset] if occ_mask is not None else None,
+                           occ_bits)

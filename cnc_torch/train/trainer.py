@@ -257,17 +257,21 @@ class Trainer:
         return rgb, gt
 
     def evaluate(self, dataset=None, max_images: Optional[int] = None, log_fn=None):
-        """Mean PSNR and SSIM over the first `max_images` views.  log_fn,
+        """Mean PSNR, SSIM and LPIPS over the first `max_images` views; LPIPS
+        is None (recorded "n/a") when no VGG weight file is found.  log_fn,
         when given, receives a heartbeat every 8 chunks of each view's
         render, so a long eval stays visible to a log-staleness watchdog."""
         ds = dataset or self.dataset
         n = len(ds) if max_images is None else min(max_images, len(ds))
-        psnrs, ssims = [], []
+        psnrs, ssims, lpips_vals = [], [], []
         for i in range(n):
             prog = (None if log_fn is None else
                     (lambda c, t, _i=i: log_fn(f"  eval image {_i + 1}/{n}: chunk {c}/{t}")))
             rgb, gt = self.eval_image(i, ds, progress_fn=prog)
             psnrs.append(float(M.psnr(rgb, gt)))
             ssims.append(float(M.ssim(rgb, gt)))
-        # LPIPS needs VGG weights the repo does not ship: recorded as None
-        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)), "lpips": None}
+            lp = M.lpips_fn(rgb, gt)
+            if lp is not None:
+                lpips_vals.append(lp)
+        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
+                "lpips": float(np.mean(lpips_vals)) if lpips_vals else None}

@@ -1,13 +1,17 @@
-"""Image quality metrics: MSE, PSNR and SSIM.
+"""Image quality metrics: MSE, PSNR, SSIM and LPIPS.
 
 Port of `cnc_tpu/utils/metrics.py`: PSNR as the driver computes it
-(train_CNC_nerf_synthetic.py:372) and SSIM with an 11x11 gaussian window
-(pytorch_ssim.py:8-120).  LPIPS waits: the repo ships no VGG weights.
+(train_CNC_nerf_synthetic.py:372), SSIM with an 11x11 gaussian window
+(pytorch_ssim.py:8-120), and LPIPS through `utils/lpips.py`, which needs
+VGG weights the repo does not ship: `lpips_fn` returns None when no weight
+file is found (see `lpips.load_weights`' search paths), and the drivers
+record "n/a".
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,3 +53,9 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
     m = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1 + sigma2 + c2))
     return m.mean()
+
+
+def lpips_fn(img1, img2) -> Optional[float]:
+    """VGG16 LPIPS of two [H, W, 3] images; None when no weights are found."""
+    from . import lpips
+    return lpips.lpips(img1, img2)

@@ -142,3 +142,18 @@ def test_missing_imageio_names_it(blender_root, monkeypatch):
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
     with pytest.raises(ImportError, match="imageio"):
         tnerf.SubjectLoader("spheres", blender_root, "test", device="cpu")
+
+
+def test_tanks_view0_drawn_in_memory_equals_the_loaders(tanks_root):
+    """tools/torch_tanks_view.py's view 0 (the tanks bundle's test view,
+    drawn without imageio) is what SubjectLoaderTanks reads from the files
+    make_tanks_nsvf writes: rays, pixels and the scene box exactly."""
+    tv = _tool("torch_tanks_view")
+    rays, rgb, aabb, step = tv.view0("cpu", size=(40, 24))
+    t = ttanks.SubjectLoaderTanks("Spheres", tanks_root, "test", device="cpu")
+    want_rays, want_rgb = t.image_and_rays(0)
+    assert torch.equal(rays.origins, want_rays.origins)
+    assert torch.equal(rays.viewdirs, want_rays.viewdirs)
+    assert torch.equal(rgb, want_rgb)
+    np.testing.assert_array_equal(aabb, t.aabb)
+    assert step == t.render_step_size

@@ -73,7 +73,15 @@ empty rays between full ones, a buffer of padding only, one ray holding the
 buffer, padding alone on the last ray; prefix_trans and alpha_thre; the walk
 table left zero; K5b's two runs bit-equal and its null output gradients; the
 fault word set by buffers that break the precondition, and the walk table
-dropped by a call that raises.
+dropped by a call that raises.  For K1s/K2s, the encode kernels masked by
+a summed-area table: both D and both F, a random, an empty, a full grid and
+one occupied only at its edges, footprints clipped at 0 and Rb - 1, an
+R = 3 level, dense and hashed levels (at 1024 and 1000 entries), points on
+and outside the border; the forward bit-equal to its twin and the backward
+within 1e-4 of the largest entry, each counted as K1s/K2s; the public
+encodes with `occ_binary` and `occ_sat` (mixed levels, a given table,
+autograd through K2s, `occ_mask` winning over the table) and the
+wrapper's refusals of a malformed table.
 """
 
 import dataclasses
@@ -92,6 +100,7 @@ from cnc_torch.models import context_models as cm
 from cnc_torch.models import radiance_field as rf
 from cnc_torch.ops import context_ops as cops
 from cnc_torch.ops import encoding as enc
+from cnc_torch.ops import sat as sat_ops
 from cnc_torch.ops import scatter_ops
 from cnc_torch.render import marching, renderer, volrend
 from cnc_torch.train.trainer import Trainer
@@ -1789,3 +1798,137 @@ def test_codec_on_the_card_matches_the_cpu(dev, tmp_path):
         cov = wsum > 0
         assert torch.equal(rec["xyz"][rows][cov], tabs["xyz"].to(dev)[rows][cov])
         assert bool((rec["xyz"][rows][~cov] == 1).all())
+
+
+# ------------------------------- K1s/K2s: the encode masked by a summed-area table
+SAT_GRIDS = ["random", "empty", "full", "edges_only"]
+
+
+def _sat_inputs(dev, d, f, grid_kind, rb):
+    """Four levels (R = 3, whose one interior corner's footprint is the
+    whole grid; dense; hashed at 1024 and at 1000 entries), points on and
+    outside the border, and an Rb^D occupancy grid: random, empty, full, or
+    occupied only in its first and last cells along every axis (footprints
+    clipped at 0 and Rb - 1 reach them)."""
+    res = (3, 6, 40, 40) if d == 3 else (3, 20, 200, 200)
+    sizes = (3 ** d, res[1] ** d, 1024, 1000)
+    offsets = tuple(int(x) for x in np.cumsum((0,) + sizes))
+    g = torch.Generator(device=dev).manual_seed(d * 100 + f * 10 + SAT_GRIDS.index(grid_kind))
+    pts = torch.rand(5000, d, generator=g, device=dev)
+    pts[:60] = torch.round(pts[:60])                  # corners on the border
+    pts[60:120] = pts[60:120] * 1.6 - 0.3             # outside [0, 1]
+    pts[120:200] = pts[120:200] * 0.02                # footprints clipped at 0
+    pts[200:280] = 1.0 - pts[200:280] * 0.02          # and at Rb - 1
+    table = torch.randn(offsets[-1], f, generator=g, device=dev)
+    grid = {"random": lambda: torch.rand((rb,) * d, generator=g, device=dev) < 0.05,
+            "empty": lambda: torch.zeros((rb,) * d, dtype=torch.bool, device=dev),
+            "full": lambda: torch.ones((rb,) * d, dtype=torch.bool, device=dev)}.get(grid_kind)
+    if grid is None:
+        occ = torch.zeros((rb,) * d, dtype=torch.bool, device=dev)
+        idx = torch.arange(rb, device=dev)
+        edge = (idx == 0) | (idx == rb - 1)
+        for ax in range(d):
+            shape = [1] * d
+            shape[ax] = rb
+            occ |= edge.reshape(shape).expand((rb,) * d)
+        occ = occ & (torch.rand((rb,) * d, generator=g, device=dev) < 0.5)
+    else:
+        occ = grid()
+    return res, offsets, pts, table, occ, g
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("grid_kind", SAT_GRIDS)
+def test_sat_masked_encode_kernels(dev, d, f, grid_kind):
+    """K1s bit-equal to its twin; K2s within 1e-4 of the largest entry of the
+    twin's autograd (float atomics); launches counted as K1s / K2s."""
+    rb = 16 if d == 3 else 32
+    res, offsets, pts, table, occ, g = _sat_inputs(dev, d, f, grid_kind, rb)
+    sat = sat_ops.build_sat(occ)
+    assert torch.equal(sat.cpu(), sat_ops.build_sat(occ.cpu()))
+    before = dict(kernels.launches)
+    got = enc._encode_cuda(pts, table, res, offsets, occ_sat=sat)
+    assert kernels.launches["grid_encode_s"] == before["grid_encode_s"] + 1
+    assert kernels.launches["grid_encode_v"] == before["grid_encode_v"]
+    leaf = table.clone().requires_grad_()
+    want = enc._encode_plain(pts, leaf, res, offsets, occ_sat=sat)
+    assert torch.equal(got, want.detach())
+    unmasked = enc._encode_plain(pts, table, res, offsets)
+    if grid_kind == "empty":
+        assert not bool(got.any())
+    elif grid_kind == "full":
+        assert torch.equal(got, unmasked)
+    else:
+        assert not torch.equal(got, unmasked) and bool(got.any())
+    cot = torch.randn(got.shape, generator=g, device=dev)
+    d_table = enc._encode_backward_cuda(pts, cot, table.shape[0], res, offsets, occ_sat=sat)
+    assert kernels.launches["grid_encode_s_bwd"] == before["grid_encode_s_bwd"] + 1
+    (want_d,) = torch.autograd.grad(want, leaf, cot)
+    torch.testing.assert_close(d_table, want_d, rtol=0,
+                               atol=1e-4 * max(float(want_d.abs().max()), 1e-6))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_sat_masked_public_entry_points(dev, d):
+    """grid_encode(occ_binary=), the mixed-level and given-table encodes
+    with a table, autograd through K2s, and occ_mask winning over the table
+    (the K1v launch, not K1s)."""
+    from cnc_torch.config import GridSpec
+    rb = 128 if d == 3 else 64
+    res, offsets, pts, table, occ, g = _sat_inputs(dev, d, 4, "random", rb)
+    spec = GridSpec(num_dim=d, n_features=4, resolutions=(10, 18, 34, 66), log2_hashmap_size=10)
+    tbl = torch.randn(spec.total_entries, 4, generator=g, device=dev)
+    leaf = tbl.clone().requires_grad_()
+    before = dict(kernels.launches)
+    out = enc.grid_encode(pts, leaf, spec, occ_binary=occ)
+    # against the plain path on the CPU (another device: within 1e-5) and
+    # bit for bit against the twin on the card
+    want = enc.grid_encode(pts.cpu(), tbl.cpu(), spec, occ_binary=occ.cpu())
+    torch.testing.assert_close(out.detach().cpu(), want, atol=1e-5, rtol=0)
+    assert torch.equal(out.detach(), enc._encode_plain(pts, tbl, spec.resolutions, spec.offsets,
+                                                       occ_sat=sat_ops.build_sat(occ)))
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    out.backward(cot)
+    ref = tbl.cpu().clone().requires_grad_()
+    enc.grid_encode(pts.cpu(), ref, spec, occ_binary=occ.cpu()).backward(cot.cpu())
+    torch.testing.assert_close(leaf.grad.cpu(), ref.grad, rtol=0,
+                               atol=1e-4 * float(ref.grad.abs().max()))
+    assert kernels.launches["grid_encode_s"] == before["grid_encode_s"] + 1
+    assert kernels.launches["grid_encode_s_bwd"] == before["grid_encode_s_bwd"] + 1
+    sat = sat_ops.build_sat(occ)
+    ids = torch.randint(-1, 4, (pts.shape[0],), generator=g, device=dev, dtype=torch.int32)
+    got = enc.grid_encode_diff_levels(pts, tbl, spec, ids, 2, occ_sat=sat)
+    want = enc._encode_plain(pts, tbl, spec.resolutions, spec.offsets, min_level_ids=ids,
+                             n_levels_calc=2, occ_sat=sat)
+    assert torch.equal(got, want)
+    if d == 2:
+        plane = torch.randn(34 * 34, 4, generator=g, device=dev)
+        got = enc.grid_encode_given_table(pts, plane, 34, occ_sat=sat)
+        want = enc._encode_plain(pts, plane, (34,), (0, 34 * 34), occ_sat=sat)
+        assert torch.equal(got, want)
+    mask = torch.rand(66 ** d, generator=g, device=dev) < 0.5
+    n_v = kernels.launches["grid_encode_v"]
+    n_s = kernels.launches["grid_encode_s"]
+    got = enc.grid_encode(pts, tbl, spec, occ_sat=sat, occ_mask=mask, mask_offsets=[0] * 4,
+                          occ_bits=enc.pack_mask_bits(mask))
+    want = enc._encode_plain(pts, tbl, spec.resolutions, spec.offsets, occ_mask=mask,
+                             mask_offsets=(0,) * 4)
+    assert torch.equal(got, want)
+    assert kernels.launches["grid_encode_v"] == n_v + 1
+    assert kernels.launches["grid_encode_s"] == n_s
+
+
+def test_sat_masked_encode_refusals(dev):
+    pts = torch.rand(64, 3, device=dev)
+    table = torch.zeros(1024, 4, device=dev)
+    good = torch.zeros(17, 17, 17, dtype=torch.int32, device=dev)
+    for bad in (good.long(), good[:, :, :16].contiguous(), torch.zeros(17, 17, dtype=torch.int32,
+                                                                       device=dev),
+                torch.zeros(1, 1, 1, dtype=torch.int32, device=dev), good.cpu()):
+        with pytest.raises(ValueError):
+            enc._encode_cuda(pts, table, (10,), (0, 1024), occ_sat=bad)
+    mask = torch.ones(1000, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="one mask form"):
+        enc._encode_cuda(pts, table, (10,), (0, 1024), occ_mask=mask, mask_offsets=(0,),
+                         occ_bits=enc.pack_mask_bits(mask), occ_sat=good)
