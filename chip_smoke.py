@@ -26,7 +26,7 @@ Phases (any failure raises and the script exits non-zero):
      more under torch.profiler for the device's busy share and the time by
      operator (also written to chiprun_out/profile.txt);
   5. render a 64x64 crop of the view on the card and with device="cpu" (the
-     plain twins) and require them to agree;
+     plain twins), its 4,096 rays as one chunk, and require them to agree;
   6. [probe] the scatter-add and lane-gather kernels at the TPU probe's
      shapes (table [8, 2^18], 2^23 indices from a numpy seed), driven once
      through their public wrappers with the counts read just after, held
@@ -81,6 +81,28 @@ Phases (any failure raises and the script exits non-zero):
      `pn_frac_grad=True` drives the frac plane's backward kernel, which
      the default configuration does not reach.  After each of these rate
      phases the word segment_mean sets when live ids decrease must be clear;
+     [dp] the data-parallel path at full width: [K7p] on the rate run's
+     planes split over 2, 4 and 8 ranks (DP_WORLD_SIZES), sampled and
+     unsampled, the partials and divisors torch.equal to the twin's (every
+     rank at W = 2, the first and the last at 4 and 8) and every rank's
+     partial summed and finished torch.equal to K7's plane, [K7pb] within
+     K7B_REL_TOL of the twin in float64 (the same ranks), rank 0's share
+     timed (ms, device ms, bound, index_add_; the plain once, at W = 2);
+     a group of one rank
+     over NCCL: one step's gradients within DP_GRAD_TOL of each parameter's
+     largest entry of the single-card trainer's on the same injected
+     jitter and windows, then DP_STEPS steps from a fresh start (finite,
+     the rate lower at the end than at step 16, every rate kernel launched,
+     K7p not, ms per step beside [rate]'s); two ranks sharing the card over
+     gloo, two processes (`chip_smoke.py --dp-rank R DIR`, their files in
+     chiprun_out/dp/; started with the phase, they import and load the
+     kernels, then wait for the one-rank run to end before they touch the
+     card), build_entropy(cfg, 2), DP2_STEPS steps with the
+     replicas checked bit-equal after every step, at DP_PLAIN_AT rank 0's
+     all-reduced gradients within DP_GRAD_TOL of `dp_step_plain`'s from the
+     same state and draws, K7p three times a rate step and K7 never, then
+     two `pn_frac_grad` steps with K7pb three times a step; the children
+     joined with a deadline and their exit codes checked;
  10. [codec] the lambda = 2e-3 run's binarized tables through the codec, with
      the counts set to 0 just before it: `refresh_cache_int`; the codec
      kernels held to their twins with torch.equal ([int_ctx_pool], the fused
@@ -140,7 +162,10 @@ Phases (any failure raises and the script exits non-zero):
      --decode_only` in a third process must read the row's psnr_codec within
      PIPE_CLI_DB; the order-fault words clear in both processes;
  14. print the kernels line (each kernel's `pipeline_launches` from the
-     resumed process), the card line and the final JSON line.
+     resumed process; K7p's and K7pb's `launches` from [dp]'s two-rank run
+     and its pn_frac_grad steps; also written to chiprun_out/kernels.json,
+     and every log line to chiprun_out/smoke_log.txt), the seconds each
+     phase took ([phases]), the card line and the final JSON line.
 
 It exits non-zero without a result when no CUDA device is present, or when
 run outside the repository (cnc_torch missing).
@@ -159,6 +184,8 @@ import sys
 import time
 import types
 from pathlib import Path
+
+T_IMPORT = time.time()       # when this process read the script
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
@@ -194,7 +221,7 @@ TRAIN_PSNR_MIN = 32.0
 # apart, the last at its end, and holds the median to its floor.
 PSNR_READ_EVERY, PSNR_READINGS = 50, 5
 RATE_WARM_STEPS = 16        # rate steps before the rate kernels are checked
-RATE_STEPS = 1000           # total steps of the lambda > 0 run
+RATE_STEPS = 800            # total steps of the lambda > 0 run (800 holds the time limit)
 K6_REL_TOL = 1e-5           # pooling against the twin, over max |out| (f32 adds reordered)
 K7B_REL_TOL = 1e-5          # the histogram's backward against the float64 twin, over max |d_table|
 # K8's overlap over the level's largest overlap: against the twin with its sums
@@ -269,10 +296,28 @@ PIPE_CODEC_DB = 0.05        # |psnr_codec - psnr| (tests/test_pipeline.py:80)
 PIPE_CLI_DB = 0.01          # the CLI's decode against the row's psnr_codec
 PIPE_CODED_REL = 0.15       # coded MB against the analytic MB
 PIPE_ROW_REFERENCE = "runs_20k/results/Procedural_depth/output.txt"
+# [dp]: the data-parallel path.  K7p on the rate run's plane split over each
+# W of DP_WORLD_SIZES; a group of one rank over NCCL (one step against the
+# trainer without a group, then DP_STEPS steps); two ranks sharing the card
+# over gloo, DP2_STEPS steps, dp_step_plain at step DP_PLAIN_AT.  Gradients
+# against each other within DP_GRAD_TOL of each parameter's largest entry
+# (K2's float atomics: no two runs are bit-equal).
+DP_WORLD_SIZES = (2, 4, 8)
+DP_STEPS = 100
+DP2_STEPS = 32
+DP_PLAIN_AT = 16
+DP_GRAD_TOL = 1e-5
+DP2_TIMEOUT_S = 400
+
+
+LOG_FILE = Path("chiprun_out") / "smoke_log.txt"   # every log line, also past the output's tail
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_FILE.parent.is_dir():
+        with LOG_FILE.open("a") as fh:
+            fh.write(msg + "\n")
 
 
 def card_line() -> str:
@@ -2503,6 +2548,367 @@ def run_breadth(torch, kernels, enc, tr, train_set, gen, dev, records) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- [dp]
+def check_pn_part(torch, cops, table, fine_offset, pn_ax, pn_res, sample_cap, gen, dev):
+    """K7p and K7pb on one real frac plane of the rate step, for each W of
+    DP_WORLD_SIZES and in the sampled and the unsampled mode: each rank's
+    partial and divisors equal to the plain ones (torch.equal: integer
+    counts; every rank at W = 2, the first and the last at the larger W),
+    every rank's partial summed and finished equal to the one-launch K7
+    plane (torch.equal); K7pb against the plain backward in float64
+    (rel_err within K7B_REL_TOL; the same ranks).  Rank 0's share timed:
+    ms, device ms, index_add_ of its indicator rows, and the bound; the
+    plain share's ms once, at W = 2, from the call held to the kernel."""
+    eidx, bounds, n = pn_ax["entry_idx"], pn_ax["bounds"], pn_ax["n"]
+    args = (table, fine_offset, eidx, bounds, n, pn_res)
+    bins, f = (pn_res - 2) ** 2, table.shape[1]
+    sites, bwd_sites, worst_bwd, worst_abs = {}, {}, 0.0, 0.0
+    for mode, cap in (("sampled", sample_cap), ("unsampled", None)):
+        whole = cops._pn_frac_plane_cuda(*args, cap)
+        rows = cops.pn_row_count(eidx, cap)
+        for w in DP_WORLD_SIZES:
+            chunk = -(-rows // w)
+            total = plain_ms = None
+            for r in range(w):
+                part, den = cops._pn_part_cuda(*args, cap, r * chunk, chunk)
+                total = part if total is None else total + part
+                if w > 2 and r not in (0, w - 1):
+                    continue        # in the sum below, not held to the twin alone
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                want, want_den = cops._pn_part_plain(table, fine_offset, eidx, bounds, n, cap,
+                                                     r * chunk, chunk)
+                end.record()
+                end.synchronize()
+                if r == 0:
+                    want0 = want
+                    # the plain share timed once, at W = 2 (a second a call unsampled)
+                    plain_ms = start.elapsed_time(end) if w == 2 else None
+                if not (torch.equal(part, want) and torch.equal(den, want_den)):
+                    raise AssertionError(f"[K7p] {mode} W={w} rank {r}: the partial differs"
+                                         f" from the twin's")
+            if not torch.equal(cops.pn_frac_finish(total, den, pn_res), whole):
+                raise AssertionError(f"[K7p] {mode} W={w}: the summed partials differ from the"
+                                     f" K7 plane")
+            # rank 0's share: its rows, the bound and the library's call
+            sel, row_valid, bnd = cops._pn_rows(eidx, bounds, n, cap, 0, chunk)
+            n_valid = int(row_valid.sum())
+            n_entries = torch.unique(sel[row_valid]).numel()
+            b, by = bound_ms(n_valid * 4 + n_entries * 4 * f + (bins + 1) * 4 + 4
+                             + bins * 4 * f + bins * 4, (n_valid + bins) * f)
+            bin_of_row = (torch.searchsorted(bnd, torch.arange(chunk, device=dev,
+                                                               dtype=torch.int32), right=True)
+                          - 1).clamp(0, bins - 1).long()
+            ind = torch.where(row_valid[:, None],
+                              (table[fine_offset + sel.long()] > 0.9).float(), 0.0)
+            library = lambda: torch.zeros(bins, f, device=dev).index_add_(0, bin_of_row, ind)
+            if not torch.equal(library(), want0):
+                raise AssertionError("[K7p] index_add_ of the indicator rows differs from the"
+                                     " twin")
+            share = lambda: cops.pn_hist_part(*args, cap, 0, chunk)
+            sites[f"{mode} W={w}"] = dict(
+                rows=chunk, counted=n_valid, distinct_entries=n_entries, ms=time_ms(share),
+                device_ms=device_ms(share), plain_ms=plain_ms, library_ms=time_ms(library),
+                bound_ms=b, bound_by=by)
+            # K7pb: the partial's gradient into the table against the plain
+            # backward in float64, on every rank at W = 2, on the first and
+            # the last rank at the larger W
+            cot = torch.randn(bins, f, generator=gen, device=dev)
+            errs = []
+            for r in sorted({0, w - 1} if w > 2 else range(w)):
+                leaf = table.clone().requires_grad_()
+                (got,) = torch.autograd.grad(cops.pn_hist_part(leaf, *args[1:], cap, r * chunk,
+                                                               chunk)[0], leaf, cot)
+                leaf64 = table.double().requires_grad_()
+                (exact,) = torch.autograd.grad(cops._pn_part_plain(
+                    leaf64, fine_offset, eidx, bounds, n, cap, r * chunk, chunk)[0], leaf64,
+                    cot.double())
+                errs.append(rel_err(got, exact.float()) if exact.abs().max() > 0
+                            else float(got.abs().max()))
+                worst_abs = max(worst_abs, float((got - exact.float()).abs().max()))
+            worst_bwd = max(worst_bwd, max(errs))
+            if not max(errs) <= K7B_REL_TOL:
+                raise AssertionError(f"[K7pb] {mode} W={w}: rel err {errs} > {K7B_REL_TOL}")
+            d_table = torch.zeros_like(table)
+            kernel = lambda: cops._pn_part_backward_launch(table, fine_offset, eidx, bounds, n,
+                                                           pn_res, cap, 0, chunk, cot, d_table)
+            leaf = table.clone().requires_grad_()
+            out = cops.pn_hist_part(leaf, *args[1:], cap, 0, chunk)[0]
+            whole_bwd = lambda: torch.autograd.grad(out, leaf, cot, retain_graph=True)
+            n_set = torch.unique(sel[row_valid & (ind > 0).any(1)]).numel()
+            reads = n_valid * 4 + n_entries * 4 * f + (bins + 1) * 4 + 4 + bins * 4 * f
+            n_ops = (n_valid + bins) * f + int(ind.sum())
+            kb, kby = bound_ms(reads + n_set * 4 * f, n_ops)
+            bb, bby = bound_ms(reads + table.numel() * 4, n_ops)
+            flat = ((fine_offset + sel.long())[:, None] * f
+                    + torch.arange(f, device=dev)[None, :]).reshape(-1)
+            vals = (cot[bin_of_row] * ind).reshape(-1)
+            bwd_sites[f"{mode} W={w}"] = dict(
+                rel_err=max(errs), ms=time_ms(whole_bwd, iters=10),
+                device_ms=device_ms(whole_bwd), kernel_device_ms=device_ms(kernel),
+                plain_ms=time_ms(lambda: torch.autograd.grad(cops._pn_part_plain(
+                    leaf, fine_offset, eidx, bounds, n, cap, 0, chunk)[0], leaf, cot),
+                    iters=1, warmup=0) if w == 2 else None,
+                library_ms=time_ms(lambda: torch.zeros(table.numel(), device=dev).index_add_(
+                    0, flat, vals), iters=10),
+                bound_ms=bb, bound_by=bby, kernel_bound_ms=kb, kernel_bound_by=kby)
+            del d_table, out, leaf
+    head, bhead = sites["sampled W=2"], bwd_sites["sampled W=2"]
+    log("[K7p pn_hist_part] the partials of W = " + ", ".join(map(str, DP_WORLD_SIZES))
+        + " ranks each equal to the twin's and summed equal to the K7 plane (sampled and"
+        f" unsampled), pn_res={pn_res} F={f} sample_cap={sample_cap}; rank 0's share by W: "
+        + "; ".join(f"{k}: rows={s['rows']} counted={s['counted']} ms={s['ms']:.4f}"
+                    f" device_ms={s['device_ms']:.4f} plain_ms={s['plain_ms']}"
+                    f" library_ms={s['library_ms']:.4f} bound_ms={s['bound_ms']:.5f}"
+                    f" ({s['bound_by']})" for k, s in sites.items()))
+    log("[K7pb pn_hist_part_bwd] within " + f"{K7B_REL_TOL} of the float64 twin"
+        f" (worst {worst_bwd:.3g}); rank 0's share by W: "
+        + "; ".join(f"{k}: ms={s['ms']:.4f} device_ms={s['device_ms']:.4f} kernel_device_ms="
+                    f"{s['kernel_device_ms']:.4f} plain_ms={s['plain_ms']} library_ms="
+                    f"{s['library_ms']:.4f} bound_ms={s['bound_ms']:.5f} ({s['bound_by']})"
+                    f" kernel_bound_ms={s['kernel_bound_ms']:.5f}" for k, s in bwd_sites.items()))
+    return {"pn_hist_part": dict(head, max_abs_err=0.0, sites=sites),
+            "pn_hist_part_bwd": dict(bhead, max_abs_err=worst_abs, sites=bwd_sites,
+                                     kernel_device_ms=bhead["kernel_device_ms"],
+                                     kernel_bound_ms=bhead["kernel_bound_ms"])}
+
+
+def grads_of(trainer) -> dict:
+    out = {f"field.{k}": p.grad.detach().clone() for k, p in trainer.field.named_parameters()}
+    if trainer.ent_params is not None:
+        out.update({f"ent.{k}": p.grad.detach().clone()
+                    for k, p in trainer.ent_params.named_parameters() if p.grad is not None})
+    return out
+
+
+def worst_grad_err(got: dict, want: dict) -> tuple:
+    """The largest max |got - want| over max |want| among the parameters."""
+    if set(got) != set(want):
+        raise AssertionError(f"gradients of {sorted(set(got) ^ set(want))} on one side only")
+    errs = {k: rel_err(got[k], want[k]) for k in want if want[k].abs().max() > 0}
+    k = max(errs, key=errs.get)
+    return errs[k], k
+
+
+def run_dp_phase(torch, kernels, cops, rate_cfg, train_set, trr, n_rays, ms_rate_step, gen,
+                 dev, records) -> dict:
+    """[dp]: K7p/K7pb on the rate run's planes; a group of one rank over
+    NCCL (one step against the trainer without a group, then a DP_STEPS run);
+    two ranks sharing the card over gloo (`--dp-rank`).  Returns the
+    launches of the two-rank run's rank 0 and of its pn_frac_grad steps."""
+    import shutil
+
+    from cnc_torch.models import radiance_field as rf
+    from cnc_torch.parallel import sharding
+    from cnc_torch.train.driver import build_entropy
+    from cnc_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    # ---- two ranks sharing the card over gloo, one process each: started
+    # first, they import and load the kernels while the checks and the
+    # one-rank run go on, and touch the card only once `go` exists
+    dp_dir = Path("chiprun_out").resolve() / "dp"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    out_dir = dp_dir / "w2"
+    out_dir.mkdir(parents=True)
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(r), str(out_dir)]) for r in range(2)]
+    try:
+        counted_so_far = dict(kernels.launches)
+        cache = trr._last_ent_cache
+        with torch.no_grad():
+            table = rf.quantized_tables(trr.field, rate_cfg.model)["xyz"].contiguous()
+        records.update(check_pn_part(torch, cops, table, trr.entropy.fine_offset, cache["pn"]["xy"],
+                                     trr.entropy.pn_res, trr.entropy.cfg.pn_frac_sample_cap, gen,
+                                     dev))
+        kernels.launches.update(counted_so_far)      # comparison launches do not count
+        t_k7p = time.time() - t_phase
+
+        # ---- a group of one rank over NCCL
+        group = sharding.make_group(1, 0, backend="nccl",
+                                    init_method="file://" + str(dp_dir / "w1_rdzv"))
+        try:
+            ent1 = build_entropy(rate_cfg, 1)
+            t_dp = Trainer(rate_cfg, train_set, entropy=ent1, group=group)
+            t_one = Trainer(rate_cfg, train_set, entropy=ent1)
+            binaries = trr.occ_state.binaries
+            for t in (t_dp, t_one):
+                t.occ_state = t.occ_state._replace(occs=trr.occ_state.occs.clone(),
+                                                   binaries=binaries.clone())
+            ent_cache = ent1.refresh_cache(binaries)
+            rays, pixels = train_set.fetch_rays(gen, n_rays)
+            jitter = torch.rand(n_rays, generator=gen, device=dev)
+            starts = ent1.draw_starts(gen)
+            bkgd = torch.ones(3, device=dev)
+            aux_dp = t_dp._train_step(rays.origins, rays.viewdirs, pixels, bkgd, jitter=jitter,
+                                      ent_cache=ent_cache, starts=starts)
+            aux_one = t_one._train_step(rays.origins, rays.viewdirs, pixels, bkgd, jitter=jitter,
+                                        ent_cache=ent_cache, starts=starts)
+            err1, worst1 = worst_grad_err(grads_of(t_dp), grads_of(t_one))
+            if not (err1 <= DP_GRAD_TOL and int(aux_dp["n_marched"]) == int(aux_one["n_marched"])):
+                raise AssertionError(f"[dp W=1] the step's gradients differ from the single-card"
+                                     f" step's by {err1} ({worst1}), limit {DP_GRAD_TOL}; marched"
+                                     f" {int(aux_dp['n_marched'])} vs {int(aux_one['n_marched'])}")
+            del t_one
+            t_dp.reset_state()
+            hist = []
+            kernels.reset_launches()
+            t0 = time.time()
+            t_dp.fit(DP_STEPS - 1, log_every=0, step_callback=lambda s, aux: hist.append(
+                (time.time(), float(aux["mse"]), float(aux["bits_per_param"]))))
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+            w1_launches = dict(kernels.launches)
+        finally:
+            sharding.destroy_group(group)
+        rate_step_kernels = ("segment_mean", "segment_mean_bwd", "segment_pool", "segment_pool_bwd",
+                             "pn_frac_plane", "grid_encode_v", "grid_encode_v_bwd", "compact",
+                             "grid_encode", "grid_encode_bwd", "march", "volrend", "volrend_bwd",
+                             "footprint", "pack_mask_bits")
+        if not all(w1_launches[k] > 0 for k in rate_step_kernels) or w1_launches["pn_hist_part"]:
+            raise AssertionError(f"[dp W=1] launches {w1_launches}: every rate kernel, and not K7p")
+        if w1_launches["pn_frac_plane"] != 3 * DP_STEPS:
+            raise AssertionError(f"[dp W=1] {w1_launches['pn_frac_plane']} frac planes in"
+                                 f" {DP_STEPS} steps, not 3 a step")
+        bpp16, bpp_end = hist[16][2], statistics.mean(h[2] for h in hist[-10:])
+        if not (all(math.isfinite(h[1]) and math.isfinite(h[2]) for h in hist) and bpp_end < bpp16):
+            raise AssertionError(f"[dp W=1] bits_per_param {bpp16} at step 16 -> {bpp_end}")
+        ms_w1 = (hist[-1][0] - hist[-51][0]) / 50 * 1e3
+        log(f"[dp W=1 nccl] one step against the trainer without a group: gradients within"
+            f" {err1:.3g} of each parameter's largest entry (worst {worst1}; limit {DP_GRAD_TOL}),"
+            f" marched {int(aux_dp['n_marched'])} both; {DP_STEPS} steps in {run_s:.2f} s,"
+            f" {ms_w1:.2f} ms per step over the last 50 (the [rate] phase: {ms_rate_step:.2f} ms),"
+            f" bits_per_param {hist[0][2]:.4f} -> {bpp16:.4f} at step 16 -> {bpp_end:.4f}; launches"
+            f" {json.dumps({k: v for k, v in w1_launches.items() if v})}")
+        del t_dp, ent1, ent_cache
+        torch.cuda.empty_cache()
+        t_w1 = time.time() - t_phase - t_k7p
+        (out_dir / "go").write_text("")
+        deadline = time.time() + DP2_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"[dp W=2] rank exit codes {[p.returncode for p in procs]}")
+    res = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    r0 = res[0]
+    log(f"[dp W=2 gloo, one card] {DP2_STEPS} steps a rank, every step's field, context MLPs"
+        f" and occupancy grid bit-equal on both ranks; at step {DP_PLAIN_AT} the all-reduced"
+        f" gradients within {r0['plain_err']:.3g} of dp_step_plain's (worst {r0['plain_worst']};"
+        f" limit {DP_GRAD_TOL}); {r0['ms_per_step']:.2f} ms per step over the last"
+        f" {DP2_STEPS - DP_PLAIN_AT - 1} (rank 1: {res[1]['ms_per_step']:.2f}); bits_per_param"
+        f" {r0['bits'][0]:.4f} -> {r0['bits'][-1]:.4f}; K7p {r0['launches']['pn_hist_part']}"
+        f" launches ({r0['launches']['pn_hist_part'] / DP2_STEPS:.0f} a rate step), K7"
+        f" {r0['launches']['pn_frac_plane']}; pn_frac_grad steps: K7pb"
+        f" {r0['pn_grad_launches']['pn_hist_part_bwd']} launches; rank 0 launches"
+        f" {json.dumps({k: v for k, v in r0['launches'].items() if v})}; the ranks ready"
+        f" {r0['ready_s']:.1f} s and {res[1]['ready_s']:.1f} s after they started; phase"
+        f" {time.time() - t_phase:.1f} s (K7p/K7pb checks {t_k7p:.1f}, W = 1 {t_w1:.1f}, W = 2"
+        f" {time.time() - t_phase - t_k7p - t_w1:.1f})")
+    records["pn_hist_part"].update(dp_w1_ms_per_step=ms_w1, dp_w2_ms_per_step=r0["ms_per_step"])
+    return {"dp": r0["launches"], "dp_pn_grad": r0["pn_grad_launches"]}
+
+
+def dp_rank(rank: int, out_dir: str) -> int:
+    """One rank of [dp]'s two-rank run (`chip_smoke.py --dp-rank R DIR`): the
+    full-width lambda = 2e-3 trainer with per-rank quotas in a gloo group of
+    two on the one card, DP2_STEPS steps, the replicas checked after every
+    step; rank 0 holds step DP_PLAIN_AT's all-reduced gradients to
+    `dp_step_plain` from the same state and draws (its launches left out of
+    the counts), then two steps with pn_frac_grad drive K7pb."""
+    import dataclasses
+
+    import torch
+    from cnc_torch import kernels
+    from cnc_torch.config import CNCConfig
+    from cnc_torch.data import scenes
+    from cnc_torch.parallel import sharding
+    from cnc_torch.train.driver import build_entropy
+    from cnc_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.lib()
+    ready_s = time.time() - T_IMPORT
+    # the parent's checks and one-rank run go on until `go` exists
+    deadline = time.time() + DP2_TIMEOUT_S
+    while not (Path(out_dir) / "go").exists():
+        if time.time() > deadline:
+            raise TimeoutError(f"[dp W=2] rank {rank}: no go after {DP2_TIMEOUT_S} s")
+        time.sleep(0.1)
+    dev = torch.device("cuda", 0)
+    group = sharding.make_group(2, rank, device=dev, backend="gloo",
+                                init_method="file://" + str(Path(out_dir) / "rdzv"))
+    try:
+        cfg = CNCConfig()
+        train_set = scenes.ProceduralDataset("blocks", device=dev)
+        entropy = build_entropy(cfg, 2)
+        tr = Trainer(cfg, train_set, entropy=entropy, group=group)
+        plain = {}
+        step_fn = tr._train_step
+
+        def step_with_plain(o, d, pixels, bkgd, jitter=None, ent_cache=None, starts=None):
+            if rank != 0 or tr.step != DP_PLAIN_AT:
+                return step_fn(o, d, pixels, bkgd, jitter, ent_cache, starts)
+            counted = dict(kernels.launches)
+            state = tr.generator.get_state()
+            sharding.dp_step_plain(tr, 2, o, d, pixels, bkgd, ent_cache=ent_cache, apply=False)
+            want = grads_of(tr)
+            tr.generator.set_state(state)
+            kernels.launches.update(counted)
+            aux = step_fn(o, d, pixels, bkgd, jitter, ent_cache, starts)
+            plain["err"], plain["worst"] = worst_grad_err(grads_of(tr), want)
+            return aux
+
+        tr._train_step = step_with_plain
+        hist = []
+
+        def on_step(step, aux):
+            sharding.check_replicated(group, sharding.trainer_state(tr), f"after step {step}")
+            hist.append((time.time(), float(aux["mse"]), float(aux["bits_per_param"])))
+
+        kernels.reset_launches()
+        tr.fit(DP2_STEPS - 1, log_every=0, step_callback=on_step)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        if launches["pn_hist_part"] != 3 * DP2_STEPS or launches["pn_frac_plane"]:
+            raise AssertionError(f"[dp W=2] rank {rank}: K7p {launches['pn_hist_part']} and K7"
+                                 f" {launches['pn_frac_plane']} launches in {DP2_STEPS} steps")
+        if rank == 0 and not plain.get("err", 1.0) <= DP_GRAD_TOL:
+            raise AssertionError(f"[dp W=2] step {DP_PLAIN_AT}: the all-reduced gradients lie"
+                                 f" {plain.get('err')} from dp_step_plain's ({plain.get('worst')})")
+        if not all(math.isfinite(h[1]) and math.isfinite(h[2]) for h in hist):
+            raise AssertionError(f"[dp W=2] rank {rank}: non-finite losses or bits")
+        tail = hist[DP_PLAIN_AT + 1:]
+        ms = (tail[-1][0] - tail[0][0]) / (len(tail) - 1) * 1e3
+        # the frac planes' backward: two steps with pn_frac_grad on
+        entropy_pn = copy.copy(entropy)
+        entropy_pn.cfg = dataclasses.replace(entropy.cfg, pn_frac_grad=True)
+        tr_pn = Trainer(dataclasses.replace(cfg, entropy=entropy_pn.cfg), train_set,
+                        entropy=entropy_pn, group=group)
+        kernels.reset_launches()
+        tr_pn.fit(1, log_every=0)
+        torch.cuda.synchronize()
+        pn_launches = dict(kernels.launches)
+        if pn_launches["pn_hist_part_bwd"] != 6:
+            raise AssertionError(f"[dp W=2] rank {rank}: K7pb {pn_launches['pn_hist_part_bwd']}"
+                                 f" launches in two pn_frac_grad steps, not 6")
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(dict(
+            ms_per_step=ms, bits=[h[2] for h in hist], mse=[h[1] for h in hist],
+            launches=launches, pn_grad_launches=pn_launches, plain_err=plain.get("err"),
+            ready_s=ready_s,
+            plain_worst=plain.get("worst"))))
+        sharding.rank0_barrier(group, "dp_rank")
+    finally:
+        sharding.destroy_group(group)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2527,6 +2933,16 @@ def main() -> int:
     from cnc_torch.utils import metrics
 
     t_start = time.time()
+    phase_s, t_mark = {}, [t_start]
+
+    def mark(name):
+        """The seconds since the previous mark, under `name` in [phases]."""
+        now = time.time()
+        phase_s[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
+    Path("chiprun_out").mkdir(exist_ok=True)
+    LOG_FILE.write_text("")
     # the reference runs in full float32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2539,6 +2955,7 @@ def main() -> int:
     t0 = time.time()
     kernels.lib()
     log(f"[build] {time.time() - t0:.1f} s ({', '.join(p.name for p in kernels.sources())})")
+    mark("build")
 
     # ---- shared inputs: the main path's config, field, occupancy and view
     mcfg, rcfg = ModelConfig(), RenderConfig()
@@ -2672,6 +3089,7 @@ def main() -> int:
                                   max_abs_err=max(v["max_abs_err"] for v in k5.values()),
                                   sites=k5)
 
+    mark("kernel checks")
     # ---- 4. the main path: one full 800x800 view through render_image,
     # timed on its second render (the first warms cuBLAS and the allocator)
     serving = ("grid_encode", "march", "volrend")
@@ -2711,31 +3129,37 @@ def main() -> int:
         f" (random weights), launches {json.dumps(launches)}")
 
     profile_view(torch, render_view)
+    mark("view")
 
-    # ---- 5. a 64x64 crop on the card and through the plain twins on the CPU
+    # ---- 5. a 64x64 crop on the card and through the plain twins on the CPU, its
+    # rays one chunk (a round's buffer holds those rays' samples alone, not a
+    # chunk of eval_chunk_rays padded with copies: the plain path's time)
     lo = (VIEW - CROP) // 2
     co = rays.origins[lo:lo + CROP, lo:lo + CROP].contiguous()
     cd = rays.viewdirs[lo:lo + CROP, lo:lo + CROP].contiguous()
     t0 = time.time()
-    gpu = renderer.render_image(field, mcfg, rcfg, aabb, binaries, co, cd, bkgd, device=dev)
+    gpu = renderer.render_image(field, mcfg, rcfg, aabb, binaries, co, cd, bkgd,
+                                chunk=CROP * CROP, device=dev)
     torch.cuda.synchronize()
     t_gpu = time.time() - t0
     field_cpu = copy.deepcopy(field).to("cpu")
     t0 = time.time()
     cpu = renderer.render_image(field_cpu, mcfg, rcfg, aabb.cpu(), binaries.cpu(), co.cpu(),
-                                cd.cpu(), bkgd.cpu(), device="cpu")
+                                cd.cpu(), bkgd.cpu(), chunk=CROP * CROP, device="cpu")
     t_cpu = time.time() - t0
     errs = [float((g.cpu() - c).abs().max()) for g, c in zip(gpu[:2], cpu[:2])]
     log(f"[crop] {CROP}x{CROP}: card {t_gpu:.2f} s, cpu {t_cpu:.2f} s, max abs rgb err"
         f" {errs[0]:.3g}, opacity err {errs[1]:.3g} (tolerance {CROP_RGB_TOL})")
     if not max(errs) <= CROP_RGB_TOL:
         raise AssertionError("crop: the card and the plain CPU path disagree")
+    mark("crop")
 
     # ---- 6. the probe kernels, driven once at the probe's shapes
     probe_records, probe_launches = check_probe(torch, kernels, scatter_ops, dev)
     records.update(probe_records)
     if not all(v > 0 for v in probe_launches.values()):
         raise AssertionError(f"[probe] a kernel was not launched: {probe_launches}")
+    mark("probe")
 
     # ---- 7. the training path at full width
     cfg = CNCConfig(train=dataclasses.replace(TrainConfig(), lmbda=0.0))
@@ -2821,6 +3245,8 @@ def main() -> int:
         f" {int(stats_t['samples'])} samples marched, psnr {float(metrics.psnr(rgb_t, gt)):.3f}"
         f" ssim {float(metrics.ssim(rgb_t, gt)):.4f}; the random-weights view above:"
         f" {view_s * 1e3:.1f} ms, {stats['rounds']} rounds, {n_samples} samples")
+
+    mark("train")
 
     # ---- 9. the rate path at full width: the model build and the lambda > 0 run
     rate_cfg = CNCConfig()
@@ -3017,21 +3443,33 @@ def main() -> int:
                              f" {pn_launches}")
     check_order_faults(cops, dev, "[rate, pn_frac_grad]")
     del tr_pn, entropy_pn
+    mark("rate")
+
+    # ---- [dp]: K7p/K7pb on the rate run's planes, a group of one rank over
+    # NCCL, two ranks sharing the card over gloo
+    dp_launches = run_dp_phase(torch, kernels, cops, rate_cfg, train_set, trr, rate_hist[-1][5],
+                               ms_rate_step, gen, dev, records)
+    check_order_faults(cops, dev, "[dp]")
+    mark("dp")
 
     # ---- 10. [codec]
     enc_launches, dec_launches, codec_launches = run_codec(
         torch, kernels, rf, trr, entropy, test_set, rate_cfg, bpp_end, records)
 
     # ---- 11. cnc_tpu's committed bundles, decoded and rendered on the card
+    mark("codec")
     check_bundles(torch, kernels, volrend, dev)
+    mark("bundles")
 
     # ---- 12. [breadth]: K1s/K2s on the trained occupancy grid, the unbounded
     # trainer, the proposal sampler, the MLP fields, LPIPS, the undistortion
     breadth_launches = run_breadth(torch, kernels, enc, tr, train_set, gen, dev, records)
+    mark("breadth")
 
     # ---- 13. [pipeline]: train, checkpoint, resume in a fresh process, the
     # pipeline and its row, the CLI's decode
     pipeline_launches = run_pipeline_phase(torch, kernels, volrend, cops, dev)
+    mark("pipeline")
 
     # ---- 14. report: `launches` is the count over the path named beside it
     # (one view, the lambda = 0 training run, the probe's one drive, the rate
@@ -3059,6 +3497,10 @@ def main() -> int:
         # the whole plane: sampling, histogram, divide, border and layout
         "pn_frac_plane": ("pn_hist.cu", "cnc_tpu/models/context_models.py:756", "rate"),
         "pn_hist_bwd": ("pn_hist.cu", "cnc_tpu/models/context_models.py:62", "rate_pn_grad"),
+        # a rank's share of the plane (the rows of its chunk) and its backward
+        # in the data-parallel step: the sliced histogram under axis_name
+        "pn_hist_part": ("pn_hist.cu", "cnc_tpu/models/context_models.py:783", "dp"),
+        "pn_hist_part_bwd": ("pn_hist.cu", "cnc_tpu/models/context_models.py:62", "dp_pn_grad"),
         "footprint": ("footprint.cu", "cnc_tpu/models/context_models.py:1415", "rate"),
         "vertex_tables": ("vertex_tables.cu", "cnc_tpu/models/context_models.py:269", "rate"),
         # cnc_tpu's pool composition: int_encode_levels (intctx.py:110), the
@@ -3077,7 +3519,7 @@ def main() -> int:
     }
     counted = {"view": launches, "train": train_launches, "probe": probe_launches,
                "rate": rate_launches, "rate_pn_grad": pn_launches, "codec": codec_launches,
-               "breadth": breadth_launches}
+               "breadth": breadth_launches, **dp_launches}
     out = []
     for name, (source, replaces, path) in meta.items():
         r = records[name]
@@ -3098,12 +3540,16 @@ def main() -> int:
                         **{k: r[k] for k in ("added_device_ms", "finishing_launches_per_pass",
                                              "pulls_per_pool", "longest", "level_peak_gib",
                                              "kernel_device_ms", "kernel_bound_ms",
-                                             "fill_device_ms", "device_ops")
+                                             "fill_device_ms", "device_ops",
+                                             "dp_w1_ms_per_step", "dp_w2_ms_per_step")
                            if k in r},
                         rate_launches_per_step=rate_per_step.get(name),
                         pipeline_launches=pipeline_launches.get(name, 0)))
+    log(f"[phases] seconds: {json.dumps(phase_s)}")
     log(f"[done] {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": out}))
+    kernels_line = json.dumps({"kernels": out})
+    (Path("chiprun_out") / "kernels.json").write_text(kernels_line + "\n")
+    print(kernels_line)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3114,4 +3560,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--pipeline-resume":
         sys.exit(pipeline_resume(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
+        sys.exit(dp_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -7,9 +7,18 @@
 The same flags, defaults and output layout as those scripts (the pipeline
 of `train/driver.py`, one TSV row under <out_root>/results/<dataset>/, the
 bundle under <out_root>/bitstreams/<scene>/), and the same fallback to the
-procedural `blocks` scene when the dataset is not on disk.  `--multichip` is
-gone (one card); `--device` picks the device (default: the card; `cpu` runs
-the plain twins).  `--checkpoint_path` resumes a run from its file.
+procedural `blocks` scene when the dataset is not on disk.  `--device` picks
+the device (default: the card; `cpu` runs the plain twins).
+`--checkpoint_path` resumes a run from its file.
+
+`--multichip` trains data parallel over rays (`parallel/sharding.py`) and
+means "launched by torchrun", one process a card:
+
+    torchrun --nproc_per_node=N -m cnc_torch.cli nerf_synthetic --multichip ...
+
+Each rank runs on cuda:LOCAL_RANK (NCCL); rank 0 evaluates, encodes, writes
+the row and prints.  Without torchrun's environment it raises, where the
+root drivers fall back to one device.
 """
 
 from __future__ import annotations
@@ -53,6 +62,42 @@ def _common_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "PyTorch path)")
+    parser.add_argument("--multichip", action="store_true",
+                        help="data-parallel training over the ranks torchrun starts, one "
+                             "process a card on cuda:LOCAL_RANK (see python3 -m "
+                             "cnc_torch.cli's docstring)")
+
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _multichip_group(args):
+    """The data-parallel group torchrun's environment describes, or None
+    without --multichip; raises when the launcher is missing."""
+    if not args.multichip:
+        return None
+    missing = [k for k in _TORCHRUN_ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"--multichip runs under torchrun (torchrun --nproc_per_node=N -m "
+                           f"cnc_torch.cli ... --multichip); {', '.join(missing)} not set")
+    from .parallel import sharding
+    return sharding.make_group(device=args.device)
+
+
+def _run(args, cfg, train_ds, test_ds, dataset_name, dev, group, summary):
+    """The pipeline and its row (rank 0's alone under --multichip)."""
+    from .parallel import sharding
+    from .train import driver
+    try:
+        result = driver.run_pipeline(cfg, train_ds, test_ds, args.scene, out_root=args.out_root,
+                                     max_eval_images=args.max_eval_images, device=dev,
+                                     group=group)
+        if result is not None:
+            driver.append_result_row(result, args.scene, dataset_name, args.out_root)
+            print(summary(result))
+    finally:
+        if group is not None:
+            sharding.destroy_group(group)
 
 
 def _procedural(dev):
@@ -63,7 +108,15 @@ def _procedural(dev):
                               device=dev))
 
 
-def _decode_only(args, test_ds, dev) -> None:
+def _decode_only(args, test_ds, dev, group=None) -> None:
+    """Decode the bundle and score the test set (rank 0's alone under
+    --multichip)."""
+    if group is not None:
+        from .parallel import sharding
+        rank = group.rank
+        sharding.destroy_group(group)
+        if rank != 0:
+            return
     import numpy as np
     import torch
 
@@ -97,10 +150,10 @@ def main_nerf_synthetic(argv: Optional[List[str]] = None) -> None:
     args = parser.parse_args(argv)
 
     from .config import CNCConfig, EntropyConfig, ModelConfig, RenderConfig, TrainConfig
-    from .train import driver
     from .utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    group = _multichip_group(args)
+    dev = group.device if group is not None else resolve_device(args.device)
     weight_decay = 2e-5 if args.scene in ("drums",) else 2e-6
     cfg = CNCConfig(
         model=ModelConfig(n_features_per_level=args.n_features,
@@ -132,14 +185,12 @@ def main_nerf_synthetic(argv: Optional[List[str]] = None) -> None:
         dataset_name = "Procedural"
 
     if args.decode_only:
-        _decode_only(args, test_ds, dev)
+        _decode_only(args, test_ds, dev, group)
         return
 
-    result = driver.run_pipeline(cfg, train_ds, test_ds, args.scene, out_root=args.out_root,
-                                 max_eval_images=args.max_eval_images, device=dev)
-    driver.append_result_row(result, args.scene, dataset_name, args.out_root)
-    print(f"psnr={result.psnr:.3f} psnr_codec={result.psnr_codec:.3f} "
-          f"size={result.embed_MB_codec:.4f}MB total={result.total_size_MB():.4f}MB")
+    _run(args, cfg, train_ds, test_ds, dataset_name, dev, group,
+         lambda r: (f"psnr={r.psnr:.3f} psnr_codec={r.psnr_codec:.3f} "
+                    f"size={r.embed_MB_codec:.4f}MB total={r.total_size_MB():.4f}MB"))
 
 
 def main_tank_temples(argv: Optional[List[str]] = None) -> None:
@@ -156,10 +207,10 @@ def main_tank_temples(argv: Optional[List[str]] = None) -> None:
 
     from .config import CNCConfig, EntropyConfig, ModelConfig, RenderConfig, TrainConfig
     from .data import tanks
-    from .train import driver
     from .utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    group = _multichip_group(args)
+    dev = group.device if group is not None else resolve_device(args.device)
     scene_dir = os.path.join(args.data_root, args.scene)
     if os.path.isdir(scene_dir):
         aabb, step = tanks.load_scene_bbox(args.data_root, args.scene)
@@ -195,14 +246,12 @@ def main_tank_temples(argv: Optional[List[str]] = None) -> None:
     )
 
     if args.decode_only:
-        _decode_only(args, test_ds, dev)
+        _decode_only(args, test_ds, dev, group)
         return
 
-    result = driver.run_pipeline(cfg, train_ds, test_ds, args.scene, out_root=args.out_root,
-                                 max_eval_images=args.max_eval_images, device=dev)
-    driver.append_result_row(result, args.scene, dataset_name, args.out_root)
-    print(f"psnr={result.psnr:.3f} psnr_codec={result.psnr_codec:.3f} "
-          f"size={result.embed_MB_codec:.4f}MB")
+    _run(args, cfg, train_ds, test_ds, dataset_name, dev, group,
+         lambda r: (f"psnr={r.psnr:.3f} psnr_codec={r.psnr_codec:.3f} "
+                    f"size={r.embed_MB_codec:.4f}MB"))
 
 
 DRIVERS = {"nerf_synthetic": main_nerf_synthetic, "tank_temples": main_tank_temples}

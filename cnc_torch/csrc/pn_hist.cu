@@ -1,6 +1,7 @@
 // The dimension-wise prior's frac planes: K7 (the rate's float plane), K7i
 // (the codec's integer plane) and K7b (K7's backward), one launch each, all
-// three on one walk over runs of bins.
+// three on one walk over runs of bins; and K7p / K7pb, K7 and K7b over a
+// range of rows (the data-parallel step's share of a plane).
 //
 // K7 replaces: cnc_tpu/models/context_models.py pn_frac_plane (756-836): the
 // stride sampling of the cached coord list (808-820), a gather of the finest
@@ -47,6 +48,22 @@
 // twins: autograd through `_pn_frac_plane_plain`, and `pn_hist_backward_plain`
 // in this kernel's arguments.  Float atomics: the sums' order varies.
 //
+// K7p replaces the row-sharded histogram of pn_frac_plane under axis_name
+// (cnc_tpu/models/context_models.py 783-802): one rank's partial per-bin
+// counts over the rows [lo, lo + size) of the same row space (j indexes the
+// sampled rows in the sampled mode), partial[b, f] = #{valid rows j of bin b
+// with lo <= j < lo + size and table value > 0.9}, as float32 in bin order
+// [bins, F] (no divide, no border, no transpose), and den[b] =
+// f32(map[b+1] - map[b]) + 1e-6f over the whole row space, the divisor the
+// plane takes once the ranks' partials are summed.  The walk clamps each
+// run's boundaries to the range: a row of the range lies in bin b of the
+// clamped map exactly when it does in the map.  The counts are integers
+// (exact in float32 below 2^24 rows), so the partials of any split sum to
+// K7's counts exactly.  Plain twin: cnc_torch/ops/context_ops.py
+// `_pn_part_plain`.  K7pb is K7b over the same range with the partial's
+// gradient g_part [bins, F] in bin order as each bin's scale (the divide is
+// the finish's, outside the kernel).
+//
 // The walk.  One block a tile of 8 x-columns by 8 y, one warp a column's run
 // of 8 bins, whose rows are contiguous (the refresh sorts the coord list by
 // bin).  The warp finds the run's boundaries (the sampled map from its
@@ -75,7 +92,11 @@
 // as chip_smoke.py counts it).  K7b: the forward's reads, the gradient plane,
 // and a 16-byte d_table row written a distinct entry set; with the zero
 // fill of the whole 3D table (about 64 MB at full width) for the backward
-// as autograd runs it.
+// as autograd runs it.  K7p: an entry_idx word a counted row of the range, a
+// table row a distinct entry among them, the boundaries, the partial and
+// den written once (den 1 MB, the partial 4 MB at full width and F = 4).
+// K7pb: K7p's reads, the partial's gradient and a d_table row a distinct
+// entry with a bit set.
 
 #include <type_traits>
 
@@ -231,18 +252,26 @@ __device__ __forceinline__ void walk_run(const T* __restrict__ table, long long 
   }
 }
 
-// K7 (T = float) and K7i (T = int, unsampled): the whole plane.
-template <typename T, int F, bool kSampled>
+// A run's boundaries clamped to the rows [lo, hi): K7p's and K7pb's walk.
+__device__ __forceinline__ void clamp_map(const int* map, int ny, int lo, int hi, int* cut) {
+  for (int i = threadIdx.x & 31; i <= ny; i += 32) cut[i] = min(max(map[i], lo), hi);
+}
+
+// K7 (T = float) and K7i (T = int, unsampled): the whole plane; K7p (T =
+// float, kRange): the rows [lo, hi)'s partial counts and the bins' divisors.
+template <typename T, int F, bool kSampled, bool kRange = false>
 __global__ void __launch_bounds__(kPlaneThreads)
 pn_plane_kernel(const T* __restrict__ table, long long fine_offset, long long table_rows,
                 const int* __restrict__ entry_idx, const int* __restrict__ bounds,
                 const int* __restrict__ n_listed, int cap, int sample_cap, int pn_res,
-                T* __restrict__ plane) {
+                T* __restrict__ plane, int lo = 0, int hi = 0, float* __restrict__ den = nullptr) {
   constexpr bool kInt = std::is_same<T, int>::value;
+  static_assert(!(kInt && kRange), "K7p counts the float table");
   __shared__ int s_map[kTileX][kTileY + 1];            // each run's row boundaries
   __shared__ int s_raw[kInt ? kTileX : 1][kTileY + 1];  // K7i: the bounds as given
+  __shared__ int s_cut[kRange ? kTileX : 1][kTileY + 1];  // K7p: clamped to [lo, hi)
   __shared__ int s_pos[kTileX][kTileY * F];
-  zero_border<T, F>(plane, pn_res);
+  if constexpr (!kRange) zero_border<T, F>(plane, pn_res);
   const int scale = pn_res - 2;
   Tile t;
   if (!plane_tile(scale, t)) return;
@@ -252,9 +281,15 @@ pn_plane_kernel(const T* __restrict__ table, long long fine_offset, long long ta
   if (warp < t.nx) {
     int* pos = s_pos[warp];
     load_map<kSampled>(bounds, scale, t, warp, r, s_map[warp], kInt ? s_raw[warp] : nullptr);
+    const int* walk_map = s_map[warp];
+    if constexpr (kRange) {
+      __syncwarp();
+      clamp_map(s_map[warp], t.ny, lo, hi, s_cut[warp]);
+      walk_map = s_cut[warp];
+    }
     for (int i = lane; i < kTileY * F; i += 32) pos[i] = 0;
     __syncwarp();
-    walk_run<T, F, kSampled>(table, fine_offset, table_rows, entry_idx, s_map[warp], t.ny, r,
+    walk_run<T, F, kSampled>(table, fine_offset, table_rows, entry_idx, walk_map, t.ny, r,
                              [&](int bin, long long, const T* v) {
       // the lanes of one bin add their counts once, by their lowest lane
       const unsigned grp = __match_any_sync(~0u, bin);
@@ -269,6 +304,21 @@ pn_plane_kernel(const T* __restrict__ table, long long fine_offset, long long ta
   }
   __syncthreads();
 
+  if constexpr (kRange) {
+    // the partial in bin order: consecutive threads on consecutive y, i.e.
+    // consecutive bins
+    for (int i = threadIdx.x; i < kTileY * t.nx; i += kPlaneThreads) {
+      const int yi = i % kTileY, xi = i / kTileY;
+      if (yi >= t.ny) continue;
+      const long long b = static_cast<long long>(t.x0 + xi) * scale + t.y0 + yi;
+      float o[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) o[f] = static_cast<float>(s_pos[xi][yi * F + f]);
+      store_row<float, F>(plane, b, o);
+      den[b] = __fadd_rn(static_cast<float>(s_map[xi][yi + 1] - s_map[xi][yi]), 1e-6f);
+    }
+    return;
+  }
   // the tile: consecutive threads on consecutive x, i.e. consecutive plane rows
   for (int i = threadIdx.x; i < kTileX * t.ny; i += kPlaneThreads) {
     const int xi = i % kTileX, yi = i / kTileX;
@@ -288,37 +338,57 @@ pn_plane_kernel(const T* __restrict__ table, long long fine_offset, long long ta
   }
 }
 
-// K7b: the gradient g [pn_res^2, F] of K7's plane into d_table.
-template <int F, bool kSampled>
+// K7b: the gradient g [pn_res^2, F] of K7's plane into d_table; K7pb
+// (kRange): the gradient g [bins, F] of K7p's partial, over the rows [lo, hi).
+template <int F, bool kSampled, bool kRange = false>
 __global__ void __launch_bounds__(kPlaneThreads)
 pn_plane_backward_kernel(const float* __restrict__ table, long long fine_offset,
                          long long table_rows, const int* __restrict__ entry_idx,
                          const int* __restrict__ bounds, const int* __restrict__ n_listed,
                          int cap, int sample_cap, int pn_res, const float* __restrict__ g,
-                         float* __restrict__ d_table) {
+                         float* __restrict__ d_table, int lo = 0, int hi = 0) {
   __shared__ int s_map[kTileX][kTileY + 1];
-  __shared__ float s_scale[kTileX][kTileY * F];     // g / (cnt + 1e-6) a bin
+  __shared__ int s_cut[kRange ? kTileX : 1][kTileY + 1];
+  __shared__ float s_scale[kTileX][kTileY * F];     // g / (cnt + 1e-6) a bin; K7pb: g
   const int scale = pn_res - 2;
   Tile t;
   if (!plane_tile(scale, t)) return;
   const Rows r = plane_rows(n_listed, cap, sample_cap, kSampled);
   const int warp = threadIdx.x >> 5;
-  if (warp < t.nx) load_map<kSampled>(bounds, scale, t, warp, r, s_map[warp], nullptr);
+  if (warp < t.nx) {
+    load_map<kSampled>(bounds, scale, t, warp, r, s_map[warp], nullptr);
+    if constexpr (kRange) {
+      __syncwarp();
+      clamp_map(s_map[warp], t.ny, lo, hi, s_cut[warp]);
+    }
+  }
   __syncthreads();
-  // the tile's gradient rows: consecutive threads on consecutive plane rows
-  for (int i = threadIdx.x; i < kTileX * t.ny; i += kPlaneThreads) {
-    const int xi = i % kTileX, yi = i / kTileX;
-    if (xi >= t.nx) continue;
-    const float den = __fadd_rn(static_cast<float>(s_map[xi][yi + 1] - s_map[xi][yi]), 1e-6f);
-    float gv[F];
-    load_row<float, F>(g, static_cast<long long>(t.y0 + yi + 1) * pn_res + t.x0 + xi + 1, gv);
+  if constexpr (kRange) {
+    // the tile's rows of g in bin order: consecutive threads on consecutive bins
+    for (int i = threadIdx.x; i < kTileY * t.nx; i += kPlaneThreads) {
+      const int yi = i % kTileY, xi = i / kTileY;
+      if (yi >= t.ny) continue;
+      load_row<float, F>(g, static_cast<long long>(t.x0 + xi) * scale + t.y0 + yi,
+                         &s_scale[xi][yi * F]);
+    }
+  } else {
+    // the tile's gradient rows: consecutive threads on consecutive plane rows
+    for (int i = threadIdx.x; i < kTileX * t.ny; i += kPlaneThreads) {
+      const int xi = i % kTileX, yi = i / kTileX;
+      if (xi >= t.nx) continue;
+      const float den = __fadd_rn(static_cast<float>(s_map[xi][yi + 1] - s_map[xi][yi]), 1e-6f);
+      float gv[F];
+      load_row<float, F>(g, static_cast<long long>(t.y0 + yi + 1) * pn_res + t.x0 + xi + 1, gv);
 #pragma unroll
-    for (int f = 0; f < F; ++f) s_scale[xi][yi * F + f] = __fdiv_rn(gv[f], den);
+      for (int f = 0; f < F; ++f) s_scale[xi][yi * F + f] = __fdiv_rn(gv[f], den);
+    }
   }
   __syncthreads();
   if (warp >= t.nx) return;
   const float* sc = s_scale[warp];
-  walk_run<float, F, kSampled>(table, fine_offset, table_rows, entry_idx, s_map[warp], t.ny, r,
+  const int* walk_map = s_map[warp];
+  if constexpr (kRange) walk_map = s_cut[warp];
+  walk_run<float, F, kSampled>(table, fine_offset, table_rows, entry_idx, walk_map, t.ny, r,
                                [&](int bin, long long row, const float* v) {
     if (bin < 0) return;
     float a[F];
@@ -349,28 +419,31 @@ unsigned plane_blocks(int pn_res) {
   return static_cast<unsigned>(tiles > border ? tiles : border);
 }
 
-template <typename T, bool kSampled>
+// K7p's launches take the tiles alone (no border); lo/hi/den only with kRange.
+template <typename T, bool kSampled, bool kRange = false>
 int launch_plane(const T* table, long long fine_offset, long long table_rows,
                  const int* entry_idx, const int* bounds, const int* n_listed, int cap,
-                 int sample_cap, int pn_res, int f, T* plane, cudaStream_t s) {
-  const unsigned blocks = plane_blocks(pn_res);
+                 int sample_cap, int pn_res, int f, T* plane, cudaStream_t s, int lo = 0,
+                 int hi = 0, float* den = nullptr) {
+  const unsigned blocks = kRange ? static_cast<unsigned>(plane_tiles(pn_res))
+                                 : plane_blocks(pn_res);
   switch (f) {
-    case 2: pn_plane_kernel<T, 2, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane); break;
-    case 4: pn_plane_kernel<T, 4, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane); break;
+    case 2: pn_plane_kernel<T, 2, kSampled, kRange><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane, lo, hi, den); break;
+    case 4: pn_plane_kernel<T, 4, kSampled, kRange><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, plane, lo, hi, den); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return cnc_last_error();
 }
 
-template <bool kSampled>
+template <bool kSampled, bool kRange = false>
 int launch_backward(const float* table, long long fine_offset, long long table_rows,
                     const int* entry_idx, const int* bounds, const int* n_listed, int cap,
                     int sample_cap, int pn_res, int f, const float* g, float* d_table,
-                    cudaStream_t s) {
+                    cudaStream_t s, int lo = 0, int hi = 0) {
   const unsigned blocks = static_cast<unsigned>(plane_tiles(pn_res));
   switch (f) {
-    case 2: pn_plane_backward_kernel<2, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, g, d_table); break;
-    case 4: pn_plane_backward_kernel<4, kSampled><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, g, d_table); break;
+    case 2: pn_plane_backward_kernel<2, kSampled, kRange><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, g, d_table, lo, hi); break;
+    case 4: pn_plane_backward_kernel<4, kSampled, kRange><<<blocks, kPlaneThreads, 0, s>>>(table, fine_offset, table_rows, entry_idx, bounds, n_listed, cap, sample_cap, pn_res, g, d_table, lo, hi); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return cnc_last_error();
@@ -419,4 +492,45 @@ CNC_EXPORT int cnc_pn_hist_backward(const float* table, long long fine_offset,
                                      cap, sample_cap, pn_res, f, g, d_table, s)
              : launch_backward<false>(table, fine_offset, table_rows, entry_idx, bounds,
                                       n_listed, cap, 0, pn_res, f, g, d_table, s);
+}
+
+// K7p: the rows [lo, lo + size) of cnc_pn_frac_plane's row space (0 <= lo,
+// 0 <= size; rows past the space count nothing), the rest of the arguments
+// as there; partial [(pn_res-2)^2, f] f32 (rows 4*f-byte aligned) and den
+// [(pn_res-2)^2] f32, every element written.
+CNC_EXPORT int cnc_pn_hist_part(const float* table, long long fine_offset, long long table_rows,
+                                const int* entry_idx, const int* bounds, const int* n_listed,
+                                int cap, int sample_cap, int pn_res, int f, int lo, int size,
+                                float* partial, float* den, void* stream) {
+  if (pn_res < 3 || cap <= 0 || sample_cap < 0 || lo < 0 || size < 0 ||
+      static_cast<long long>(lo) + size > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return sample_cap > 0
+             ? launch_plane<float, true, true>(table, fine_offset, table_rows, entry_idx, bounds,
+                                               n_listed, cap, sample_cap, pn_res, f, partial, s,
+                                               lo, lo + size, den)
+             : launch_plane<float, false, true>(table, fine_offset, table_rows, entry_idx,
+                                                bounds, n_listed, cap, 0, pn_res, f, partial, s,
+                                                lo, lo + size, den);
+}
+
+// K7pb: K7p's arguments, g_part [(pn_res-2)^2, f] f32 (rows 4*f-byte aligned)
+// and d_table as cnc_pn_hist_backward's, zeroed by the caller; adds into it.
+CNC_EXPORT int cnc_pn_hist_part_backward(const float* table, long long fine_offset,
+                                         long long table_rows, const int* entry_idx,
+                                         const int* bounds, const int* n_listed, int cap,
+                                         int sample_cap, int pn_res, int f, int lo, int size,
+                                         const float* g_part, float* d_table, void* stream) {
+  if (pn_res < 3 || cap <= 0 || sample_cap < 0 || lo < 0 || size < 0 ||
+      static_cast<long long>(lo) + size > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return sample_cap > 0
+             ? launch_backward<true, true>(table, fine_offset, table_rows, entry_idx, bounds,
+                                           n_listed, cap, sample_cap, pn_res, f, g_part, d_table,
+                                           s, lo, lo + size)
+             : launch_backward<false, true>(table, fine_offset, table_rows, entry_idx, bounds,
+                                            n_listed, cap, 0, pn_res, f, g_part, d_table, s, lo,
+                                            lo + size);
 }

@@ -43,7 +43,10 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 # their epilogue: K9c has no launch of its own) and pn_hist_int (the integer
 # mode of csrc/pn_hist.cu, one launch a codec plane), counted apart from
 # pn_frac_plane (one launch a frac plane) and pn_hist_bwd (its backward: one
-# launch a backward, after the fill of d_table);
+# launch a backward, after the fill of d_table); pn_hist_part /
+# pn_hist_part_bwd: K7p and K7pb, a data-parallel rank's share of a frac
+# plane over a range of rows and its backward (one launch each a plane, only
+# with a group of more than one rank);
 # pack_mask_bits: the packing of the encode's occupancy masks (once per cache
 # refresh, csrc/grid_encode.cu); segment_pool / segment_pool_bwd: the backward
 # and the forward of segment_gather; segment_mean / segment_mean_bwd: one call
@@ -53,7 +56,8 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
             "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
             "grid_encode_v_bwd": 0, "grid_encode_s": 0, "grid_encode_s_bwd": 0, "segment_pool": 0, "segment_pool_bwd": 0,
-            "pn_frac_plane": 0, "pn_hist_bwd": 0, "footprint": 0, "vertex_tables": 0,
+            "pn_frac_plane": 0, "pn_hist_bwd": 0, "pn_hist_part": 0, "pn_hist_part_bwd": 0,
+            "footprint": 0, "vertex_tables": 0,
             "int_ctx_pool": 0, "int_pq": 0, "pn_hist_int": 0,
             "pack_mask_bits": 0, "segment_mean": 0, "segment_mean_bwd": 0}
 
@@ -81,6 +85,9 @@ _SIGNATURES = {
     "cnc_segment_mean_backward": ((_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P, _P), _I),
     "cnc_pn_frac_plane": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I),
     "cnc_pn_hist_backward": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
+    "cnc_pn_hist_part": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P), _I),
+    "cnc_pn_hist_part_backward": ((_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                                   _P), _I),
     "cnc_footprint": ((_P, _I, _I, _I, _P, _I, _P, _P, _P), _I),
     "cnc_vertex_scratch_words": ((_LL,), _LL),
     "cnc_vertex_segment_cap": ((), _I),

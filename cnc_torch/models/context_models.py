@@ -34,8 +34,9 @@ table build), `ops/encoding.py` (K1/K2 in their masked and mixed-level
 variants) and `ops/scatter_ops.py` (K3 compaction).  The codec's integer
 path (`refresh_cache_int`, `pool_3d_level_int`, `pool_2d_level_int`,
 `frac_plane_int`) runs through `codec/intctx.py` (the fused pool
-`int_ctx_pool`, K9c, K7i).  The
-mesh-sharded frac plane (`axis_name`) is not ported yet.
+`int_ctx_pool`, K9c, K7i).  cnc_tpu's
+`axis_name` is `group` here (a `parallel.sharding.Group`): the frac plane's
+histogram split by rows over the group's ranks (K7p) and summed.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from ..ops import encoding as enc
 from ..ops import entropy as ent_ops
 from ..ops import hash_ops
 from ..ops import scatter_ops
+from ..parallel import sharding
 from ..utils import threefry
 from ..utils.device import resolve_device
 from .radiance_field import Linear
@@ -618,7 +620,7 @@ class ContextModels:
 
     # ------------------------------------------------- dimension-wise prior
     def pn_frac_plane(self, table3d_q: torch.Tensor, pn_ax: Dict,
-                      sample_cap: Optional[int] = None) -> torch.Tensor:
+                      sample_cap: Optional[int] = None, group=None) -> torch.Tensor:
         """Positive-sign fraction plane [pn_res**2, F] (x-fastest flat).
 
         get_pn_embed_frac (utils_bpp_acc.py:515-530): histogram the signs of
@@ -627,9 +629,22 @@ class ContextModels:
         card: `ops/context_ops.pn_frac_plane`).  With `sample_cap`, a
         stride-sampled subset estimates the fraction (training speed knob;
         the codec always passes None).
+
+        With `group` of W > 1 ranks (every rank calls it alike), rank r
+        counts the rows [r * chunk, (r + 1) * chunk) of the row space,
+        chunk = ceil(rows / W) (K7p), the partial counts are summed over the
+        group (`sharding.all_reduce_sum`, whose backward sums the ranks'
+        cotangents), and only then come the divide, the border and the
+        layout.  The counts are integers, so the plane equals the whole
+        plane exactly.  With W = 1 it is the whole plane's one K7 launch.
         """
-        return cops.pn_frac_plane(table3d_q, self.fine_offset, pn_ax["entry_idx"],
-                                  pn_ax["bounds"], pn_ax["n"], self.pn_res, sample_cap)
+        args = (table3d_q, self.fine_offset, pn_ax["entry_idx"], pn_ax["bounds"], pn_ax["n"],
+                self.pn_res)
+        if group is None or group.world_size == 1:
+            return cops.pn_frac_plane(*args, sample_cap)
+        chunk = -(-cops.pn_row_count(pn_ax["entry_idx"], sample_cap) // group.world_size)
+        part, den = cops.pn_hist_part(*args, sample_cap, group.rank * chunk, chunk)
+        return cops.pn_frac_finish(sharding.all_reduce_sum(part, group), den, self.pn_res)
 
     # ---------------------------------------------------------- entry windows
     def draw_starts(self, generator: torch.Generator) -> Dict:
@@ -683,11 +698,12 @@ class ContextModels:
 
     # ------------------------------------------------------------- the rate
     def rate_bits_2d(self, ent_params: ContextParams, tables: Mapping[str, torch.Tensor],
-                     starts: Mapping[Tuple[int, int], int], cache: Dict):
+                     starts: Mapping[Tuple[int, int], int], cache: Dict, group=None):
         """Total estimated bits of the three tri-plane tables (differentiable
         in the tables and the context MLPs).  `starts` maps (axis index,
         level) to the entry-window start of each 2D context level
-        (`draw_starts(...)["2d"]`)."""
+        (`draw_starts(...)["2d"]`).  `group` splits the frac planes' rows
+        over its ranks (`pn_frac_plane`)."""
         cfg = self.cfg
         ttl_bits = 0.0
         fine_table = tables["xyz"]
@@ -696,7 +712,7 @@ class ContextModels:
             if cfg.use_dimension_wise:
                 src = fine_table if cfg.pn_frac_grad else fine_table.detach()
                 frac_plane = self.pn_frac_plane(src, cache["pn"][ax],
-                                                sample_cap=cfg.pn_frac_sample_cap)
+                                                sample_cap=cfg.pn_frac_sample_cap, group=group)
             else:
                 frac_plane = None
             # split, not sliced: its backward is one concatenation, where a
@@ -728,13 +744,14 @@ class ContextModels:
         return (ttl_bits, util) if with_util else ttl_bits
 
     def rate_estimate(self, ent_params: ContextParams, tables: Mapping[str, torch.Tensor],
-                      starts: Mapping, cache: Dict):
+                      starts: Mapping, cache: Dict, group=None):
         """Training-time bits-per-param (forward_binary_vxl_mixPg_3D2D).
 
         tables: binarized (+-1) tables {'xyz','xy','xz','yz'}; starts as
         `draw_starts` returns them.  Returns (bits_per_param, estimated MB).
+        `group` splits the frac planes' rows over its ranks (`pn_frac_plane`).
         """
-        ttl_bits = (self.rate_bits_2d(ent_params, tables, starts["2d"], cache)
+        ttl_bits = (self.rate_bits_2d(ent_params, tables, starts["2d"], cache, group)
                     + self.rate_bits_3d(ent_params, tables["xyz"], starts["3d"], cache))
         return ttl_bits / self.total_param_count, ttl_bits / 8.0 / 1024.0 / 1024.0
 

@@ -1,5 +1,6 @@
 """The rate estimate's kernels: context pooling (K6m, one call site's pooled
-mean in one launch, and K6, segment_gather's backward), the frac plane (K7),
+mean in one launch, and K6, segment_gather's backward), the frac plane (K7;
+K7p, a data-parallel rank's share of it over a range of rows),
 the footprint grids (K8) and the vertex->entry tables (K10).
 
 Each function here replaces one XLA composition of
@@ -285,14 +286,25 @@ def _pn_hist_plain(table, fine_offset, sel, row_valid, bnd):
     return cs[b[1:]] - cs[b[:-1]]
 
 
-def _pn_rows(entry_idx, bounds, n, sample_cap):
+def pn_row_count(entry_idx: torch.Tensor, sample_cap: Optional[int]) -> int:
+    """The size of a frac plane's row space: the sample's capacity in the
+    sampled mode, the list's otherwise (the rows a data-parallel step splits)."""
+    cap = entry_idx.shape[0]
+    return int(sample_cap) if sample_cap is not None and sample_cap < cap else cap
+
+
+def _pn_rows(entry_idx, bounds, n, sample_cap, lo=0, size=None):
     """The rows a frac plane counts, as cnc_tpu's pn_frac_plane forms them:
     (sel [rows] entry indices, row_valid [rows], bnd [bins + 1] the bins'
     row boundaries).  With `sample_cap` below the list's capacity, row j is
     the stride sample src(j) = floor(j * m / take) of the m = min(n, cap)
     listed rows (in float32, as cnc_tpu: int products would overflow int32),
     and the boundaries map through the same formula by searchsorted, so the
-    sampling stays self-consistent."""
+    sampling stays self-consistent.
+
+    With `size`, the rows [lo, lo + size) of that row space (past its end
+    invalid) and the boundaries clip(bnd - lo, 0, size), as cnc_tpu's
+    `_sliced` forms one device's chunk under `axis_name`."""
     cap = entry_idx.shape[0]
     dev = entry_idx.device
     if sample_cap is not None and sample_cap < cap:
@@ -303,8 +315,16 @@ def _pn_rows(entry_idx, bounds, n, sample_cap):
         src = torch.floor(j.to(torch.float32) * stride).to(torch.int32)
         src = torch.minimum(src, torch.clamp(m - 1, min=0))
         bmap = torch.minimum(torch.searchsorted(src, bounds).to(torch.int32), take)
-        return entry_idx[torch.clamp(src, max=cap - 1).long()], j < take, bmap
-    return entry_idx, torch.arange(cap, device=dev) < torch.clamp(n, max=cap), bounds
+        sel, row_valid, bnd = entry_idx[torch.clamp(src, max=cap - 1).long()], j < take, bmap
+    else:
+        sel, row_valid, bnd = entry_idx, torch.arange(cap, device=dev) < torch.clamp(n, max=cap), \
+            bounds
+    if size is None:
+        return sel, row_valid, bnd
+    pad = max(lo + size - sel.shape[0], 0)
+    return (nn_functional.pad(sel, (0, pad))[lo:lo + size],
+            nn_functional.pad(row_valid, (0, pad))[lo:lo + size],
+            torch.clamp(bnd - lo, 0, size))
 
 
 def _pn_frac_plane_plain(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap=None):
@@ -315,6 +335,24 @@ def _pn_frac_plane_plain(table, fine_offset, entry_idx, bounds, n, pn_res, sampl
     plane = nn_functional.pad((pos / (cnt + 1e-6)).reshape(scale, scale, f), (0, 0, 1, 1, 1, 1))
     # x-fastest flat layout to match dense grid indexing (see
     # ops/encoding.grid_encode_given_table)
+    return plane.transpose(0, 1).reshape(-1, f)
+
+
+def _pn_part_plain(table, fine_offset, entry_idx, bounds, n, sample_cap, lo, size):
+    """K7p's twin: (the rows [lo, lo + size)'s per-bin positive counts [bins,
+    F], the bins' divisors f32(count) + 1e-6 [bins] over the whole row space)."""
+    sel, row_valid, bnd = _pn_rows(entry_idx, bounds, n, sample_cap, lo, size)
+    part = _pn_hist_plain(table, fine_offset, sel, row_valid, bnd)
+    whole = _pn_rows(entry_idx, bounds, n, sample_cap)[2]
+    return part, (whole[1:] - whole[:-1]).to(torch.float32) + 1e-6
+
+
+def pn_frac_finish(pos: torch.Tensor, den: torch.Tensor, pn_res: int) -> torch.Tensor:
+    """The plane from the summed per-bin counts pos [bins, F] and the bins'
+    divisors den [bins]: frac = pos / den, the zero border ring and the
+    x-fastest [pn_res**2, F] layout (elementwise, as K7 finishes its plane)."""
+    scale, f = pn_res - 2, pos.shape[1]
+    plane = nn_functional.pad((pos / den[:, None]).reshape(scale, scale, f), (0, 0, 1, 1, 1, 1))
     return plane.transpose(0, 1).reshape(-1, f)
 
 
@@ -440,6 +478,86 @@ def pn_frac_plane(table: torch.Tensor, fine_offset: int, entry_idx: torch.Tensor
         return _PnFracPlaneCuda.apply(table.contiguous(), int(fine_offset), entry_idx, bounds, n,
                                       int(pn_res), sample_cap)
     return _pn_frac_plane_plain(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap)
+
+
+def _check_range(name, lo, size):
+    if lo < 0 or size < 0 or lo + size >= 1 << 31:
+        raise ValueError(f"{name}: the row range [{lo}, {lo + size}) must lie in [0, 2^31)")
+
+
+def _pn_part_cuda(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, lo, size):
+    """K7p: one launch, the partial and the divisors."""
+    f = _check_plane_args("pn_hist_part", table, entry_idx, bounds, n, pn_res)
+    sample = _sample_arg("pn_hist_part", entry_idx, sample_cap)
+    _check_range("pn_hist_part", lo, size)
+    bins = (pn_res - 2) ** 2
+    part = torch.empty(bins, f, dtype=torch.float32, device=table.device)
+    den = torch.empty(bins, dtype=torch.float32, device=table.device)
+    kernels.call("cnc_pn_hist_part", kernels.ptr(table), fine_offset, table.shape[0],
+                 kernels.ptr(entry_idx), kernels.ptr(bounds), kernels.ptr(n),
+                 entry_idx.shape[0], sample, pn_res, f, lo, size, kernels.ptr(part),
+                 kernels.ptr(den))
+    kernels.launches["pn_hist_part"] += 1
+    return part, den
+
+
+def _pn_part_backward_launch(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, lo,
+                             size, g_part, d_table):
+    """K7pb alone: adds the partial's gradient g_part [bins, F] into d_table."""
+    f = _check_plane_args("pn_hist_part_bwd", table, entry_idx, bounds, n, pn_res)
+    sample = _sample_arg("pn_hist_part_bwd", entry_idx, sample_cap)
+    _check_range("pn_hist_part_bwd", lo, size)
+    kernels.require_cuda("pn_hist_part_bwd", table, g_part, d_table)
+    if (g_part.dtype != torch.float32 or g_part.shape != ((pn_res - 2) ** 2, f)
+            or g_part.data_ptr() % (4 * f) or d_table.dtype != torch.float32
+            or d_table.shape != table.shape or d_table.data_ptr() % (4 * f)):
+        raise ValueError(f"pn_hist_part_bwd: g_part [(pn_res - 2)**2, {f}] and d_table shaped "
+                         f"as the table, float32 with {4 * f}-byte aligned rows")
+    kernels.call("cnc_pn_hist_part_backward", kernels.ptr(table), fine_offset, table.shape[0],
+                 kernels.ptr(entry_idx), kernels.ptr(bounds), kernels.ptr(n),
+                 entry_idx.shape[0], sample, pn_res, f, lo, size, kernels.ptr(g_part),
+                 kernels.ptr(d_table))
+    kernels.launches["pn_hist_part_bwd"] += 1
+
+
+class _PnPartCuda(torch.autograd.Function):
+    """K7p forward; the backward (only with pn_frac_grad) is K7pb on the
+    forward's own inputs: the fill of d_table and one launch."""
+
+    @staticmethod
+    def forward(ctx, table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, lo, size):
+        ctx.save_for_backward(table, entry_idx, bounds, n)
+        ctx.args = (fine_offset, pn_res, sample_cap, lo, size)
+        part, den = _pn_part_cuda(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap,
+                                  lo, size)
+        ctx.mark_non_differentiable(den)
+        return part, den
+
+    @staticmethod
+    def backward(ctx, g_part, _):
+        table, entry_idx, bounds, n = ctx.saved_tensors
+        fine_offset, pn_res, sample_cap, lo, size = ctx.args
+        d_table = torch.zeros_like(table)
+        _pn_part_backward_launch(table, fine_offset, entry_idx, bounds, n, pn_res, sample_cap, lo,
+                                 size, g_part.contiguous(), d_table)
+        return d_table, None, None, None, None, None, None, None, None
+
+
+def pn_hist_part(table: torch.Tensor, fine_offset: int, entry_idx: torch.Tensor,
+                 bounds: torch.Tensor, n: torch.Tensor, pn_res: int, sample_cap: Optional[int],
+                 lo: int, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's share of a frac plane: the positive counts of the rows
+    [lo, lo + size) of the plane's row space (`pn_row_count`) per bin,
+    [bins, F] float32 in bin order, and the bins' divisors [bins] over the
+    whole space.  The ranks' partials summed and `pn_frac_finish`ed equal
+    `pn_frac_plane` exactly (integer counts below 2^24).  The arguments are
+    `pn_frac_plane`'s; `table` gets the straight-through gradient of the
+    indicator through the partial.  CPU tensors take the plain twin, CUDA
+    tensors K7p (one launch; with a gradient, K7pb's fill and one launch)."""
+    if table.is_cuda:
+        return _PnPartCuda.apply(table.contiguous(), int(fine_offset), entry_idx, bounds, n,
+                                 int(pn_res), sample_cap, int(lo), int(size))
+    return _pn_part_plain(table, fine_offset, entry_idx, bounds, n, sample_cap, lo, size)
 
 
 # ------------------------------------------------------------------ K8

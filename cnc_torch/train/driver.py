@@ -8,10 +8,16 @@ post-codec evaluation, 13-bit MLP quantization with a final evaluation, and
 one append-only TSV row in the reference's column order (SSIM recorded
 negated).  `decode_bundle` serves a compressed scene in a fresh process.
 
-What differs from cnc_tpu is mechanics: there is no mesh and no
-`warm_compile`, and the field is a module, so the decoded tables and each
-quantized MLP are copied into it in place (the field ends holding the last
-sweep's MLPs, as cnc_tpu's `trainer.params` does).
+`run_pipeline(group=)` is cnc_tpu's `run_pipeline(mesh=)`: every rank
+builds the entropy model with its per-rank quotas and trains (`Trainer(
+group=)`); rank 0 then evaluates, encodes, decodes and returns the result,
+which cnc_tpu computes outside the mesh on replicated parameters, while the
+other ranks wait for it and return None.
+
+What differs from cnc_tpu is mechanics: there is no `warm_compile`, and the
+field is a module, so the decoded tables and each quantized MLP are copied
+into it in place (the field ends holding the last sweep's MLPs, as
+cnc_tpu's `trainer.params` does).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..config import CNCConfig
 from ..grids import occupancy as occ
 from ..models import context_models as cm
 from ..models import radiance_field as rf
+from ..parallel import sharding
 from ..utils.device import resolve_device
 from .trainer import Trainer
 
@@ -84,18 +91,43 @@ def build_entropy(cfg: CNCConfig, n_devices: int = 1, device=None) -> cm.Context
 def run_pipeline(cfg: CNCConfig, train_dataset, test_dataset, scene: str,
                  out_root: str = ".", max_steps: Optional[int] = None,
                  max_eval_images: Optional[int] = None, log_fn=print,
-                 device=None) -> PipelineResult:
+                 device=None, group=None) -> Optional[PipelineResult]:
     """Build the entropy model (when lmbda > 0) and the Trainer on `device`
-    (the card unless device="cpu"), then `run_with_trainer`.  The datasets
-    must live on the same device."""
+    (the card unless device="cpu"; with `group`, the group's device), then
+    `run_with_trainer`.  The datasets must live on the same device.
+
+    With `group` (`parallel.sharding.make_group`; every rank calls this
+    alike) the training is data parallel with per-rank quotas; rank 0 alone
+    evaluates, encodes, decodes and logs, and returns the result; the other
+    ranks wait until it has (`sharding.rank0_barrier`: they raise if rank 0
+    failed or did not arrive in time) and return None."""
+    if group is not None and device is None:
+        device = group.device
     dev = resolve_device(device)
+    world_size = group.world_size if group is not None else 1
+    rank0 = group is None or group.rank == 0
     t0 = time.time()
-    entropy = build_entropy(cfg, device=dev) if cfg.train.lmbda > 0 else None
-    log_fn(f"entropy tables built in {time.time() - t0:.1f}s")
-    trainer = Trainer(cfg, train_dataset, entropy=entropy, device=dev)
-    return run_with_trainer(trainer, test_dataset, scene, out_root=out_root,
-                            max_steps=max_steps, max_eval_images=max_eval_images,
-                            log_fn=log_fn)
+    entropy = build_entropy(cfg, world_size, device=dev) if cfg.train.lmbda > 0 else None
+    if rank0:
+        log_fn(f"entropy tables built in {time.time() - t0:.1f}s")
+    trainer = Trainer(cfg, train_dataset, entropy=entropy, device=dev, group=group)
+    if group is None:
+        return run_with_trainer(trainer, test_dataset, scene, out_root=out_root,
+                                max_steps=max_steps, max_eval_images=max_eval_images,
+                                log_fn=log_fn)
+    if rank0:
+        log_fn(f"training data parallel over {world_size} ranks...")
+    elapsed = trainer.fit(max_steps=max_steps, log_fn=log_fn)
+    result = None
+    if rank0:
+        try:
+            result = finish_pipeline(trainer, test_dataset, scene, elapsed, out_root=out_root,
+                                     max_eval_images=max_eval_images, log_fn=log_fn)
+        except BaseException:
+            sharding.rank0_barrier(group, "run_pipeline", ok=False)
+            raise
+    sharding.rank0_barrier(group, "run_pipeline")
+    return result
 
 
 def _sync(device: torch.device) -> None:
@@ -109,11 +141,21 @@ def run_with_trainer(trainer: Trainer, test_dataset, scene: str,
                      log_fn=print, log_every: int = 200) -> PipelineResult:
     """The pipeline over a prebuilt (possibly resumed or reset_state-ed)
     Trainer; training continues from its step to `max_steps`."""
+    log_fn("training...")
+    elapsed = trainer.fit(max_steps=max_steps, log_fn=log_fn, log_every=log_every)
+    return finish_pipeline(trainer, test_dataset, scene, elapsed, out_root=out_root,
+                           max_eval_images=max_eval_images, log_fn=log_fn)
+
+
+def finish_pipeline(trainer: Trainer, test_dataset, scene: str, elapsed: float,
+                    out_root: str = ".", max_eval_images: Optional[int] = None,
+                    log_fn=print) -> PipelineResult:
+    """Everything after the training: evaluation, encode, the decode
+    self-check, the post-codec evaluation and the MLP quantization sweep.
+    No collective: with a data-parallel trainer, rank 0 runs it alone."""
     cfg = trainer.cfg
     entropy = trainer.entropy
     dev = trainer.device
-    log_fn("training...")
-    elapsed = trainer.fit(max_steps=max_steps, log_fn=log_fn, log_every=log_every)
 
     log_fn("evaluating (pre-codec)...")
     ev = trainer.evaluate(test_dataset, max_images=max_eval_images, log_fn=log_fn)

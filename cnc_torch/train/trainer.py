@@ -9,11 +9,18 @@ Checkpoints are cnc_tpu's npz layout (`utils/checkpoint.py`): a Trainer
 whose `train.checkpoint_path` exists resumes from it, and `fit` saves there
 every `train.checkpoint_every` steps.
 
+With `group` (`parallel/sharding.make_group`), the step is cnc_tpu's
+`Trainer(mesh=)`: data parallel over rays, one process a rank.  Every rank
+fetches the same global batch and keeps its rows, renders them with the
+per-rank sample capacity, rates its own entry windows (with the group's
+row-sharded frac plane), sums the gradients over the group in one all-reduce
+and takes the same update; see `parallel/sharding.py`.
+
 What differs from cnc_tpu is XLA mechanics, not semantics: there are no jit
-caches, no mesh and no `warm_compile`; PyTorch runs the step eagerly.  One
-backward over `mse + scale * (bits2d + bits3d)` takes the place of cnc_tpu's
-three separately compiled gradients (the split was for the TPU compiler; the
-sum is the same).  The ray count still moves in power-of-two buckets, so both
+caches and no `warm_compile`; PyTorch runs the step eagerly.  One backward
+over `mse + scale * (bits2d + bits3d)` takes the place of cnc_tpu's three
+separately compiled gradients (the split was for the TPU compiler; the sum is
+the same).  The ray count still moves in power-of-two buckets, so both
 packages take the same batch sizes.
 """
 
@@ -31,19 +38,23 @@ import torch
 from ..config import CNCConfig
 from ..grids import occupancy as occ
 from ..models import radiance_field as rf
+from ..parallel import sharding
 from ..render import renderer
 from ..utils import checkpoint as ckpt
 from ..utils import metrics as M
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, same_device
 from . import optim
 
 
-def _next_bucket(n: int, lo: int, hi: int) -> int:
-    """The smallest power-of-two multiple of `lo` that holds n, at most hi."""
+def _next_bucket(n: int, lo: int, hi: int, multiple: int = 1) -> int:
+    """The smallest power-of-two multiple of `lo` that holds n, at most hi,
+    rounded down to a multiple of `multiple` (the group's size: the batch
+    splits evenly over the ranks) but never below it."""
     b = lo
     while b < n and b < hi:
         b *= 2
-    return min(b, hi)
+    b = min(b, hi)
+    return max(b // multiple, 1) * multiple
 
 
 class Trainer:
@@ -59,15 +70,31 @@ class Trainer:
     `entropy` is a `models.context_models.ContextModels` on the same device;
     with it and `cfg.train.lmbda > 0` the step adds the rate terms and trains
     the context MLPs (`self.ent_params`) with their own Adam.
+
+    `group` (a `parallel.sharding.Group` on the trainer's device; the
+    device defaults to the group's) makes the step data parallel over the
+    group's ranks, as cnc_tpu's `mesh`: build the entropy model with the
+    per-rank quotas (`driver.build_entropy(cfg, W)`).  Every rank must be
+    built alike (same config, seed and checkpoint).  Rank 0 alone logs and
+    saves checkpoints; `fit` checks that the ranks' replicas are bit-equal
+    when it starts and when it ends.
     """
 
     def __init__(self, cfg: CNCConfig, dataset, entropy=None, seed: Optional[int] = None,
-                 device=None):
+                 device=None, group=None):
         self.cfg = cfg
         self.dataset = dataset
+        self.group = group
+        if group is not None and device is None:
+            device = group.device
         self.device = resolve_device(device)
+        if group is not None and not same_device(group.device, self.device):
+            raise ValueError(f"the group's rank lives on {group.device}, the trainer on "
+                             f"{self.device}")
+        self.world_size = group.world_size if group is not None else 1
+        self.rank = group.rank if group is not None else 0
         self.entropy = entropy
-        if entropy is not None and entropy.device != self.device:
+        if entropy is not None and not same_device(entropy.device, self.device):
             raise ValueError(f"the entropy model lives on {entropy.device}, the trainer on "
                              f"{self.device}")
         self.aabb = torch.tensor(cfg.render.aabb, dtype=torch.float32, device=self.device)
@@ -117,12 +144,20 @@ class Trainer:
         return d * self.cfg.render.render_step_size
 
     # ----------------------------------------------------------------- step
-    def _render_loss(self, rays_o, rays_d, pixels, bkgd, jitter=None):
-        """MSE of one training render and its sample counts."""
+    def rank_capacity(self, world_size: int) -> int:
+        """The sample buffer of one rank's render (cnc_tpu's per_dev_cap)."""
+        cap = self.cfg.render.sample_capacity
+        return cap if world_size == 1 else max(8, cap // world_size)
+
+    def _render_terms(self, rays_o, rays_d, pixels, bkgd, jitter=None, generator=None,
+                      capacity=None):
+        """One training render: (the squared error summed over the kept
+        pixels, their count, the render's output)."""
         cfg = self.cfg
         out = renderer.render_rays_train(
             self.field, cfg.model, cfg.render, self.aabb, self.occ_state.binaries, rays_o,
-            rays_d, self.generator, bkgd, jitter=jitter)
+            rays_d, generator if generator is not None else self.generator, bkgd,
+            capacity=capacity, jitter=jitter)
         if out.resume_ray is not None:
             # visibility-pruned path: rays that lost samples to a buffer
             # overflow render partial colors; exclude them from the loss
@@ -134,6 +169,11 @@ class Trainer:
         else:
             sq = ((out.rgb - pixels) ** 2).sum()
             n_px = float(pixels.numel())
+        return sq, n_px, out
+
+    def _render_loss(self, rays_o, rays_d, pixels, bkgd, jitter=None):
+        """MSE of one training render and its sample counts."""
+        sq, n_px, out = self._render_terms(rays_o, rays_d, pixels, bkgd, jitter)
         mse = sq / n_px
         aux = {"mse": mse.detach(), "n_samples": out.n_rendering_samples,
                "n_marched": out.n_marched_samples, "max_depth": out.depth.detach().max()}
@@ -146,38 +186,95 @@ class Trainer:
         return (self.cfg.train.lmbda * self.cfg.train.rate_update_interval
                 / self.entropy.total_param_count)
 
-    def _train_step(self, rays_o, rays_d, pixels, bkgd, jitter=None, ent_cache=None,
-                    starts=None) -> Dict:
-        """Render gradient, the rate gradients on the steps that take them,
-        and one update of each optimizer.  `jitter`, when given, replaces the
-        march's draw from the generator, `starts` the entry-window draws
-        (`ContextModels.draw_starts`).  The entropy optimizer steps only on
-        rate steps."""
+    def _uses_rate(self) -> bool:
+        """Whether this step takes the rate terms."""
         cfg = self.cfg
-        use_entropy = (self.entropy is not None and cfg.train.lmbda > 0
-                       and self.step % cfg.train.rate_update_interval == 0)
-        if use_entropy and starts is None:
-            # drawn (one small device read) before the step's work is queued
-            starts = self.entropy.draw_starts(self.generator)
+        return (self.entropy is not None and cfg.train.lmbda > 0
+                and self.step % cfg.train.rate_update_interval == 0)
+
+    def _rate_terms(self, tables, starts, ent_cache, group):
+        """(the estimated bits of the four tables over `starts`' windows, the
+        3D context budget's utilization)."""
+        bits2d = self.entropy.rate_bits_2d(self.ent_params, tables, starts["2d"], ent_cache,
+                                           group=group)
+        bits3d, ctx_util = self.entropy.rate_bits_3d(
+            self.ent_params, tables["xyz"], starts["3d"], ent_cache, with_util=True)
+        return bits2d + bits3d, ctx_util
+
+    def _rate_aux(self, ttl, ctx_util) -> Dict:
+        return {"bits_per_param": ttl / self.entropy.total_param_count,
+                "embed_MB": ttl / 8.0 / 1024.0 / 1024.0, "ctx_util": ctx_util}
+
+    def _zero_grads(self, use_entropy: bool) -> None:
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self._render_loss(rays_o, rays_d, pixels, bkgd, jitter)
         if use_entropy:
             self.opt_ent.zero_grad(set_to_none=True)
-            tables = rf.quantized_tables(self.field, cfg.model)
-            bits2d = self.entropy.rate_bits_2d(self.ent_params, tables, starts["2d"], ent_cache)
-            bits3d, ctx_util = self.entropy.rate_bits_3d(
-                self.ent_params, tables["xyz"], starts["3d"], ent_cache, with_util=True)
-            ttl_bits = bits2d + bits3d
-            loss = loss + self._rate_scale() * ttl_bits
-            ttl = ttl_bits.detach()
-            aux = {**aux, "bits_per_param": ttl / self.entropy.total_param_count,
-                   "embed_MB": ttl / 8.0 / 1024.0 / 1024.0, "ctx_util": ctx_util}
-        loss.backward()
+
+    def _apply_update(self, use_entropy: bool) -> None:
+        """One step of the field's optimizer and, on rate steps, of the
+        context MLPs'; each schedule moves with its optimizer."""
         self.optimizer.step()
         self.scheduler.step()
         if use_entropy:
             self.opt_ent.step()
             self.sched_ent.step()
+
+    def _train_step(self, rays_o, rays_d, pixels, bkgd, jitter=None, ent_cache=None,
+                    starts=None) -> Dict:
+        """Render gradient, the rate gradients on the steps that take them,
+        and one update of each optimizer.  `jitter`, when given, replaces the
+        march's draw, `starts` the entry-window draws
+        (`ContextModels.draw_starts`).  The entropy optimizer steps only on
+        rate steps.
+
+        One body serves both cases (cnc_tpu's shard_body and rate body).
+        Without a group the reductions are the values themselves and the
+        draws (the starts, then the jitter) come from `self.generator`.  With
+        a group the rays are the global batch, of which the rank keeps its
+        rows, and `jitter` and `starts` are the rank's: the render loss is
+        this rank's squared error over the group's pixel count, the rate
+        this rank's estimate over W; after the backward the gradients are
+        summed over the group and every rank takes the same update.  The
+        shared draws (the batch, the occupancy candidates) come from
+        `self.generator`; the rank's own from a generator seeded from one
+        shared draw and its rank."""
+        cfg, group, w = self.cfg, self.group, self.world_size
+        use_entropy = self._uses_rate()
+        gen = self.generator
+        if group is not None:
+            rays_o, rays_d, pixels = sharding.shard_rays(group, rays_o, rays_d, pixels)
+            if jitter is None or (use_entropy and starts is None):
+                gen = sharding.rank_generator(self.device, sharding.draw_rank_seed(gen),
+                                              group.rank)
+        if use_entropy and starts is None:
+            # drawn (one small device read) before the step's work is queued
+            starts = self.entropy.draw_starts(gen)
+        self._zero_grads(use_entropy)
+        sq, n_px, out = self._render_terms(rays_o, rays_d, pixels, bkgd, jitter, gen,
+                                           self.rank_capacity(w))
+        stats = [sq, n_px, out.n_rendering_samples, out.n_marched_samples]
+        if use_entropy:
+            tables = rf.quantized_tables(self.field, cfg.model)
+            ttl_bits, ctx_util = self._rate_terms(tables, starts, ent_cache, group)
+            stats += [ttl_bits, ctx_util]
+        tot = sharding.reduce_stats(stats, group)
+        max_depth = sharding.reduce_stats([out.depth.detach().max()], group,
+                                          sharding.ReduceOp.MAX)[0]
+        loss = sq / tot[1].to(torch.float32)
+        aux = {"mse": (tot[0] / tot[1]).to(torch.float32), "n_samples": tot[2].to(torch.int64),
+               "n_marched": tot[3].to(torch.int64), "max_depth": max_depth.to(torch.float32)}
+        if use_entropy:
+            # pmean's share: the mean of the ranks' estimates
+            loss = loss + self._rate_scale() * ttl_bits / w
+            aux.update(self._rate_aux((tot[4] / w).to(torch.float32),
+                                      (tot[5] / w).to(torch.float32)))
+        loss.backward()
+        if group is not None:
+            params = list(self.field.parameters())
+            if use_entropy:
+                params += list(self.ent_params.parameters())
+            sharding.all_reduce_grads(params, group)
+        self._apply_update(use_entropy)
         return aux
 
     # ------------------------------------------------------------------ fit
@@ -189,10 +286,20 @@ class Trainer:
 
         step_callback(step, aux) is invoked after each completed step's host
         sync (the loop syncs per step to read the sample counts, so wall time
-        between callbacks is true per-step latency)."""
+        between callbacks is true per-step latency).
+
+        With a group every rank calls it alike: the bucket is a multiple of
+        the group's size, rank 0 alone logs and saves, and the ranks'
+        replicas are checked bit-equal before the first step and after the
+        last (`sharding.check_replicated`, which raises)."""
         cfg = self.cfg
         max_steps = max_steps if max_steps is not None else cfg.train.max_steps
         tic = time.time()
+        if self.rank != 0:
+            log_every = 0
+        if self.group is not None:
+            sharding.check_replicated(self.group, sharding.trainer_state(self),
+                                      f"before step {self.step}")
         bkgd = torch.ones(3, device=self.device)
         ent_cache = None
         local = 0
@@ -207,7 +314,7 @@ class Trainer:
                     ent_cache = self.entropy.refresh_cache(self.occ_state.binaries)
 
             bucket = _next_bucket(self.num_rays, cfg.train.min_ray_bucket,
-                                  cfg.train.max_ray_bucket)
+                                  cfg.train.max_ray_bucket, self.world_size)
             rays, pixels = self.dataset.fetch_rays(self.generator, bucket)
             aux = self._train_step(rays.origins, rays.viewdirs, pixels, bkgd,
                                    ent_cache=ent_cache)
@@ -225,7 +332,7 @@ class Trainer:
             # written after step s's update records s, and a run resumed
             # from it takes step s again
             cp = cfg.train.checkpoint_path
-            if (cp and cfg.train.checkpoint_every > 0 and s > 0
+            if (cp and cfg.train.checkpoint_every > 0 and s > 0 and self.rank == 0
                     and s % cfg.train.checkpoint_every == 0):
                 ckpt.save_checkpoint(cp, self)
             if log_every and s % log_every == 0:
@@ -244,6 +351,9 @@ class Trainer:
             if step_callback is not None:
                 step_callback(s, aux)
         self._last_ent_cache = ent_cache
+        if self.group is not None:
+            sharding.check_replicated(self.group, sharding.trainer_state(self),
+                                      f"after step {self.step - 1}")
         return time.time() - tic
 
     # ----------------------------------------------------------------- eval

@@ -20,3 +20,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                                "plain PyTorch path")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def normalize_device(device: Union[str, torch.device]) -> torch.device:
+    """`device` with the current CUDA index filled in for a bare `cuda`."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def same_device(a: Union[str, torch.device], b: Union[str, torch.device]) -> bool:
+    """Whether two devices name the same one (`cuda` is the current card)."""
+    return normalize_device(a) == normalize_device(b)

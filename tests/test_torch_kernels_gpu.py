@@ -1699,6 +1699,60 @@ def test_pn_hist_backward_kernel(dev, f, name):
         torch.testing.assert_close(got.double(), want, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("name", list(PN_CASES))
+def test_pn_hist_part_kernel(dev, f, name):
+    """K7p, a data-parallel rank's share of the plane, over W = 2, 3 and 8
+    row chunks at the edges of tests/pn_frac_cases.py: each partial and its
+    divisors equal to the twin's (integer counts), the partials summed and
+    finished equal to K7's plane; one launch a share.  K7pb on each share
+    within 1e-5 of the largest entry of the twin's gradient in float64 (the
+    partial's gradient is per bin, no 1e6 divisor to cancel), one launch."""
+    case = pn_case(name, f)
+    table = torch.from_numpy(case["table"]).to(dev)
+    eidx, bounds = (torch.from_numpy(case[k]).to(dev) for k in ("entry_idx", "bounds"))
+    n = torch.tensor(case["n"], dtype=torch.int32, device=dev)
+    res, cap, off = case["pn_res"], case["sample_cap"], case["fine_offset"]
+    whole = cops.pn_frac_plane(table, off, eidx, bounds, n, res, cap)
+    rows = cops.pn_row_count(eidx, cap)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    for w in (2, 3, 8):
+        chunk = -(-rows // w)
+        total = None
+        for r in range(w):
+            leaf = table.clone().requires_grad_()
+            kernels.reset_launches()
+            part, den = cops.pn_hist_part(leaf, off, eidx, bounds, n, res, cap, r * chunk, chunk)
+            assert kernels.launches["pn_hist_part"] == 1 and sum(kernels.launches.values()) == 1
+            want, want_den = cops._pn_part_plain(table, off, eidx, bounds, n, cap, r * chunk,
+                                                 chunk)
+            assert torch.equal(part, want) and torch.equal(den, want_den), (w, r)
+            total = part.detach() if total is None else total + part.detach()
+            cot = torch.randn(part.shape, generator=gen, device=dev)
+            part.backward(cot)
+            assert kernels.launches["pn_hist_part_bwd"] == 1
+            leaf64 = table.double().requires_grad_()
+            cops._pn_part_plain(leaf64, off, eidx, bounds, n, cap, r * chunk,
+                                chunk)[0].backward(cot.double())
+            torch.testing.assert_close(leaf.grad.double(), leaf64.grad, rtol=0,
+                                       atol=1e-5 * max(float(leaf64.grad.abs().max()), 1e-30))
+        assert torch.equal(cops.pn_frac_finish(total, den, res), whole), w
+
+
+def test_pn_hist_part_refuses_what_the_kernel_does_not_take(dev):
+    case = pn_case("masked_tail", 4)
+    table = torch.from_numpy(case["table"]).to(dev)
+    eidx, bounds = (torch.from_numpy(case[k]).to(dev) for k in ("entry_idx", "bounds"))
+    n = torch.tensor(case["n"], dtype=torch.int32, device=dev)
+    args = (table, case["fine_offset"], eidx, bounds, n, case["pn_res"], case["sample_cap"])
+    with pytest.raises(ValueError, match="row range"):
+        cops.pn_hist_part(*args, -1, 10)
+    with pytest.raises(ValueError, match="row range"):
+        cops.pn_hist_part(*args, 0, 1 << 31)
+    with pytest.raises(ValueError, match="pn_hist_part"):
+        cops.pn_hist_part(table.double(), *args[1:], 0, 10)
+
+
 def test_pn_walk_wrappers_refuse_what_the_kernels_do_not_take(dev):
     case = pn_case("masked_tail", 4)
     table = torch.from_numpy(case["table"]).to(dev)

@@ -91,10 +91,18 @@ def test_adam_steps_match_optax(weight_decay):
     assert not np.allclose(tp["table"].detach().numpy(), params["table"], atol=1e-4)
 
 
-@pytest.mark.parametrize("n,lo,hi", [(1, 256, 2048), (256, 256, 2048), (257, 256, 2048),
-                                     (5000, 256, 2048), (70000, 1024, 1 << 17)])
-def test_next_bucket_matches(n, lo, hi):
-    assert ttrainer._next_bucket(n, lo, hi) == jtrainer._next_bucket(n, lo, hi)
+_BUCKETS = [(1, 256, 2048), (256, 256, 2048), (257, 256, 2048), (5000, 256, 2048),
+            (70000, 1024, 1 << 17)]
+
+
+# multiple: the data-parallel group's size (1 keeps the single-process ids);
+# 3 and 384 do not divide the buckets, 4096 exceeds the smaller ones
+@pytest.mark.parametrize("n,lo,hi,multiple", [
+    pytest.param(n, lo, hi, m, id="-".join(map(str, (n, lo, hi))) + ("" if m == 1 else f"-x{m}"))
+    for m in (1, 2, 3, 8, 384, 4096) for n, lo, hi in _BUCKETS])
+def test_next_bucket_matches(n, lo, hi, multiple):
+    assert (ttrainer._next_bucket(n, lo, hi, multiple)
+            == jtrainer._next_bucket(n, lo, hi, multiple))
 
 
 def _sphere_rays(n_side, rng):
