@@ -135,9 +135,12 @@ Phases (any failure raises and the script exits non-zero):
      occupancy grid) at grid_3d over 327,680 points and on the xy plane
      with the grid projected along z, driven through `grid_encode(
      occ_binary=)` forward and backward with the counts set to 0 just
-     before and read just after, then the forward bit-equal to its twin and
-     the backward within K2_REL_TOL of max |d_table|, with ms, device ms
-     and bound; a `ModelConfig(unbounded=True)` trainer 200 steps at lambda
+     before and read just after (one sources launch a forward, which the
+     backward reuses), then the sources kernel equal to its twin, the
+     forward bit-equal to its twin and the backward within K2_REL_TOL of
+     max |d_table|, with ms, device ms and bound, the forward also with its
+     sources' launch, and K1/K2 with no mask on the same points (the
+     floor under the mask); a `ModelConfig(unbounded=True)` trainer 200 steps at lambda
      = 0 (finite losses, the train-batch PSNR of steps 150-199 above that of
      0-49, the training kernels launched; SectionTimers); `propnet_sampling`
      over 4,096 rays (levels of 128 and 64 samples, 32 final; the
@@ -386,7 +389,7 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
     res, offs = spec.resolutions, spec.offsets
     n_out = kw.get("n_levels_calc") or len(res)
     got = enc._encode_cuda(pts, table, res, offs, **kw)
-    plain_kw = {k: v for k, v in kw.items() if k != "occ_bits"}   # the twin reads the bools
+    plain_kw = {k: v for k, v in kw.items() if k not in ("occ_bits", "sat_src")}
     want = enc._encode_plain(pts, table, res, offs, **plain_kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
@@ -411,7 +414,7 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
     if kw.get("occ_mask") is not None:
         n_bytes += n_rows        # at least one mask byte per distinct row read
     n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
-    n_bytes, n_flops = sat_work(kw, n_bytes, n_flops, pts, res, offs, enc)
+    n_bytes, n_flops = sat_work(torch, kw, n_bytes, n_flops, pts, res, offs, enc)
     b, by = bound_ms(n_bytes, n_flops)
     kernel = lambda: enc._encode_cuda(pts, table, res, offs, **kw)
     rec = dict(max_abs_err=err, ms=time_ms(kernel),
@@ -426,19 +429,59 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
     return rec
 
 
-def sat_work(kw, n_bytes, n_flops, pts, res, offs, enc):
-    """K1s/K2s's share of the bound: the summed-area table ((Rb+1)^D int32)
-    read once, and for each corner that is not on the border the footprint
-    box (6 operations an axis) and its 2^D-term inclusion-exclusion sum."""
+def sat_work(torch, kw, n_bytes, n_flops, pts, res, offs, enc):
+    """K1s/K2s's share of the bound.  On given sources (`sat_src`, what the
+    kernel alone reads): each word of the coarse levels' bits that a corner
+    off the border reads, once (4 bytes), each 64-bit window of the
+    occupancy rows that a fine (point, level) reads, once (8 bytes), and
+    each fine (point, level)'s two footprint boxes an axis (6 operations
+    each); the summed-area table is the sources launch's input, charged to
+    it (`check_sat_sources`).  Without `sat_src` (the whole call, sources
+    included, a function of the table): the table ((Rb+1)^D int32) read
+    once, and for each corner off the border the footprint box (6
+    operations an axis) and its 2^D-term inclusion-exclusion sum."""
     sat = kw.get("occ_sat")
     if sat is None:
         return n_bytes, n_flops
-    gs, _ = enc._corner_sets(pts, res, offs)      # unmasked: the corners the kernel tests
-    inside = ~((pts < 0.0) | (pts > 1.0)).any(dim=-1)
     d = pts.shape[1]
-    tested = sum(int(((g != 0) & inside[:, None]).sum()) for g in gs)
-    del gs
-    return n_bytes + sat.numel() * 4, n_flops + tested * (6 * d + 2 ** d)
+    if kw.get("sat_src") is None:
+        gs, _ = enc._corner_sets(pts, res, offs)  # unmasked: the corners the kernel tests
+        inside = ~((pts < 0.0) | (pts > 1.0)).any(dim=-1)
+        tested = sum(int(((g != 0) & inside[:, None]).sum()) for g in gs)
+        del gs
+        return n_bytes + sat.numel() * 4, n_flops + tested * (6 * d + 2 ** d)
+    rb = sat.shape[0] - 1
+    nw = (rb + 31) // 32
+    moffs = enc._sat_layout(d, tuple(int(r) for r in res), rb)[0]
+    p = pts[~((pts < 0.0) | (pts > 1.0)).any(dim=-1)]
+    words, windows, fine_pairs = [], [], 0
+    for r, moff in zip(res, moffs):
+        r = int(r)
+        pg = torch.floor(p * float(r - 2) + 0.5).to(torch.int64)
+        up = torch.clamp(pg + 1, max=r - 1)
+        if moff >= 0:
+            for k in range(2 ** d):
+                cc = [up[:, ax] if (k >> ax) & 1 else pg[:, ax] for ax in range(d)]
+                flat, valid = cc[0], (cc[0] != 0) & (cc[0] != r - 1)
+                for ax in range(1, d):
+                    flat = flat * r + cc[ax]
+                    valid &= (cc[ax] != 0) & (cc[ax] != r - 1)
+                words.append(torch.unique((moff + flat[valid]) >> 5))
+            continue
+        fine_pairs += p.shape[0]
+        lo0, hi0 = enc.sat_ops.footprint_box(pg, r, rb)
+        lo1, hi1 = enc.sat_ops.footprint_box(up, r, rb)
+        base = torch.minimum(lo0, lo1).to(torch.int64)
+        span = torch.maximum(hi0, hi1).to(torch.int64) - base
+        word = base[:, d - 1] >> 5
+        for a in range(4):
+            for b in range(4 if d == 3 else 1):
+                ok = (a <= span[:, 0]) & ((b <= span[:, 1]) if d == 3 else True)
+                row = ((base[:, 0] + a) * rb + base[:, 1] + b) if d == 3 else base[:, 0] + a
+                windows.append(torch.unique((row * nw + word)[ok]))
+    n_words = torch.unique(torch.cat(words)).numel() if words else 0
+    n_windows = torch.unique(torch.cat(windows)).numel() if windows else 0
+    return n_bytes + n_words * 4 + n_windows * 8, n_flops + fine_pairs * 2 * 6 * d
 
 
 def volrend_bound(n_valid: int, n_rays: int, prefix: bool, backward: bool = False):
@@ -981,7 +1024,7 @@ def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", *
     n_out, d = kw.get("n_levels_calc") or len(res), pts.shape[1]
     cot = torch.randn(n, n_out * f, generator=gen, device=pts.device)
     got = enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw)
-    plain_kw = {k: v for k, v in kw.items() if k != "occ_bits"}   # the twin reads the bools
+    plain_kw = {k: v for k, v in kw.items() if k not in ("occ_bits", "sat_src")}
     leaf = table.detach().clone().requires_grad_()
     out = enc._encode_plain(pts, leaf, res, offs, **plain_kw)
     twin = lambda: torch.autograd.grad(out, leaf, cot, retain_graph=True)[0]
@@ -1015,7 +1058,7 @@ def check_grid_encode_bwd(torch, enc, spec, table, pts, gen, label, name="K2", *
     lib_err = rel_err(library(), want)
     n_bytes = pts.numel() * 4 + cot.numel() * 4 + 2 * n_rows * f * 4
     n_flops = n * n_out * (2 ** d) * (d + 2 * f + 1)
-    n_bytes, n_flops = sat_work(kw, n_bytes, n_flops, pts, res, offs, enc)
+    n_bytes, n_flops = sat_work(torch, kw, n_bytes, n_flops, pts, res, offs, enc)
     b, by = bound_ms(n_bytes, n_flops)
     kernel = lambda: enc._encode_backward_cuda(pts, cot, rows, res, offs, **kw)
     rec = dict(max_abs_err=err, rel_err=err / scale, ms=time_ms(kernel, iters=10),
@@ -2310,9 +2353,13 @@ def check_sat_encode(torch, kernels, enc, sat_ops, rf, tr, gen, dev, records):
     training capacity's 327,680 points, and on the xy plane of grid_2d with
     that grid's projection along z.  The path (the public encode with
     `occ_binary`, forward and backward through autograd, 3D then 2D) runs
-    with the counts set to 0 just before it and read just after; then each
-    kernel against its twin: the forward bit-equal, the backward within
-    K2_REL_TOL of max |d_table|, with ms, device ms and bound."""
+    with the counts set to 0 just before it and read just after: one
+    sources launch a forward, which the backward reuses.  Then the sources
+    kernel against its twin (equal), each kernel against its twin (the
+    forward bit-equal, the backward within K2_REL_TOL of max |d_table|) on
+    the sources it reads, with ms, device ms and bound; the forward also
+    with its sources' launch (what one call costs), and K1 and K2 with no
+    mask on the same points and table (the floor under the mask)."""
     cfg = tr.cfg
     occ = tr.occ_state.binaries
     occ2 = occ.any(dim=2).contiguous()          # projected along the xy plane's normal
@@ -2331,24 +2378,39 @@ def check_sat_encode(torch, kernels, enc, sat_ops, rf, tr, gen, dev, records):
         outs.append((out.detach(), leaf.grad))
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.launches.items() if v}
-    if not (launches.get("grid_encode_s") == 2 and launches.get("grid_encode_s_bwd") == 2):
-        raise AssertionError(f"[breadth] the SAT-masked encode did not go through K1s/K2s:"
-                             f" {launches}")
+    if not (launches.get("grid_encode_s") == 2 and launches.get("grid_encode_s_bwd") == 2
+            and launches.get("sat_mask_sources") == 2):
+        raise AssertionError(f"[breadth] the SAT-masked encode did not go through its sources"
+                             f" kernel once a forward and K1s/K2s: {launches}")
     log(f"[breadth K1s/K2s] path: grid_encode(occ_binary=) forward and backward, 3D and xy;"
         f" launches {json.dumps(launches)}; occupancy {int(occ.sum())}/{occ.numel()} cells,"
         f" projected {int(occ2.sum())}/{occ2.numel()}")
     counted = dict(kernels.launches)
-    fwd, bwd = {}, {}
+    fwd, bwd, srcs = {}, {}, {}
     for (key, spec, p, grid), (out, _) in zip(sites, outs):
         sat = sat_ops.build_sat(grid)
         if not torch.equal(sat.cpu(), sat_ops.build_sat(grid.cpu())):
             raise AssertionError(f"[breadth] {key}: the table differs from the CPU's")
         if not bool(out.any()):
             raise AssertionError(f"[breadth] {key}: every corner was masked")
+        src, srcs[key] = check_sat_sources(torch, enc, sat, spec.resolutions, key)
         fwd[key] = check_grid_encode(torch, enc, spec, tables[key], p, f"{key}, SAT-masked",
-                                     name="K1s", occ_sat=sat)
+                                     name="K1s", occ_sat=sat, sat_src=src)
+        whole = lambda: enc._encode_cuda(p, tables[key], spec.resolutions, spec.offsets,
+                                         occ_sat=sat)
+        fwd[key]["with_sources"] = dict(ms=time_ms(whole), device_ms=device_ms(whole))
         bwd[key] = check_grid_encode_bwd(torch, enc, spec, tables[key], p, gen,
-                                         f"{key}, SAT-masked", name="K2s", occ_sat=sat)
+                                         f"{key}, SAT-masked", name="K2s", occ_sat=sat,
+                                         sat_src=src)
+        # the floor: the same points and table with no mask
+        fwd[key]["no_mask"] = check_grid_encode(torch, enc, spec, tables[key], p,
+                                                f"{key}, K1s's points, no mask", perturb=False)
+        bwd[key]["no_mask"] = check_grid_encode_bwd(torch, enc, spec, tables[key], p, gen,
+                                                    f"{key}, K2s's points, no mask")
+        log(f"[breadth K1s/K2s {key}] device ms: sources {srcs[key]['device_ms']:.4f} + K1s"
+            f" {fwd[key]['device_ms']:.4f} (one call {fwd[key]['with_sources']['device_ms']:.4f});"
+            f" K2s {bwd[key]['device_ms']:.4f}; with no mask K1 {fwd[key]['no_mask']['device_ms']:.4f},"
+            f" K2 {bwd[key]['no_mask']['device_ms']:.4f}")
     kernels.launches.update(counted)     # comparison launches do not count
     records["grid_encode_s"] = dict(fwd["xyz"], max_abs_err=max(r["max_abs_err"]
                                                                 for r in fwd.values()),
@@ -2356,7 +2418,41 @@ def check_sat_encode(torch, kernels, enc, sat_ops, rf, tr, gen, dev, records):
     records["grid_encode_s_bwd"] = dict(bwd["xyz"], max_abs_err=max(r["max_abs_err"]
                                                                     for r in bwd.values()),
                                         sites=bwd)
+    records["sat_mask_sources"] = dict(srcs["xyz"], sites=srcs)
     return launches
+
+
+def check_sat_sources(torch, enc, sat, resolutions, label):
+    """The sources kernel of K1s/K2s against its twin (`_sat_sources_plain`,
+    on the card): the coarse levels' words and the occupancy rows equal.
+    Bound: operations, each coarse vertex's footprint box (6 an axis) and
+    2^D-term sum and each cell's 2^D-term sum; bytes, the table read once
+    and the words written once.  Returns (the sources, the record)."""
+    d, rb = sat.dim(), sat.shape[0] - 1
+    _, coarse, words, _ = enc._sat_layout(d, tuple(resolutions), rb)
+    got = enc.sat_mask_sources(sat, resolutions)
+    want = enc._sat_sources_plain(sat, resolutions)
+    torch.cuda.synchronize()
+    if not (torch.equal(got.bits[:words], want.bits[:words])
+            and (got.rows is None) == (want.rows is None)
+            and (got.rows is None or torch.equal(got.rows, want.rows))):
+        raise AssertionError(f"[sat_mask_sources {label}] the sources differ from the twin's")
+    n_vert = sum(r ** d for r, _ in coarse)
+    n_cells = rb ** d if got.rows is not None else 0
+    out_bytes = words * 4 + (got.rows.numel() * 8 if got.rows is not None else 0)
+    b, by = bound_ms(sat.numel() * 4 + out_bytes,
+                     n_vert * (6 * d + 2 ** d) + n_cells * 2 ** d)
+    kernel = lambda: enc.sat_mask_sources(sat, resolutions)
+    rec = dict(max_abs_err=0.0, ms=time_ms(kernel), device_ms=device_ms(kernel),
+               plain_ms=time_ms(lambda: enc._sat_sources_plain(sat, resolutions), iters=3,
+                                warmup=1),
+               bound_ms=b, bound_by=by, library_ms=None, coarse_vertices=n_vert, cells=n_cells)
+    log(f"[sat_mask_sources {label}] Rb={rb} D={d} coarse levels {len(coarse)}"
+        f" ({n_vert} vertices, {words} words), occupancy rows"
+        f" {'none' if got.rows is None else tuple(got.rows.shape)}: equal to the twin;"
+        f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} plain_ms={rec['plain_ms']:.4f}"
+        f" bound_ms={b:.5f} ({by})")
+    return got, rec
 
 
 def check_mlp_field(torch, name, make, n_pts, call, dev):
@@ -3516,6 +3612,10 @@ def main() -> int:
         # (encoding.py:95-97, sat.py:94) and its scatter-add backward
         "grid_encode_s": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:95", "breadth"),
         "grid_encode_s_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "breadth"),
+        # their sources, made once a forward from the table: the coarse
+        # levels' corner bits (occupancy_mask over the lattice) and the
+        # occupancy rows (box_count of each cell)
+        "sat_mask_sources": ("grid_encode.cu", "cnc_tpu/ops/sat.py:94", "breadth"),
     }
     counted = {"view": launches, "train": train_launches, "probe": probe_launches,
                "rate": rate_launches, "rate_pn_grad": pn_launches, "codec": codec_launches,

@@ -82,22 +82,48 @@
 // thousand rows, which the L2 serialises.  The sum order varies from run to
 // run, so the kernel is compared with its twin by a tolerance.
 //
-// K1s and K2s: the same two kernels instantiated with a summed-area table as
-// the mask source (template parameter Sat), the counterpart of cnc_tpu's
+// K1s and K2s: the same two kernels masked by a summed-area table, through
+// sources made from it (template parameter Sat), the counterpart of cnc_tpu's
 // `occupancy_mask(occ_sat, cc, R, rb)` inside _corner_setup (ops/encoding.py
 // 95-97, ops/sat.py 68-98; the TPU form of the reference's corner walk,
-// gridencoder.cu:222-276).  For each live corner the footprint box is formed
-// as sat.footprint_box forms it, in float32 without FMA: scale = 1/(R-2)
-// rounded once, pn = (c - 0.5)*scale, lo/hi = trunc(clamp((pn -/+ scale)*Rb,
-// 0, Rb-1)); then its 2^D table entries are gathered, all in flight together,
-// and the corner is kept if the inclusion-exclusion count is > 0.  The table
-// is int32 [Rb+1]^D with the last axis fastest (8.6 MB at Rb = 128, in L2).
-// The packed mask wins when both are given (the wrapper passes one).  Plain
-// twin: ops/encoding.py `_encode_plain(occ_sat=)`, over ops/sat.py.  Bound on
-// the H100: the table rows as for K1, plus (2^D)^2 int32 gathers a (point,
-// level) that stay in L2; no path of the port passes a table today (no
-// module of cnc_tpu does), so the variant is simple and right first.
+// gridencoder.cu:222-276): a corner is kept when its footprint box on the
+// Rb grid, formed as sat.footprint_box forms it (float32 without FMA:
+// scale = 1/(R-2) rounded once, pn = (c - 0.5)*scale, lo/hi =
+// trunc(clamp((pn -/+ scale)*Rb, 0, Rb-1))), holds an occupied cell.  The
+// table is int32 [Rb+1]^D with the last axis fastest (8.6 MB at Rb = 128).
+// Plain twin: ops/encoding.py `_encode_plain(occ_sat=)`, over ops/sat.py.
 //
+// Bound on the H100: the table rows as for K1, plus the sources' words and
+// windows that the corners read (the sources launch reads the SAT once).
+// The first form gathered the 2^D table entries of every live corner's box:
+// (2^D)^2 scattered int32 gathers a (point, level), each a 32-byte L2
+// sector, about 8 GB of L2 traffic at grid_3d over 327,680 points, and 45x
+// the bound.  The mask is boolean, so any exact way to decide "an occupied
+// cell in the box" gives the same bits; this form cuts the gathers by
+// splitting the levels at the wrapper (`_sat_layout`, from R and Rb):
+//   * coarse levels (R - 2 <= Rb: the box is a cell or wider, R^D <=
+//     (Rb+2)^D vertices; grid_3d's levels 0-6, 2.1M vertices): one launch a
+//     call (`cnc_sat_mask_sources`, a warp a word in lattice order, so the
+//     table reads coalesce) writes every vertex's bit, packed as the rate's
+//     masks are, and the encode reads one bit a corner as K1v does;
+//   * fine levels (R - 2 > Rb: the box is under two cells wide, and the 2^D
+//     corners' boxes overlap): the same launch packs the occupancy itself,
+//     one bit a cell recovered from the table, in rows along the last axis
+//     (256 KB of bits at Rb = 128 in 3D, held as 64-bit windows, 512 KB, so
+//     that any 4 cells of a row are one load).  A (point, level) forms each
+//     axis's two boxes (corner coordinate pg and pg+1), loads the window of
+//     at most 4 (2D) or 4x4 (3D) rows over the union of its corners' boxes,
+//     4 bits a row, and decides every corner from registers by ORs and
+//     masks.  The wrapper
+//     makes a level fine only when every such window, formed in the same
+//     float32 steps, spans at most 4 cells an axis (at R - 2 > Rb the two
+//     boxes of an axis cover less than 3 cells' length; only rounding at a
+//     large Rb could widen them, and such a level goes coarse), so the
+//     encodes never read the table.
+// K2s takes the forward's sources (the autograd context keeps them), so the
+// backward evaluates no table.  Exact either way, so the forward stays
+// bit-equal to its twin.
+
 // The mask packing (`cnc_pack_mask_bits`) replaces no XLA composition:
 // cnc_tpu's encode reads the bool masks (ops/encoding.py 90-94) and the port
 // packs them once per cache refresh so that the encodes read a bit a corner.
@@ -153,22 +179,21 @@ struct Corners {
   bool live[1 << D];
 };
 
-// Whether the footprint of corner cc of a resolution-res level on the Rb
-// grid holds an occupied cell: the box of sat.footprint_box, then the 2^D
-// entries of the summed-area table `sat` ([rb+1]^D int32, last axis
-// fastest), all loaded before they are summed.
+// The footprint box's ends on one axis for lattice coordinate c (the float32
+// steps of sat.footprint_box, no FMA: the file is built with -fmad=false).
+__device__ __forceinline__ void footprint_ends(int c, float scale, float frb, float top, int& lo,
+                                               int& hi) {
+  const float pn = __fmul_rn(__fsub_rn(static_cast<float>(c), 0.5f), scale);
+  lo = static_cast<int>(fminf(fmaxf(__fmul_rn(__fsub_rn(pn, scale), frb), 0.f), top));
+  hi = static_cast<int>(fminf(fmaxf(__fmul_rn(__fadd_rn(pn, scale), frb), 0.f), top));
+}
+
+// The occupied cells in the inclusive box [lo, hi] of the summed-area table
+// `sat` ([rb+1]^D int32, last axis fastest): 2^D entries, all loaded before
+// they are summed.
 template <int D>
-__device__ __forceinline__ bool footprint_any(const int* cc, int res, const int* __restrict__ sat,
-                                              int rb) {
-  const float scale = __frcp_rn(static_cast<float>(res - 2));
-  const float frb = static_cast<float>(rb), top = static_cast<float>(rb - 1);
-  int lo[D], hi[D];
-#pragma unroll
-  for (int ax = 0; ax < D; ++ax) {
-    const float pn = __fmul_rn(__fsub_rn(static_cast<float>(cc[ax]), 0.5f), scale);
-    lo[ax] = static_cast<int>(fminf(fmaxf(__fmul_rn(__fsub_rn(pn, scale), frb), 0.f), top));
-    hi[ax] = static_cast<int>(fminf(fmaxf(__fmul_rn(__fadd_rn(pn, scale), frb), 0.f), top));
-  }
+__device__ __forceinline__ int box_count(const int* __restrict__ sat, int rb, const int* lo,
+                                         const int* hi) {
   int v[1 << D];
 #pragma unroll
   for (int s = 0; s < (1 << D); ++s) {
@@ -180,16 +205,103 @@ __device__ __forceinline__ bool footprint_any(const int* cc, int res, const int*
   int count = 0;
 #pragma unroll
   for (int s = 0; s < (1 << D); ++s) count += (__popc(s) & 1) ? -v[s] : v[s];
-  return count > 0;
+  return count;
 }
 
-// Sat selects the mask source: the packed bits (or none, bits null) when
-// false, the summed-area table when true.
+// Whether the footprint of corner cc of a resolution-res level on the Rb
+// grid holds an occupied cell.
+template <int D>
+__device__ __forceinline__ bool footprint_any(const int* cc, int res, const int* __restrict__ sat,
+                                              int rb) {
+  const float scale = __frcp_rn(static_cast<float>(res - 2));
+  int lo[D], hi[D];
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax)
+    footprint_ends(cc[ax], scale, static_cast<float>(rb), static_cast<float>(rb - 1), lo[ax],
+                   hi[ax]);
+  return box_count<D>(sat, rb, lo, hi) > 0;
+}
+
+// The fine levels' source, the occupancy rows (`cnc_sat_mask_sources`):
+// row r = (i0*rb + i1) in 3D, i0 in 2D, of nw = ceil(rb/32) 64-bit windows,
+// window k = word k | word k+1 << 32, bit i of word k the cell at last-axis
+// coordinate 32k + i.  The coarse levels' bits come as the packed mask
+// (`bits`, at mask_off[l]); a fine level has mask_off -1.
+struct SatSrc {
+  const unsigned long long* rows;
+  int rb, nw;
+};
+
+// A fine level's 2^D corners of one point (lattice cell pg): `live[k]` is
+// cleared where corner k's box holds no occupied cell.  Each axis has two
+// boxes (corner coordinate pg and min(pg+1, res-1)); the window is the 4
+// cells from the lower box's start on every axis, which holds both boxes
+// (the wrapper's layout makes a level fine only where they span at most 4
+// cells together).  Its rows' 4-bit slices are read
+// once (win[a], 3D: row (a, b) at bits 4b..4b+3), OR-ed over each axis-0
+// box, then masked by the corner's axis-1 (3D) and last-axis box.
+template <int D>
+__device__ __forceinline__ void fine_mask(const int* pg, int res, const SatSrc& m, bool* live) {
+  const float scale = __frcp_rn(static_cast<float>(res - 2));
+  const float frb = static_cast<float>(m.rb), top = static_cast<float>(m.rb - 1);
+  int lo[D][2], hi[D][2], base[D], span[D];
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      footprint_ends(u ? min(pg[ax] + 1, res - 1) : pg[ax], scale, frb, top, lo[ax][u],
+                     hi[ax][u]);
+    base[ax] = min(lo[ax][0], lo[ax][1]);
+    span[ax] = max(hi[ax][0], hi[ax][1]) - base[ax];   // cells in the window - 1, < 4
+  }
+  constexpr int last = D - 1;
+  const int word = base[last] >> 5, shift = base[last] & 31;
+  uint32_t win[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    win[a] = 0u;
+    if constexpr (D == 3) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (a <= span[0] && b <= span[1]) {
+          const long long row = static_cast<long long>(base[0] + a) * m.rb + base[1] + b;
+          win[a] |= static_cast<uint32_t>((__ldg(m.rows + row * m.nw + word) >> shift) & 0xfu)
+                    << (4 * b);
+        }
+    } else {
+      if (a <= span[0])
+        win[a] = static_cast<uint32_t>(
+            (__ldg(m.rows + static_cast<long long>(base[0] + a) * m.nw + word) >> shift) & 0xfu);
+    }
+  }
+  uint32_t r[2] = {0u, 0u};   // the window's rows OR-ed over each axis-0 box
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (a >= lo[0][u] - base[0] && a <= hi[0][u] - base[0]) r[u] |= win[a];
+  const auto cells = [](int l, int h, int width) {   // bits [l, h] of `width`-bit fields
+    return ((1u << (width * (h - l + 1))) - 1u) << (width * l);
+  };
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+    const int u0 = k & 1, ul = (k >> last) & 1;
+    uint32_t sel = cells(lo[last][ul] - base[last], hi[last][ul] - base[last], 1);
+    if constexpr (D == 3) {
+      const int u1 = (k >> 1) & 1;
+      sel = (sel * 0x1111u) & cells(lo[1][u1] - base[1], hi[1][u1] - base[1], 4);
+    }
+    live[k] = live[k] && (r[u0] & sel) != 0u;
+  }
+}
+
+// Sat adds the fine levels' source: a level with mask_off -1 reads the
+// occupancy rows; every other level reads the packed bits (none when bits
+// is null).
 template <int D, bool Sat>
 __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, int l,
                                               const uint32_t* __restrict__ bits,
-                                              const int* __restrict__ sat, int rb,
-                                              Corners<D>& c) {
+                                              const SatSrc& src, Corners<D>& c) {
   const int res = lv.res[l];
   const uint32_t size = static_cast<uint32_t>(lv.size[l]);
   const uint32_t offset = static_cast<uint32_t>(lv.offset[l]);
@@ -206,7 +318,6 @@ __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, 
   }
   uint32_t word[1 << D];
   long long bit[1 << D];
-  int corner[1 << D][D];
 #pragma unroll
   for (int k = 0; k < (1 << D); ++k) {
     uint32_t cc[D];
@@ -219,7 +330,6 @@ __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, 
       wk = __fmul_rn(wk, up ? frac[ax] : __fsub_rn(1.f, frac[ax]));
       valid &= (v != 0) && (v != res - 1);
       cc[ax] = static_cast<uint32_t>(v);
-      corner[k][ax] = v;
     }
     c.w[k] = wk;
     c.live[k] = valid;
@@ -230,10 +340,12 @@ __device__ __forceinline__ void level_corners(const float* x, const Levels& lv, 
     bit[k] = lv.mask_off[l] + flat;
   }
   if constexpr (Sat) {
-#pragma unroll
-    for (int k = 0; k < (1 << D); ++k)
-      c.live[k] = c.live[k] && footprint_any<D>(corner[k], res, sat, rb);
-  } else if (bits) {
+    if (lv.mask_off[l] < 0) {
+      fine_mask<D>(pg, res, src, c.live);
+      return;
+    }
+  }
+  if (bits) {
     // every corner's mask word in flight at once, then the bits
 #pragma unroll
     for (int k = 0; k < (1 << D); ++k) word[k] = c.live[k] ? __ldg(bits + (bit[k] >> 5)) : 0u;
@@ -321,7 +433,7 @@ __global__ void __launch_bounds__(kThreads)
 grid_encode_forward_kernel(const float* __restrict__ points, const float* __restrict__ table,
                            float* __restrict__ out, int n, int n_out, int n_levels, Levels lv,
                            const uint32_t* __restrict__ bits, const int* __restrict__ min_ids,
-                           const int* __restrict__ sat, int rb, int wpt) {
+                           SatSrc src, int wpt) {
   extern __shared__ float4 smem4[];
   const int tile = kThreads / wpt;
   const long long p0 = static_cast<long long>(blockIdx.x) * tile;
@@ -345,7 +457,7 @@ grid_encode_forward_kernel(const float* __restrict__ points, const float* __rest
       if (inside) {
         const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
         Corners<D> c;
-        level_corners<D, Sat>(x, lv, l, bits, sat, rb, c);
+        level_corners<D, Sat>(x, lv, l, bits, src, c);
         float v[1 << D][F];
 #pragma unroll
         for (int k = 0; k < (1 << D); ++k) {
@@ -417,8 +529,7 @@ __global__ void __launch_bounds__(kThreads)
 grid_encode_backward_kernel(const float* __restrict__ points, const float* __restrict__ grad,
                             float* __restrict__ d_table, int n, int n_out, int n_levels,
                             Levels lv, const uint32_t* __restrict__ bits,
-                            const int* __restrict__ min_ids, const int* __restrict__ sat, int rb,
-                            int wpt) {
+                            const int* __restrict__ min_ids, SatSrc src, int wpt) {
   extern __shared__ float4 smem4[];
   const int tile = kThreads / wpt;
   const long long p0 = static_cast<long long>(blockIdx.x) * tile;
@@ -441,7 +552,7 @@ grid_encode_backward_kernel(const float* __restrict__ points, const float* __res
     bool adds = false;
     if (inside) {
       const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
-      level_corners<D, Sat>(x, lv, l, bits, sat, rb, c);
+      level_corners<D, Sat>(x, lv, l, bits, src, c);
       float wsum = 0.f;
 #pragma unroll
       for (int k = 0; k < (1 << D); ++k) wsum += c.live[k] ? c.w[k] : 0.f;
@@ -487,7 +598,7 @@ bool fill_levels(Levels* lv, int d, int n_out, int n_levels, const int* res, con
 // One launch of either kernel over all points: tiles of kThreads / wpt.
 template <int D, int F, bool Backward, bool Sat>
 int launch(const float* points, const float* in, float* out, int n, int n_out, int n_levels,
-           const Levels& lv, const uint32_t* bits, const int* min_ids, const int* sat, int rb,
+           const Levels& lv, const uint32_t* bits, const int* min_ids, const SatSrc& src,
            cudaStream_t stream) {
   const int wpt = warps_per_point(n_out);
   const int tile = kThreads / wpt;
@@ -495,10 +606,10 @@ int launch(const float* points, const float* in, float* out, int n, int n_out, i
   const size_t smem = smem_bytes<D, F>(tile, n_out);
   if constexpr (Backward) {
     grid_encode_backward_kernel<D, F, Sat><<<blocks, kThreads, smem, stream>>>(
-        points, in, out, n, n_out, n_levels, lv, bits, min_ids, sat, rb, wpt);
+        points, in, out, n, n_out, n_levels, lv, bits, min_ids, src, wpt);
   } else {
     grid_encode_forward_kernel<D, F, Sat><<<blocks, kThreads, smem, stream>>>(
-        points, in, out, n, n_out, n_levels, lv, bits, min_ids, sat, rb, wpt);
+        points, in, out, n, n_out, n_levels, lv, bits, min_ids, src, wpt);
   }
   return cnc_last_error();
 }
@@ -506,33 +617,108 @@ int launch(const float* points, const float* in, float* out, int n, int n_out, i
 template <int D, int F, bool Backward>
 int launch_with(const float* points, const float* in, float* out, int n, int n_out,
                 int n_levels, const Levels& lv, const uint32_t* bits, const int* min_ids,
-                const int* sat, int rb, cudaStream_t stream) {
-  if (sat)
-    return launch<D, F, Backward, true>(points, in, out, n, n_out, n_levels, lv, nullptr,
-                                        min_ids, sat, rb, stream);
+                const SatSrc& src, cudaStream_t stream) {
+  if (src.rows)
+    return launch<D, F, Backward, true>(points, in, out, n, n_out, n_levels, lv, bits, min_ids,
+                                        src, stream);
   return launch<D, F, Backward, false>(points, in, out, n, n_out, n_levels, lv, bits, min_ids,
-                                       nullptr, 0, stream);
+                                       src, stream);
 }
 
 template <bool Backward>
 int encode(const float* points, const float* in, float* out, int n, int d, int f, int n_out,
            int n_levels, const int* res, const int* offsets, const int* sizes,
-           const uint32_t* bits, const long long* mask_offs, const int* min_ids, const int* sat,
-           int rb, void* stream) {
+           const uint32_t* bits, const long long* mask_offs, const int* min_ids, int rb,
+           const unsigned long long* rows, void* stream) {
   Levels lv;
   if (!fill_levels(&lv, d, n_out, n_levels, res, offsets, sizes, mask_offs) ||
-      (!min_ids && n_out != n_levels) || (sat && (bits || rb < 1)))
+      (!min_ids && n_out != n_levels) || (rows && rb < 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  // with the rows, a coarse level reads the packed bits; a fine one needs them
+  for (int l = 0; l < n_levels; ++l)
+    if (mask_offs[l] < 0 ? !rows : rows && !bits) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const SatSrc src{rows, rb, (rb + 31) / 32};
   const auto go = [&](auto kernel) {
-    return kernel(points, in, out, n, n_out, n_levels, lv, bits, min_ids, sat, rb, s);
+    return kernel(points, in, out, n, n_out, n_levels, lv, bits, min_ids, src, s);
   };
   if (d == 2 && f == 2) return go(launch_with<2, 2, Backward>);
   if (d == 2 && f == 4) return go(launch_with<2, 4, Backward>);
   if (d == 3 && f == 2) return go(launch_with<3, 2, Backward>);
   if (d == 3 && f == 4) return go(launch_with<3, 4, Backward>);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1s/K2s's mask sources (see the header).  The jobs are the coarse levels,
+// whose R^D vertices (last axis fastest) become bits of `bits` from word
+// word_off, then, when `rows` is given, the occupancy rows; their words are
+// numbered one after the other (job j's end in job_end[j]) and a warp makes
+// one word: its lanes take 32 consecutive vertices (cells), so the table
+// reads of a warp fall on neighbouring entries, and the ballot is the word.
+// The grid covers the words and nothing else.  Bound on the H100:
+// operations, 2^D table reads and a footprint box (6 a axis) a vertex;
+// bytes, the table read once and the words written once.
+struct CoarseLevels {
+  int n, n_jobs;
+  int res[kMaxLevels];
+  long long word_off[kMaxLevels];
+  long long job_end[kMaxLevels + 1];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+sat_mask_sources_kernel(const int* __restrict__ sat, int rb, CoarseLevels cl,
+                        uint32_t* __restrict__ bits, uint32_t* __restrict__ rows32) {
+  const int lane = threadIdx.x & 31;
+  long long w = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (w >= cl.job_end[cl.n_jobs - 1]) return;   // the warp leaves together
+  int job = 0;
+  while (w >= cl.job_end[job]) ++job;
+  if (job > 0) w -= cl.job_end[job - 1];
+  bool bit = false;
+  if (job < cl.n) {
+    const int res = cl.res[job];
+    long long n_vert = 1;
+    for (int ax = 0; ax < D; ++ax) n_vert *= res;
+    long long flat = w * 32 + lane;
+    if (flat < n_vert) {
+      int cc[D];
+#pragma unroll
+      for (int ax = D - 1; ax >= 0; --ax) {
+        cc[ax] = static_cast<int>(flat % res);
+        flat /= res;
+      }
+      bit = footprint_any<D>(cc, res, sat, rb);
+    }
+    const unsigned word = __ballot_sync(kFull, bit);
+    if (lane == 0) bits[cl.word_off[job] + w] = word;
+    return;
+  }
+  const int nw = (rb + 31) / 32;
+  const long long row = w / nw;
+  const int k = static_cast<int>(w % nw);
+  const int i_last = k * 32 + lane;
+  if (i_last < rb) {
+    int cell[D];
+    long long r = row;
+#pragma unroll
+    for (int ax = D - 2; ax >= 0; --ax) {
+      cell[ax] = static_cast<int>(r % rb);
+      r /= rb;
+    }
+    cell[D - 1] = i_last;
+    bit = box_count<D>(sat, rb, cell, cell) > 0;
+  }
+  const unsigned word = __ballot_sync(kFull, bit);
+  if (lane == 0) {
+    // word k is the low half of window k and the high half of window k-1;
+    // the last window's high half is 0
+    const long long at = 2 * (row * nw + k);
+    rows32[at] = word;
+    if (k > 0) rows32[at - 1] = word;
+    if (k == nw - 1) rows32[at + 1] = 0u;
+  }
 }
 
 // The mask packing: one thread a word, the warp's 32 words stored as one
@@ -569,30 +755,70 @@ __global__ void pack_mask_bits_kernel(const unsigned char* __restrict__ mask, lo
 // wrapper has checked offsets[l] + sizes[l] <= rows < 2^31 and that each
 // level's mask grid lies inside `bits`.  bits (the packed mask, int32 words)
 // and min_ids (int32 [n]) are device pointers or null; without min_ids,
-// n_out == n_levels.  sat (K1s: the summed-area table, int32 [rb+1]^d) is a
-// device pointer or null, and null whenever bits is not.
+// n_out == n_levels.  K1s: `bits` and `rows` are the sources
+// `cnc_sat_mask_sources` made from a summed-area table of side rb + 1, and
+// mask_offs[l] is -1 at a fine level, which reads `rows` (null when no
+// level is fine).
 CNC_EXPORT int cnc_grid_encode_forward(const float* points, const float* table, float* out,
                                        int n, int d, int f, int n_out, int n_levels,
                                        const int* res, const int* offsets, const int* sizes,
                                        const uint32_t* bits, const long long* mask_offs,
-                                       const int* min_ids, const int* sat, int rb,
-                                       void* stream) {
+                                       const int* min_ids, int rb,
+                                       const unsigned long long* rows, void* stream) {
   return encode<false>(points, table, out, n, d, f, n_out, n_levels, res, offsets, sizes, bits,
-                       mask_offs, min_ids, sat, rb, stream);
+                       mask_offs, min_ids, rb, rows, stream);
 }
 
 // K2.  points [n, d] f32, grad [n, n_out*f] f32 (4*f-byte aligned), d_table
 // [rows, f] f32 zeroed by the caller and 4*f-byte aligned; levels, bits,
-// min_ids and sat as in the forward (K2s with sat).  Adds every point's share
-// of grad into d_table.
+// min_ids, rb and rows as in the forward (K2s: the forward's sources).
+// Adds every point's share of grad into d_table.
 CNC_EXPORT int cnc_grid_encode_backward(const float* points, const float* grad, float* d_table,
                                         int n, int d, int f, int n_out, int n_levels,
                                         const int* res, const int* offsets, const int* sizes,
                                         const uint32_t* bits, const long long* mask_offs,
-                                        const int* min_ids, const int* sat, int rb,
-                                        void* stream) {
+                                        const int* min_ids, int rb,
+                                        const unsigned long long* rows, void* stream) {
   return encode<true>(points, grad, d_table, n, d, f, n_out, n_levels, res, offsets, sizes, bits,
-                      mask_offs, min_ids, sat, rb, stream);
+                      mask_offs, min_ids, rb, rows, stream);
+}
+
+// K1s/K2s's mask sources of the table sat (int32 [rb+1]^d on the device):
+// for each of the n_coarse levels (host arrays res and word_offs) the
+// vertices' bits into `bits` (int32 words) from word word_offs[j]; with
+// `rows` (int64 [rb^(d-1), ceil(rb/32)]), the occupancy rows.  One launch.
+CNC_EXPORT int cnc_sat_mask_sources(const int* sat, int d, int rb, int n_coarse, const int* res,
+                                    const long long* word_offs, uint32_t* bits, void* rows,
+                                    void* stream) {
+  if ((d != 2 && d != 3) || rb < 1 || n_coarse < 0 || n_coarse > kMaxLevels ||
+      (n_coarse > 0 && !bits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CoarseLevels cl;
+  cl.n = n_coarse;
+  cl.n_jobs = n_coarse + (rows ? 1 : 0);
+  long long words = 0;
+  for (int j = 0; j < n_coarse; ++j) {
+    if (res[j] < 3) return static_cast<int>(cudaErrorInvalidValue);
+    cl.res[j] = res[j];
+    cl.word_off[j] = word_offs[j];
+    long long n_vert = 1;
+    for (int ax = 0; ax < d; ++ax) n_vert *= res[j];
+    cl.job_end[j] = words += (n_vert + 31) / 32;
+  }
+  if (rows) {
+    long long n_rows = 1;
+    for (int ax = 1; ax < d; ++ax) n_rows *= rb;
+    cl.job_end[n_coarse] = words += n_rows * ((rb + 31) / 32);
+  }
+  if (words == 0) return 0;
+  const unsigned grid = static_cast<unsigned>((words + kWarps - 1) / kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* rows32 = static_cast<uint32_t*>(rows);
+  if (d == 2)
+    sat_mask_sources_kernel<2><<<grid, kThreads, 0, s>>>(sat, rb, cl, bits, rows32);
+  else
+    sat_mask_sources_kernel<3><<<grid, kThreads, 0, s>>>(sat, rb, cl, bits, rows32);
+  return cnc_last_error();
 }
 
 // The packed copy of a bool mask [rows, cols] (contiguous on the device):

@@ -36,17 +36,21 @@ corner masking (gridencoder.cu:222-276): with `occ_binary` (an Rb^D bool
 occupancy grid) or its prebuilt table `occ_sat` (`ops/sat.build_sat`), a
 corner is also dropped when its +-1-cell footprint on the Rb grid holds no
 occupied cell.  The twin asks `sat.occupancy_mask`; on the card K1s/K2s, the
-same two kernels instantiated with the table as their mask source, read the
-table themselves (2^D gathers a live corner).  `occ_mask` wins when both
-forms are given, as in cnc_tpu.
+same two kernels instantiated with the table as their mask source, read
+the sources one launch makes from it (`sat_mask_sources`): the packed
+corner bits of the coarse levels and the occupancy itself, one bit a cell,
+for the fine ones (R - 2 > Rb), whose corners share one window of it
+(csrc/grid_encode.cu).  The backward reuses the forward's sources.
+`occ_mask` wins when both forms are given, as in cnc_tpu.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -200,6 +204,140 @@ def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _windows_fit(r, rb):
+    """Whether every window a point of a resolution-r level reads on the Rb
+    grid spans at most 4 cells an axis: the union of the footprint boxes of
+    lattice coordinates pg and pg + 1, pg in [0, r - 2], formed in the float32
+    steps of `sat.footprint_box` and of the kernels (csrc/grid_encode.cu
+    `fine_mask`, which holds 4 cells an axis)."""
+    scale = np.float32(1) / np.float32(r - 2)
+    pn = (np.arange(r, dtype=np.float32) - np.float32(0.5)) * scale
+    lo = np.clip((pn - scale) * np.float32(rb), 0, rb - 1).astype(np.int64)
+    hi = np.clip((pn + scale) * np.float32(rb), 0, rb - 1).astype(np.int64)
+    span = np.maximum(hi[:-1], hi[1:]) - np.minimum(lo[:-1], lo[1:])
+    return bool((span < 4).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _sat_layout(d, resolutions, rb):
+    """K1s/K2s's split of a level description against an Rb grid.  A level
+    is fine when R - 2 > Rb (its footprint box is under two cells wide) and
+    its windows fit (`_windows_fit`), so that the kernels decide its corners
+    from the occupancy rows; else coarse (its vertices get a bit each; R^D
+    <= (Rb+2)^D where R - 2 <= Rb).  Returns (each level's bit offset in
+    the coarse bits, -1 at a fine level; the coarse levels' (R, first word);
+    the words in all; whether a level is fine)."""
+    moffs, coarse, words = [], [], 0
+    for r in resolutions:
+        r = int(r)
+        if r - 2 > rb and _windows_fit(r, rb):
+            moffs.append(-1)
+        else:
+            moffs.append(32 * words)
+            coarse.append((r, words))
+            words += -(-r ** d // 32)
+    return tuple(moffs), tuple(coarse), words, -1 in moffs
+
+
+@functools.lru_cache(maxsize=None)
+def _sat_ctypes(d, resolutions, rb):
+    """The layout's ctypes arrays, made on first use only: the coarse
+    levels' resolutions and first words (the sources launch) and every
+    level's bit offset (the encodes)."""
+    moffs, coarse, _, _ = _sat_layout(d, resolutions, rb)
+    n = max(len(coarse), 1)
+    return ((ctypes.c_int * n)(*[r for r, _ in coarse]),
+            (ctypes.c_longlong * n)(*[w for _, w in coarse]),
+            (ctypes.c_longlong * len(moffs))(*moffs))
+
+
+class SatSources(NamedTuple):
+    """What K1s/K2s read in place of the summed-area table (`sat_mask_sources`):
+    `bits`, int32 words, each coarse level's vertices (last axis fastest) from
+    its bit offset in `_sat_layout`, set where the footprint holds an
+    occupied cell; `rows`, for the fine levels (else None), the occupancy
+    one bit a cell, int64 [Rb^(D-1), ceil(Rb/32)]: row (i0*Rb + i1) in 3D,
+    i0 in 2D, window k holding the row's words k and k+1 (low, high), bit
+    i of word k the cell at last-axis coordinate 32k + i."""
+    bits: torch.Tensor
+    rows: Optional[torch.Tensor]
+
+
+def _lattice(r, d, device):
+    """Every vertex of an r^d lattice, last axis fastest: [r^d, d] int64."""
+    axes = torch.meshgrid(*[torch.arange(r, device=device)] * d, indexing="ij")
+    return torch.stack([a.reshape(-1) for a in axes], dim=-1)
+
+
+def _sat_sources_plain(occ_sat: torch.Tensor, resolutions) -> SatSources:
+    """The plain twin of the sources kernel, through ops/sat.py's queries."""
+    d, rb = occ_sat.dim(), occ_sat.shape[0] - 1
+    _, coarse, words, fine = _sat_layout(d, tuple(int(r) for r in resolutions), rb)
+    bits = torch.zeros(max(words, 1), dtype=torch.int32, device=occ_sat.device)
+    for r, w0 in coarse:
+        live = sat_ops.occupancy_mask(occ_sat, _lattice(r, d, occ_sat.device), r, rb)
+        packed = _pack_bits_plain(live)
+        bits[w0:w0 + packed.numel()] = packed
+    rows = None
+    if fine:
+        cells = _lattice(rb, d, occ_sat.device)
+        occ = sat_ops.box_count(occ_sat, cells, cells) > 0
+        w = _pack_bits_plain(occ.reshape(-1, rb)).to(torch.int64) & 0xFFFFFFFF
+        nxt = torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], dim=1)
+        nxt = torch.where(nxt >= 2 ** 31, nxt - 2 ** 32, nxt)    # the high half, signed
+        rows = (nxt << 32) | w
+    return SatSources(bits, rows)
+
+
+def sat_mask_sources(occ_sat: torch.Tensor, resolutions: Sequence[int]) -> SatSources:
+    """K1s/K2s's mask sources of the summed-area table `occ_sat` (int32
+    [Rb+1]^D, `sat.build_sat`) for a level description (`SatSources`); the
+    encodes make them on every call without `sat_src`, and the autograd
+    path hands the forward's to the backward.  A CPU tensor takes the plain
+    twin, a CUDA tensor one launch of the sources kernel
+    (csrc/grid_encode.cu)."""
+    if not occ_sat.is_cuda:
+        return _sat_sources_plain(occ_sat, resolutions)
+    kernels.require_cuda("sat_mask_sources", occ_sat)
+    _check_sat(occ_sat.dim(), occ_sat, "sat_mask_sources")
+    return _sat_sources_cuda(occ_sat, tuple(int(r) for r in resolutions))
+
+
+def _sat_sources_cuda(occ_sat, resolutions, stream=None):
+    """The sources launch on a table that has passed `_check_sat`
+    (`resolutions` a tuple of ints)."""
+    d, rb = occ_sat.dim(), occ_sat.shape[0] - 1
+    _, coarse, words, fine = _sat_layout(d, resolutions, rb)
+    res_arr, word_arr, _ = _sat_ctypes(d, resolutions, rb)
+    bits = torch.empty(max(words, 1), dtype=torch.int32, device=occ_sat.device)
+    rows = (torch.empty(rb ** (d - 1), (rb + 31) // 32, dtype=torch.int64, device=occ_sat.device)
+            if fine else None)
+    kernels.call("cnc_sat_mask_sources", kernels.ptr(occ_sat), d, rb, len(coarse), res_arr,
+                 word_arr, kernels.ptr(bits), kernels.ptr(rows), stream=stream)
+    kernels.launches["sat_mask_sources"] += 1
+    return SatSources(bits, rows)
+
+
+def _check_sat(d, occ_sat, name):
+    rb = occ_sat.shape[0] - 1
+    if (occ_sat.dtype != torch.int32 or occ_sat.dim() != d or rb < 1
+            or occ_sat.shape != (rb + 1,) * d or occ_sat.numel() >= 2 ** 31):
+        raise ValueError(f"{name}: occ_sat must be the int32 [Rb+1]^D table of "
+                         "sat.build_sat(occ_binary), D the points' dimension")
+
+
+def _sources(name, points, resolutions, occ_mask, occ_sat, sat_src, stream=None):
+    """The sources a K1s/K2s launch reads, and whether they were made here:
+    `sat_src` when given, else made from `occ_sat` once it passes the
+    checks (None without a table, or with `occ_mask`, which the checks then
+    refuse beside a table)."""
+    if occ_sat is None or occ_mask is not None or sat_src is not None:
+        return sat_src, False
+    kernels.require_cuda(name, points, occ_sat)
+    _check_sat(points.shape[1], occ_sat, name)
+    return _sat_sources_cuda(occ_sat, tuple(int(r) for r in resolutions), stream), True
+
+
 @functools.lru_cache(maxsize=None)
 def _levels(name, d, f, resolutions, offsets, mask_offsets, n_levels_calc):
     """(n_out, n_levels, the ctypes level arrays, the end of the last mask
@@ -232,11 +370,15 @@ def _levels(name, d, f, resolutions, offsets, mask_offsets, n_levels_calc):
 
 
 def _check_cuda_args(name, points, other, f, resolutions, offsets, rows, occ_mask, mask_offsets,
-                     occ_bits, min_level_ids, n_levels_calc, occ_sat=None):
+                     occ_bits, min_level_ids, n_levels_calc, occ_sat=None, sat_src=None,
+                     made=False):
     """What K1 and K2 take; returns (n_out, the kernel's level arguments).
     The level description is checked once (`_levels`), the tensors on every
-    call."""
-    kernels.require_cuda(name, points, other, occ_mask, occ_bits, min_level_ids, occ_sat)
+    call.  With `occ_sat`, `sat_src` are its sources for these levels; when
+    they were `made` from it in this call (`_sources`), the table and they
+    are not checked again."""
+    kernels.require_cuda(name, points, other, occ_mask, occ_bits, min_level_ids,
+                         *(() if made else (occ_sat, *(sat_src or ()))))
     if points.dtype != torch.float32 or other.dtype != torch.float32:
         raise ValueError(f"{name}: points, table and gradient must be float32")
     n, d = points.shape
@@ -264,18 +406,28 @@ def _check_cuda_args(name, points, other, f, resolutions, offsets, rows, occ_mas
     if min_level_ids is not None and (min_level_ids.dtype != torch.int32
                                       or min_level_ids.shape != (n,)):
         raise ValueError(f"{name}: min_level_ids must be int32 [N]")
-    rb = 0
+    rb, sat_rows = 0, None
+    bits = kernels.ptr(occ_bits) if occ_mask is not None else None
     if occ_sat is not None:
         if occ_mask is not None:
             raise ValueError(f"{name}: pass one mask form, occ_mask or occ_sat")
+        if not made:
+            _check_sat(d, occ_sat, name)
         rb = occ_sat.shape[0] - 1
-        if (occ_sat.dtype != torch.int32 or occ_sat.dim() != d or rb < 1
-                or occ_sat.shape != (rb + 1,) * d or occ_sat.numel() >= 2 ** 31):
-            raise ValueError(f"{name}: occ_sat must be the int32 [Rb+1]^D table of "
-                             "sat.build_sat(occ_binary), D the points' dimension")
-    bits = kernels.ptr(occ_bits) if occ_mask is not None else None
+        resolutions = tuple(int(r) for r in resolutions)
+        src_bits, src_rows = sat_src
+        if not made:
+            _, _, words, fine = _sat_layout(d, resolutions, rb)
+            if (src_bits.dtype != torch.int32 or src_bits.dim() != 1 or src_bits.numel() < words
+                    or (src_rows is None) == fine
+                    or (fine and (src_rows.dtype != torch.int64
+                                  or src_rows.shape != (rb ** (d - 1), (rb + 31) // 32)))):
+                raise ValueError(f"{name}: sat_src must be sat_mask_sources(occ_sat, "
+                                 "resolutions)")
+        bits, sat_rows = kernels.ptr(src_bits), kernels.ptr(src_rows)
+        moffs = _sat_ctypes(d, resolutions, rb)[2]
     return n_out, (n_out, n_levels, res, offs, sizes, bits, moffs, kernels.ptr(min_level_ids),
-                   kernels.ptr(occ_sat), rb)
+                   rb, sat_rows)
 
 
 def _launch_name(occ_mask, min_level_ids, occ_sat):
@@ -288,33 +440,48 @@ def _launch_name(occ_mask, min_level_ids, occ_sat):
 
 
 def _encode_cuda(points, table, resolutions, offsets, occ_mask=None, mask_offsets=None,
-                 occ_bits=None, min_level_ids=None, n_levels_calc=None, occ_sat=None):
+                 occ_bits=None, min_level_ids=None, n_levels_calc=None, occ_sat=None,
+                 sat_src=None):
+    """K1 (K1v, K1s): the encode's forward on the card.  With `occ_sat` and
+    no `sat_src`, its sources are made first (one more launch)."""
+    return _forward_cuda(points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits,
+                         min_level_ids, n_levels_calc, occ_sat, sat_src)[0]
+
+
+def _forward_cuda(points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits,
+                  min_level_ids, n_levels_calc, occ_sat, sat_src):
+    """`_encode_cuda`'s launches; returns (out, the sources K1s read)."""
     n, d = points.shape
     f = table.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream if occ_sat is not None else None
+    sat_src, made = _sources("grid_encode", points, resolutions, occ_mask, occ_sat, sat_src,
+                             stream)
     n_out, levels = _check_cuda_args("grid_encode", points, table, f, resolutions, offsets,
                                      table.shape[0], occ_mask, mask_offsets, occ_bits,
-                                     min_level_ids, n_levels_calc, occ_sat)
+                                     min_level_ids, n_levels_calc, occ_sat, sat_src, made)
     out = torch.empty(n, n_out * f, dtype=torch.float32, device=points.device)
     kernels.call("cnc_grid_encode_forward", kernels.ptr(points), kernels.ptr(table),
-                 kernels.ptr(out), n, d, f, *levels)
+                 kernels.ptr(out), n, d, f, *levels, stream=stream)
     kernels.launches[_launch_name(occ_mask, min_level_ids, occ_sat)] += 1
-    return out
+    return out, sat_src
 
 
 def _encode_backward_cuda(points, grad, rows, resolutions, offsets, occ_mask=None,
                           mask_offsets=None, occ_bits=None, min_level_ids=None,
-                          n_levels_calc=None, occ_sat=None):
+                          n_levels_calc=None, occ_sat=None, sat_src=None):
     """K2: d_table [rows, F] of `_encode_cuda` for the output gradient `grad`
     [N, L*F].  The sum runs through float atomics, so its order, and the last
-    bits of the result, vary from run to run."""
+    bits of the result, vary from run to run.  K2s takes the forward's
+    `sat_src` (made here when not given)."""
     n, d = points.shape
     n_out = len(resolutions) if min_level_ids is None else int(n_levels_calc)
     if grad.dim() != 2 or grad.shape[0] != n or grad.shape[1] % n_out:
         raise ValueError("grid_encode_bwd: grad must be [N, L*F]")
     f = grad.shape[1] // n_out
+    sat_src, made = _sources("grid_encode_bwd", points, resolutions, occ_mask, occ_sat, sat_src)
     _, levels = _check_cuda_args("grid_encode_bwd", points, grad, f, resolutions, offsets, rows,
                                  occ_mask, mask_offsets, occ_bits, min_level_ids, n_levels_calc,
-                                 occ_sat)
+                                 occ_sat, sat_src, made)
     d_table = torch.zeros(rows, f, dtype=torch.float32, device=points.device)
     kernels.call("cnc_grid_encode_backward", kernels.ptr(points), kernels.ptr(grad),
                  kernels.ptr(d_table), n, d, f, *levels)
@@ -323,23 +490,28 @@ def _encode_backward_cuda(points, grad, rows, resolutions, offsets, occ_mask=Non
 
 
 class _GridEncodeCuda(torch.autograd.Function):
-    """K1 forward, K2 backward; a gradient for the table only."""
+    """K1 forward, K2 backward; a gradient for the table only.  With a
+    summed-area table the forward makes its mask sources once and the
+    backward reuses them."""
 
     @staticmethod
     def forward(ctx, points, table, resolutions, offsets, occ_mask, mask_offsets, occ_bits,
                 min_level_ids, n_levels_calc, occ_sat):
-        ctx.save_for_backward(points, occ_mask, occ_bits, min_level_ids, occ_sat)
+        out, src = _forward_cuda(points, table, resolutions, offsets, occ_mask, mask_offsets,
+                                 occ_bits, min_level_ids, n_levels_calc, occ_sat, None)
+        ctx.save_for_backward(points, occ_mask, occ_bits, min_level_ids, occ_sat,
+                              *(src or (None, None)))
         ctx.levels = (table.shape[0], resolutions, offsets, mask_offsets, n_levels_calc)
-        return _encode_cuda(points, table, resolutions, offsets, occ_mask, mask_offsets,
-                            occ_bits, min_level_ids, n_levels_calc, occ_sat)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        points, occ_mask, occ_bits, min_level_ids, occ_sat = ctx.saved_tensors
+        points, occ_mask, occ_bits, min_level_ids, occ_sat, *src = ctx.saved_tensors
         rows, resolutions, offsets, mask_offsets, n_levels_calc = ctx.levels
         d_table = _encode_backward_cuda(points, grad.contiguous(), rows, resolutions, offsets,
                                         occ_mask, mask_offsets, occ_bits, min_level_ids,
-                                        n_levels_calc, occ_sat)
+                                        n_levels_calc, occ_sat,
+                                        None if src[0] is None else SatSources(*src))
         return (None, d_table) + (None,) * 8
 
 

@@ -13,8 +13,9 @@ Plain torch in cnc_tpu's operation order: the integer results are exact and
 the float overlap matches cnc_tpu to rounding.  `build_sat` is an int32
 `torch.cumsum` per axis on either device (an XLA cumsum in cnc_tpu, on no
 hot path).  On the card the encode's corner masking does not come here: the
-K1s/K2s kernels (csrc/grid_encode.cu) read the table themselves, and
-`occupancy_mask` is their plain twin.
+K1s/K2s kernels (csrc/grid_encode.cu) read sources one launch makes from
+the table (`ops/encoding.sat_mask_sources`), and `occupancy_mask` is their
+plain twin.
 """
 
 from __future__ import annotations

@@ -81,10 +81,19 @@ and outside the border; the forward bit-equal to its twin and the backward
 within 1e-4 of the largest entry, each counted as K1s/K2s; the public
 encodes with `occ_binary` and `occ_sat` (mixed levels, a given table,
 autograd through K2s, `occ_mask` winning over the table) and the
-wrapper's refusals of a malformed table.
+wrapper's refusals of a malformed table; the sources K1s/K2s read (one
+launch a forward: the coarse levels' corner bits and the occupancy rows)
+equal to their twin at Rb = 128 and a ragged Rb = 40 on random, empty,
+full, single-cell and edge grids, the encodes bit-equal (K2s within 1e-4)
+at Rb = 128 over levels on both sides of the coarse/fine split (R - 2 =
+Rb and Rb + 1), F 2 and 4, points on the cube's faces, corners and
+outside it, mixed levels, the backward on the forward's sources (no
+second sources launch through autograd), and a fine level whose windows
+the layout declares unfit encoded through the coarse path.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1986,3 +1995,170 @@ def test_sat_masked_encode_refusals(dev):
     with pytest.raises(ValueError, match="one mask form"):
         enc._encode_cuda(pts, table, (10,), (0, 1024), occ_mask=mask, mask_offsets=(0,),
                          occ_bits=enc.pack_mask_bits(mask), occ_sat=good)
+
+
+# K1s/K2s read sources that one launch makes from the table: the coarse
+# levels' corner bits (R - 2 <= Rb) and the occupancy rows the fine levels'
+# windows read (csrc/grid_encode.cu); tests/test_torch_sat_sources.py holds
+# the same arithmetic to cnc_tpu on the CPU.
+SAT_SPLIT_GRIDS = ["random", "empty", "full", "single"]
+
+
+def _split_grid(dev, d, rb, kind, g):
+    if kind == "random":
+        return torch.rand((rb,) * d, generator=g, device=dev) < 0.03
+    if kind == "single":
+        occ = torch.zeros((rb,) * d, dtype=torch.bool, device=dev)
+        occ[tuple(int(i) for i in torch.randint(0, rb, (d,), generator=g, device=dev))] = True
+        return occ
+    return torch.full((rb,) * d, kind == "full", dtype=torch.bool, device=dev)
+
+
+def _split_spec(d):
+    """The default grids' levels (grid_3d: 7 coarse, 5 fine at Rb = 128;
+    grid_2d: 1 coarse, 3 fine) with the split's two sides (R - 2 = Rb and
+    Rb + 1), F set by the caller."""
+    res = ((18, 24, 33, 44, 59, 80, 108, 130, 131, 148, 201, 275, 376, 514) if d == 3
+           else (18, 130, 131, 258, 514, 1026))
+    return res
+
+
+@pytest.mark.parametrize("kind", SAT_SPLIT_GRIDS + ["edges"])
+@pytest.mark.parametrize("rb", [128, 40])
+@pytest.mark.parametrize("d", [2, 3])
+def test_sat_mask_sources_kernel(dev, d, rb, kind):
+    """The sources kernel equal to its twin (the coarse words and the
+    occupancy rows) in one launch, at Rb = 128 and at a ragged Rb = 40."""
+    g = torch.Generator(device=dev).manual_seed(d * 1000 + rb + len(kind))
+    occ = (_sat_inputs(dev, d, 2, "edges_only", rb)[4] if kind == "edges"
+           else _split_grid(dev, d, rb, kind, g))
+    sat = sat_ops.build_sat(occ)
+    res = _split_spec(d)
+    _, _, words, _ = enc._sat_layout(d, res, rb)
+    before = kernels.launches["sat_mask_sources"]
+    got = enc.sat_mask_sources(sat, res)
+    assert kernels.launches["sat_mask_sources"] == before + 1
+    want = enc._sat_sources_plain(sat, res)
+    torch.cuda.synchronize()
+    assert torch.equal(got.bits[:words], want.bits[:words])
+    assert torch.equal(got.rows, want.rows)
+    # a description with no fine level makes no rows
+    assert enc.sat_mask_sources(sat, (10, 18)).rows is None
+
+
+@pytest.mark.parametrize("kind", SAT_SPLIT_GRIDS)
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("d", [2, 3])
+def test_sat_masked_encode_both_sides_of_the_split(dev, d, f, kind):
+    """At Rb = 128 over levels on both sides of the coarse/fine split, with
+    points on the cube's faces and corners and outside it: K1s bit-equal to
+    its twin, K2s within 1e-4 of the largest entry of the twin's autograd,
+    on sources made once; the mixed-level encode likewise."""
+    rb = 128
+    g = torch.Generator(device=dev).manual_seed(d * 100 + f * 10 + SAT_SPLIT_GRIDS.index(kind))
+    res = _split_spec(d)
+    spec = GridSpec(num_dim=d, n_features=f, resolutions=res, log2_hashmap_size=14)
+    pts = torch.rand(6000, d, generator=g, device=dev)
+    pts[:60] = torch.round(pts[:60])                       # the cube's corners
+    pts[60:120, 0] = torch.round(pts[60:120, 0])           # its faces
+    pts[120:180] = pts[120:180] * 1.6 - 0.3                # outside [0, 1]
+    table = torch.randn(spec.total_entries, f, generator=g, device=dev)
+    occ = _split_grid(dev, d, rb, kind, g)
+    sat = sat_ops.build_sat(occ)
+    src = enc.sat_mask_sources(sat, res)
+    got = enc._encode_cuda(pts, table, res, spec.offsets, occ_sat=sat, sat_src=src)
+    leaf = table.clone().requires_grad_()
+    want = enc._encode_plain(pts, leaf, res, spec.offsets, occ_sat=sat)
+    assert torch.equal(got, want.detach())
+    unmasked = enc._encode_plain(pts, table, res, spec.offsets)
+    if kind == "empty":
+        assert not bool(got.any())
+    elif kind == "full":
+        assert torch.equal(got, unmasked)
+    else:
+        assert not torch.equal(got, unmasked) and bool(got.any())
+    cot = torch.randn(got.shape, generator=g, device=dev)
+    before = kernels.launches["sat_mask_sources"]
+    d_table = enc._encode_backward_cuda(pts, cot, table.shape[0], res, spec.offsets,
+                                        occ_sat=sat, sat_src=src)
+    assert kernels.launches["sat_mask_sources"] == before      # the forward's sources
+    (want_d,) = torch.autograd.grad(want, leaf, cot)
+    torch.testing.assert_close(d_table, want_d, rtol=0,
+                               atol=1e-4 * max(float(want_d.abs().max()), 1e-6))
+    ids = torch.randint(-2, len(res), (pts.shape[0],), generator=g, device=dev,
+                        dtype=torch.int32)
+    got = enc._encode_cuda(pts, table, res, spec.offsets, min_level_ids=ids, n_levels_calc=3,
+                           occ_sat=sat, sat_src=src)
+    leaf = table.clone().requires_grad_()
+    want = enc._encode_plain(pts, leaf, res, spec.offsets, min_level_ids=ids,
+                             n_levels_calc=3, occ_sat=sat)
+    assert torch.equal(got, want.detach())
+    cot = torch.randn(got.shape, generator=g, device=dev)
+    d_table = enc._encode_backward_cuda(pts, cot, table.shape[0], res, spec.offsets,
+                                        min_level_ids=ids, n_levels_calc=3, occ_sat=sat,
+                                        sat_src=src)
+    (want_d,) = torch.autograd.grad(want, leaf, cot)
+    torch.testing.assert_close(d_table, want_d, rtol=0,
+                               atol=1e-4 * max(float(want_d.abs().max()), 1e-6))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_sat_masked_autograd_makes_sources_once(dev, d):
+    """grid_encode(occ_binary=) forward and backward through autograd: one
+    sources launch, one K1s, one K2s; the result equals the twin's."""
+    rb = 128
+    g = torch.Generator(device=dev).manual_seed(7 + d)
+    spec = GridSpec(num_dim=d, n_features=4, resolutions=_split_spec(d), log2_hashmap_size=14)
+    pts = torch.rand(4000, d, generator=g, device=dev)
+    tbl = torch.randn(spec.total_entries, 4, generator=g, device=dev)
+    occ = _split_grid(dev, d, rb, "random", g)
+    before = dict(kernels.launches)
+    leaf = tbl.clone().requires_grad_()
+    out = enc.grid_encode(pts, leaf, spec, occ_binary=occ)
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    out.backward(cot)
+    made = {k: kernels.launches[k] - before[k] for k in
+            ("sat_mask_sources", "grid_encode_s", "grid_encode_s_bwd")}
+    assert made == {"sat_mask_sources": 1, "grid_encode_s": 1, "grid_encode_s_bwd": 1}
+    sat = sat_ops.build_sat(occ)
+    ref = tbl.clone().requires_grad_()
+    want = enc._encode_plain(pts, ref, spec.resolutions, spec.offsets, occ_sat=sat)
+    assert torch.equal(out.detach(), want.detach())
+    want.backward(cot)
+    torch.testing.assert_close(leaf.grad, ref.grad, rtol=0,
+                               atol=1e-4 * float(ref.grad.abs().max()))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_sat_masked_unfit_level_goes_coarse(dev, d, monkeypatch):
+    """A fine level (R - 2 > Rb) whose windows the layout declares unfit
+    (`_windows_fit`) gets vertex bits from the sources kernel, equal to
+    their twin, and no occupancy rows; K1s through the coarse path is
+    bit-equal to the twin and K2s within 1e-4."""
+    rb = 32
+    g = torch.Generator(device=dev).manual_seed(40 + d)
+    res = (12, 66)
+    sizes = (12 ** d, 2048)
+    offsets = tuple(int(x) for x in np.cumsum((0,) + sizes))
+    fits = enc._windows_fit
+    for cache in (enc._sat_layout, enc._sat_ctypes):
+        monkeypatch.setattr(enc, cache.__name__, functools.lru_cache(cache.__wrapped__))
+    monkeypatch.setattr(enc, "_windows_fit", lambda r, rb: r != 66 and fits(r, rb))
+    assert enc._sat_layout(d, res, rb)[3] is False
+    pts = torch.rand(3000, d, generator=g, device=dev)
+    table = torch.randn(offsets[-1], 4, generator=g, device=dev)
+    sat = sat_ops.build_sat(_split_grid(dev, d, rb, "random", g))
+    src = enc.sat_mask_sources(sat, res)
+    want_src = enc._sat_sources_plain(sat, res)
+    assert src.rows is None and torch.equal(src.bits, want_src.bits)
+    out = enc._encode_cuda(pts, table, res, offsets, occ_sat=sat, sat_src=src)
+    want = enc._encode_plain(pts, table, res, offsets, occ_sat=sat)
+    assert torch.equal(out, want)
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    d_table = enc._encode_backward_cuda(pts, cot, table.shape[0], res, offsets, occ_sat=sat,
+                                        sat_src=src)
+    leaf = table.clone().requires_grad_()
+    (want_d,) = torch.autograd.grad(enc._encode_plain(pts, leaf, res, offsets, occ_sat=sat),
+                                    leaf, cot)
+    torch.testing.assert_close(d_table, want_d, rtol=0,
+                               atol=1e-4 * max(float(want_d.abs().max()), 1e-6))

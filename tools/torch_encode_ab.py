@@ -5,6 +5,9 @@ on one NVIDIA GPU, at the shapes `chip_smoke.py` checks them at.
     python3 tools/torch_encode_ab.py prepare WORK
     python3 tools/torch_encode_ab.py time WORK TREE LABEL >> LOG
     python3 tools/torch_encode_ab.py summary LOG
+    python3 tools/torch_encode_ab.py sat prepare WORK
+    python3 tools/torch_encode_ab.py sat time WORK TREE LABEL >> LOG
+    python3 tools/torch_encode_ab.py sat summary LOG
 
 `prepare` makes the inputs with this tree's cnc_torch and saves them to
 WORK/inputs.pt: K1 at the first round of the smoke's 800x800 view (random
@@ -33,6 +36,21 @@ Times vary between calls by up to 1.5x: compare trees only within one call,
 in turns (a, b, b, a), e.g.
 
     for t in v0 v1 v1 v0; do python3 tools/torch_encode_ab.py time WORK trees/$t $t; done
+
+`sat` does the same for the SAT-masked encodes (K1s/K2s) at chip_smoke.py's
+[breadth] sites.  `sat prepare` trains the smoke's lambda = 0 run
+(TRAIN_STEPS steps) and saves its 128^3 occupancy grid, its quantized xyz
+and xy tables and 327,680 uniform points (seed SAT_SEED).  `sat time` runs,
+per site (grid_3d on the points, the xy plane on their first two
+coordinates with the grid projected along z), the smoke's checks of the
+tree's K1s (bit-equal to its twin) and K2s (within K2_REL_TOL) through
+`_encode_cuda(occ_sat=)` / `_encode_backward_cuda(occ_sat=)`: a whole
+forward call, whatever it launches; the backward as the autograd path
+runs it (in a tree with `sat_mask_sources`, on the forward's sources).
+In such a tree it also times the sources launch alone and K1s on given
+sources, and in every tree K1 and K2 with no mask on the same points and
+table (the floor under the mask, one kernel in both trees).  `sat summary`
+gives each tree's mean ms and device ms per item.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+SAT_SEED = 16                # the points of `sat prepare`
 
 
 def _smoke():
@@ -281,6 +300,102 @@ def summary(path: Path) -> None:
                                                for k in got[0]))
 
 
+def sat_prepare(work: Path) -> None:
+    import torch
+    sys.path.insert(0, str(REPO))
+    cs = _smoke()
+    from cnc_torch import kernels
+    from cnc_torch.config import CNCConfig, TrainConfig
+    from cnc_torch.data import scenes
+    from cnc_torch.models import radiance_field as rf
+    from cnc_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.lib()
+    dev = torch.device("cuda")
+    train_set = scenes.ProceduralDataset("blocks", device=dev)
+    tr = Trainer(CNCConfig(train=dataclasses.replace(TrainConfig(), lmbda=0.0)), train_set)
+    tr.fit(cs.TRAIN_STEPS - 1, log_every=0)
+    cfg = tr.cfg
+    gen = torch.Generator(device=dev).manual_seed(SAT_SEED)
+    pts = torch.rand(cfg.render.sample_capacity, 3, generator=gen, device=dev)
+    with torch.no_grad():
+        tables = {k: v.detach() for k, v in rf.quantized_tables(tr.field, cfg.model).items()}
+    occ = tr.occ_state.binaries
+    inputs = {"occ": occ, "points": pts, "xyz": tables["xyz"], "xy": tables["xy"]}
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(inputs, work / "sat_inputs.pt")
+    print(json.dumps({"prepared": {"points": list(pts.shape), "occupied": int(occ.sum()),
+                                   "cells": occ.numel()}, "card": cs.card_line()}))
+
+
+def sat_time(work: Path, tree: Path, label: str) -> None:
+    import torch
+    sys.path.insert(0, str(tree.resolve()))
+    import cnc_torch
+    from cnc_torch import kernels
+    from cnc_torch.config import CNCConfig
+    from cnc_torch.ops import encoding as enc
+    from cnc_torch.ops import sat as sat_ops
+    if Path(cnc_torch.__file__).resolve().parent != (tree / "cnc_torch").resolve():
+        raise RuntimeError(f"cnc_torch was not imported from {tree}")
+    cs = _smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.lib()
+    inp = torch.load(work / "sat_inputs.pt")
+    model = CNCConfig().model
+    occ, pts = inp["occ"], inp["points"]
+    sites = (("xyz", model.grid_3d, pts, occ),
+             ("xy", model.grid_2d, pts[:, [0, 1]].contiguous(), occ.any(dim=2).contiguous()))
+    sourced = hasattr(enc, "sat_mask_sources")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for key, spec, p, grid in sites:
+        sat = sat_ops.build_sat(grid)
+        table = inp[key]
+        src = enc.sat_mask_sources(sat, spec.resolutions) if sourced else None
+        rec = {"K1s": cs.check_grid_encode(torch, enc, spec, table, p, key, perturb=False,
+                                           name="K1s", occ_sat=sat)}
+        bwd_kw = {"sat_src": src} if sourced else {}
+        rec["K2s"] = cs.check_grid_encode_bwd(torch, enc, spec, table, p, gen, key, name="K2s",
+                                              occ_sat=sat, **bwd_kw)
+        if sourced:
+            rec["sources"] = cs.check_sat_sources(torch, enc, sat, spec.resolutions, key)[1]
+            rec["K1s alone"] = cs.check_grid_encode(torch, enc, spec, table, p, key,
+                                                    perturb=False, name="K1s", occ_sat=sat,
+                                                    sat_src=src)
+        rec["K1 no mask"] = cs.check_grid_encode(torch, enc, spec, table, p, key + ", no mask",
+                                                 perturb=False)
+        rec["K2 no mask"] = cs.check_grid_encode_bwd(torch, enc, spec, table, p, gen,
+                                                     key + ", no mask")
+        out[key] = rec
+    print(json.dumps({"tree": label, "card": cs.card_line(),
+                      "device": torch.cuda.get_device_name(0), "sat_sites": out}))
+
+
+def sat_summary(path: Path) -> None:
+    runs = [json.loads(line) for line in path.read_text().splitlines()
+            if line.startswith('{"tree"') and "sat_sites" in line]
+    trees = list(dict.fromkeys(r["tree"] for r in runs))
+    mean = lambda xs: sum(xs) / len(xs)
+    print(f"{runs[0]['card']}; {len(runs)} runs")
+    print("| site, item | " + " | ".join(f"{t} ms / device ms" for t in trees) + " | bound ms |")
+    print("| --- |" + " --- |" * (len(trees) + 1))
+    items = list(dict.fromkeys(i for r in runs for site in r["sat_sites"].values() for i in site))
+    for site in runs[0]["sat_sites"]:
+        for item in items:
+            cells, bounds = [], []
+            for t in trees:
+                got = [r["sat_sites"][site][item] for r in runs
+                       if r["tree"] == t and item in r["sat_sites"][site]]
+                cells.append(f"{mean([g['ms'] for g in got]):.4f} / "
+                             f"{mean([g['device_ms'] for g in got]):.4f}" if got else "—")
+                bounds.append(f"{got[0]['bound_ms']:.4f}" if got else "—")
+            # a tree's K2s on its own sources reads them, not the table
+            seen = set(bounds) - {"—"}
+            bound = seen.pop() if len(seen) == 1 else " / ".join(bounds)
+            print(f"| {site}, {item} | " + " | ".join(cells) + f" | {bound} |")
+
+
 def _n_out(rec) -> int:
     kw = rec["kw"]
     return kw["n_levels_calc"] if "min_level_ids" in kw else len(rec["resolutions"])
@@ -291,6 +406,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "summary":
         summary(Path(sys.argv[2]))
         return 0
+    if len(sys.argv) == 4 and sys.argv[1:3] == ["sat", "summary"]:
+        sat_summary(Path(sys.argv[3]))
+        return 0
     if not torch.cuda.is_available():
         print("torch_encode_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -298,6 +416,10 @@ def main() -> int:
         prepare(Path(sys.argv[2]))
     elif len(sys.argv) == 5 and sys.argv[1] == "time":
         time_tree(Path(sys.argv[2]), Path(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 4 and sys.argv[1:3] == ["sat", "prepare"]:
+        sat_prepare(Path(sys.argv[3]))
+    elif len(sys.argv) == 6 and sys.argv[1:3] == ["sat", "time"]:
+        sat_time(Path(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -5,7 +5,8 @@ trees, on one NVIDIA GPU, at the shapes `chip_smoke.py` drives them at.
     python3 tools/torch_march_pool_ab.py prepare WORK
     python3 tools/torch_march_pool_ab.py time WORK TREE LABEL >> LOG
     python3 tools/torch_march_pool_ab.py summary LOG
-    python3 tools/torch_march_pool_ab.py jumps SEEDS      (e.g. 0,1,2,3)
+    python3 tools/torch_march_pool_ab.py jumps SEEDS [FORMS]   (e.g. 0,1,2,3 as_is,roomy_buffer)
+    python3 tools/torch_march_pool_ab.py spikes DIR            (e.g. chiprun_out/jumps)
 
 `prepare` makes the inputs with this tree's cnc_torch and saves them to
 WORK/inputs.pt: the smoke's 800x800 view's 8,192 strided rays at the first
@@ -49,14 +50,30 @@ overlap (then the difference is not resolved by the runs).
 
 `jumps` runs chip_smoke.py's lambda = 0 training phase (full width, the
 `blocks` scene, 1,000 steps, the test views read five times 50 steps apart)
-once per seed in each of three forms: as is; with `render.visible_frac` =
-JUMP_VISIBLE_FRAC, which masks the rays a truncated march cut out of the
-loss; and with `train.max_ray_bucket` = JUMP_PINNED_BUCKET, so the march
-(about 25 samples a ray) fits its 327,680 slots.  Per run it prints one JSON
+once per seed in each of the forms named (all four by default): `as_is`;
+`visible_frac`, with `render.visible_frac` = JUMP_VISIBLE_FRAC, which masks
+the rays a truncated march cut out of the loss; `pinned_bucket`, with
+`train.max_ray_bucket` = JUMP_PINNED_BUCKET, so the march (about 25 samples
+a ray) fits its 327,680 slots; and `roomy_buffer`, with
+`render.sample_budget_slack` = JUMP_ROOMY_SLACK, which sizes the buffer at
+425,984 slots (1.3x), above the largest overshoot recorded (413,921), and
+changes nothing else: the ray count still follows the marched count.  The
+first run of that form (the H100, 2026-10) marched up to 551,561 samples a
+step and still overflowed in 267-335 of 1,000 steps, so `no_truncation`
+sizes the buffer at JUMP_NO_TRUNCATION_SLACK (589,824 slots, 1.8x), above
+that, and changes nothing else either.  Per run it prints one JSON
 line: the test PSNR readings and the dips among them (readings JUMP_DB or
 more under the run's best), and how often and how far the march overflowed
 its buffer; each run's per-step history goes to chiprun_out/jumps/.  It
 uses this tree's cnc_torch.
+
+`spikes` reads those histories (no card needed) and prints one line a run:
+the training batch's PSNR spikes from step SPIKE_FROM on (steps whose
+batch PSNR lies SPIKE_DB or more under the median of the SPIKE_WINDOW steps
+before), how many fell on steps whose march overflowed its buffer, the
+overflowing steps, the largest marched count and the batch's median PSNR
+over the last 100 steps.  With the as-is buffer the cut rays stay in the
+loss, so its batch PSNR sits near 19 dB and a spike there says little.
 """
 
 from __future__ import annotations
@@ -73,7 +90,12 @@ REPO = Path(__file__).resolve().parent.parent
 SITES = ("3D context", "2D window")
 JUMP_VISIBLE_FRAC = 0.75     # the pruned buffer holds the ~60% of samples that are visible
 JUMP_PINNED_BUCKET = 8192    # 8,192 rays x ~25 samples fit 327,680 slots
+JUMP_ROOMY_SLACK = 1.625     # 262,144 x 1.625 = 425,984 slots, 1.3x the default 327,680
+JUMP_NO_TRUNCATION_SLACK = 2.25   # 589,824 slots, above the 551,561 marched at most
+JUMP_FORMS = ("as_is", "visible_frac", "pinned_bucket", "roomy_buffer", "no_truncation")
 JUMP_DB = 5.0                # a reading this far under the run's best is a dip
+SPIKE_DB, SPIKE_WINDOW, SPIKE_FROM = 5.0, 20, 300   # `spikes`: a batch this far under the
+                                                    # median of the window before it
 MARCHES = ("view, first round", "view, late round", "training march")
 VIEW_RENDERS = 5             # timed renders of the view per run
 STEP_WINDOWS = 5             # timed windows of 20 lambda > 0 steps per run
@@ -389,7 +411,7 @@ def summary(path: Path) -> None:
         print(f"{item}, run medians (least / median / most): {text}")
 
 
-def jumps(seeds) -> None:
+def jumps(seeds, forms=JUMP_FORMS) -> None:
     import statistics
     import torch
     sys.path.insert(0, str(REPO))
@@ -407,7 +429,7 @@ def jumps(seeds) -> None:
     train_set = scenes.ProceduralDataset("blocks", device=dev)
     test_set = scenes.ProceduralDataset("blocks", n_images=2, split="test", device=dev)
     for seed in seeds:
-        for form in ("as_is", "visible_frac", "pinned_bucket"):
+        for form in forms:
             cfg = CNCConfig(train=dataclasses.replace(TrainConfig(), lmbda=0.0, seed=seed))
             if form == "visible_frac":
                 cfg = dataclasses.replace(cfg, render=dataclasses.replace(
@@ -415,6 +437,10 @@ def jumps(seeds) -> None:
             elif form == "pinned_bucket":
                 cfg = dataclasses.replace(cfg, train=dataclasses.replace(
                     cfg.train, max_ray_bucket=JUMP_PINNED_BUCKET))
+            elif form in ("roomy_buffer", "no_truncation"):
+                slack = JUMP_ROOMY_SLACK if form == "roomy_buffer" else JUMP_NO_TRUNCATION_SLACK
+                cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+                    cfg.render, sample_budget_slack=slack))
             tr = Trainer(cfg, train_set)
             hist = []
 
@@ -432,8 +458,9 @@ def jumps(seeds) -> None:
             cap = cfg.render.sample_capacity
             over = [h[1] / cap for h in hist if h[1] > cap]
             (out_dir / f"seed{seed}_{form}.json").write_text(json.dumps(
-                {"columns": ["mse", "n_marched", "n_visible", "num_rays"], "steps": hist}))
-            print(json.dumps({"seed": seed, "form": form, "dips": dips,
+                {"columns": ["mse", "n_marched", "n_visible", "num_rays"], "capacity": cap,
+                 "steps": hist}))
+            print(json.dumps({"seed": seed, "form": form, "capacity": cap, "dips": dips,
                               "psnr_readings": readings, "psnr_median": scores["psnr"],
                               "overflow_steps": len(over), "steps": len(hist),
                               "overflow_mean": statistics.mean(over) if over else 0.0,
@@ -443,10 +470,35 @@ def jumps(seeds) -> None:
             del tr
 
 
+def spikes(dirname: Path) -> None:
+    import numpy as np
+    from cnc_torch.config import RenderConfig
+    slack = {"roomy_buffer": JUMP_ROOMY_SLACK, "no_truncation": JUMP_NO_TRUNCATION_SLACK}
+    for path in sorted(dirname.glob("seed*_*.json")):
+        seed, form = path.stem[4:].split("_", 1)
+        rec = json.loads(path.read_text())
+        cap = rec.get("capacity") or dataclasses.replace(
+            RenderConfig(), sample_budget_slack=slack.get(form, 1.25)).sample_capacity
+        steps = np.array(rec["steps"], dtype=np.float64)
+        psnr, marched = -10.0 * np.log10(steps[:, 0]), steps[:, 1]
+        over = marched > cap
+        found = [i for i in range(max(SPIKE_FROM, SPIKE_WINDOW), len(psnr))
+                 if psnr[i] <= np.median(psnr[i - SPIKE_WINDOW:i]) - SPIKE_DB]
+        print(json.dumps({"seed": int(seed), "form": form, "capacity": cap,
+                          "spikes": len(found), "spikes_on_overflow": int(over[found].sum()),
+                          "spike_steps": found, "overflow_steps": int(over.sum()),
+                          "marched_max": int(marched.max()),
+                          "batch_psnr_median_last_100": float(np.median(psnr[-100:]))}))
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] == "summary":
         summary(Path(sys.argv[2]))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "spikes":
+        sys.path.insert(0, str(REPO))
+        spikes(Path(sys.argv[2]))
         return 0
     if not torch.cuda.is_available():
         print("torch_march_pool_ab: no CUDA device", file=sys.stderr)
@@ -455,8 +507,12 @@ def main() -> int:
         prepare(Path(sys.argv[2]))
     elif len(sys.argv) == 5 and sys.argv[1] == "time":
         time_tree(Path(sys.argv[2]), Path(sys.argv[3]), sys.argv[4])
-    elif len(sys.argv) == 3 and sys.argv[1] == "jumps":
-        jumps([int(x) for x in sys.argv[2].split(",")])
+    elif len(sys.argv) in (3, 4) and sys.argv[1] == "jumps":
+        forms = tuple(sys.argv[3].split(",")) if len(sys.argv) == 4 else JUMP_FORMS
+        if not set(forms) <= set(JUMP_FORMS):
+            print(f"torch_march_pool_ab: jumps takes forms among {JUMP_FORMS}", file=sys.stderr)
+            return 2
+        jumps([int(x) for x in sys.argv[2].split(",")], forms)
     else:
         print(__doc__, file=sys.stderr)
         return 2
