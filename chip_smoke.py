@@ -962,11 +962,9 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def check_probe(torch, kernels, scatter_ops, dev):
-    """The two probe kernels at the probe's shapes and data (numpy seed 0, as
-    tools/pallas_probe.py draws them).  Each is driven once through its public
-    wrapper with the counts at 0, and that output is held against the twin's.
-    Returns (records, launch counts of the drive)."""
+def probe_inputs(torch, dev):
+    """The probe's shapes and data (numpy seed 0, as tools/pallas_probe.py
+    draws them): idx [N] int32, the [8, T] table, vals [N, 8]."""
     import numpy as np
     t, n = 1 << PROBE_LOG2_TABLE, PROBE_N
     rng = np.random.default_rng(0)
@@ -975,6 +973,45 @@ def check_probe(torch, kernels, scatter_ops, dev):
         rng.standard_normal((t, 8), np.float32).T)).to(dev)            # [8, T]
     vals = torch.from_numpy(np.ascontiguousarray(
         rng.standard_normal((8, n), np.float32).T)).to(dev)            # [N, 8]
+    return idx, tbl_t, vals
+
+
+def probe_times(torch, scatter_ops, idx, tbl_t, vals):
+    """Each probe kernel's ms (CUDA events, with its wrapper), device ms, plain
+    twin's and library call's ms (and the library's device ms), and bound, on
+    the probe's inputs.  The bounds charge what the function must move,
+    whatever implements it: lane_gather idx, out and each distinct column
+    once; scatter_add idx and vals once, the table written once."""
+    (rows, t), n, f = tbl_t.shape, idx.shape[0], vals.shape[1]
+    idx64 = idx.long()
+    calls = {"lane_gather": (lambda: scatter_ops._lane_gather_cuda(tbl_t, idx),
+                             lambda: scatter_ops._lane_gather_plain(tbl_t, idx),
+                             lambda: torch.index_select(tbl_t, 1, idx)),
+             "scatter_add": (lambda: scatter_ops._scatter_add_cuda(vals, idx, t),
+                             lambda: scatter_ops._scatter_add_plain(vals, idx, t),
+                             lambda: torch.zeros(t, f, device=vals.device).index_add_(
+                                 0, idx64, vals))}
+    distinct = torch.unique(idx).numel()
+    bounds = {"lane_gather": bound_ms(n * 4 + rows * n * 4 + distinct * rows * 4, 0),
+              # every update adds f floats
+              "scatter_add": bound_ms(n * 4 + f * n * 4 + t * f * 4, f * n)}
+    out = {}
+    for name, (kernel, plain, library) in calls.items():
+        b, by = bounds[name]
+        out[name] = dict(ms=time_ms(kernel, iters=10), device_ms=device_ms(kernel),
+                         plain_ms=time_ms(plain, iters=10), bound_ms=b, bound_by=by,
+                         library_ms=time_ms(library, iters=10),
+                         other={"library_device_ms": device_ms(library),
+                                "distinct_columns": distinct})
+    return out
+
+
+def check_probe(torch, kernels, scatter_ops, dev):
+    """The two probe kernels at the probe's shapes and data.  Each is driven
+    once through its public wrapper with the counts at 0, and that output is
+    held against the twin's.  Returns (records, launch counts of the drive)."""
+    idx, tbl_t, vals = probe_inputs(torch, dev)
+    t, n = tbl_t.shape[1], idx.shape[0]
     torch.cuda.synchronize()
     kernels.reset_launches()
     gathered = scatter_ops.lane_gather(tbl_t, idx)
@@ -982,36 +1019,26 @@ def check_probe(torch, kernels, scatter_ops, dev):
     torch.cuda.synchronize()
     counts = {k: kernels.launches[k] for k in ("lane_gather", "scatter_add")}
 
-    want = scatter_ops._lane_gather_plain(tbl_t, idx)
-    if not torch.equal(gathered, want):
+    if not torch.equal(gathered, scatter_ops._lane_gather_plain(tbl_t, idx)):
         raise AssertionError("[probe] lane_gather differs from its twin")
-    rows = torch.unique(idx).numel()
-    b, by = bound_ms(n * 4 + 8 * n * 4 + rows * 8 * 4, 0)
-    recs = {"lane_gather": dict(
-        max_abs_err=0.0, ms=time_ms(lambda: scatter_ops._lane_gather_cuda(tbl_t, idx), iters=10),
-        plain_ms=time_ms(lambda: scatter_ops._lane_gather_plain(tbl_t, idx), iters=10),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: torch.index_select(tbl_t, 1, idx), iters=10))}
-    del gathered, want
-
     want = scatter_ops._scatter_add_plain(vals, idx, t)
     err = rel_err(summed, want)
     if not err <= SCATTER_REL_TOL:
         raise AssertionError(f"[probe] scatter_add: rel err {err} > {SCATTER_REL_TOL}")
-    # every update adds 8 floats; the table is written once
-    b, by = bound_ms(n * 4 + 8 * n * 4 + t * 8 * 4, 8 * n)
-    idx64 = idx.long()
-    recs["scatter_add"] = dict(
-        max_abs_err=float((summed - want).abs().max()),
-        ms=time_ms(lambda: scatter_ops._scatter_add_cuda(vals, idx, t), iters=10),
-        plain_ms=time_ms(lambda: scatter_ops._scatter_add_plain(vals, idx, t), iters=10),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: torch.zeros(t, 8, device=dev).index_add_(0, idx64, vals),
-                           iters=10))
+    max_err = {"lane_gather": 0.0, "scatter_add": float((summed - want).abs().max())}
+    width = scatter_ops.scatter_add_width(vals, summed)
+    del gathered, summed, want
+    recs = probe_times(torch, scatter_ops, idx, tbl_t, vals)
+    recs["scatter_add"]["other"]["atomic_width"] = width
     for name, r in recs.items():
-        log(f"[probe {name}] table [8, {t}] idx {n} distinct {rows} launches {counts[name]}"
-            f" max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}"
-            f" library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+        r["max_abs_err"] = max_err[name]
+        log(f"[probe {name}] table [8, {t}] idx {n} distinct {r['other']['distinct_columns']}"
+            f" launches {counts[name]} max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f}"
+            f" device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+            f" library_ms={r['library_ms']:.4f}"
+            f" library_device_ms={r['other']['library_device_ms']:.4f}"
+            f" bound_ms={r['bound_ms']:.4f}")
+    log(f"[probe scatter_add] atomics {width} floats wide")
     return recs, counts
 
 

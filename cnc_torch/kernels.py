@@ -82,7 +82,9 @@ _SIGNATURES = {
     "cnc_volrend_forward": ((_P,) * 6 + (_I, _I, _F, _F, _F) + (_P,) * 7, _I),
     "cnc_volrend_backward": ((_P,) * 9 + (_I, _I, _F, _F, _F) + (_P,) * 5, _I),
     "cnc_scatter_add": ((_P, _P, _P, _LL, _I, _I, _P), _I),
-    "cnc_lane_gather": ((_P, _P, _P, _I, _I, _LL, _P), _I),
+    "cnc_scatter_add_width": ((_P, _P, _I), _I),
+    "cnc_lane_gather_scratch": ((_I, _I), _LL),
+    "cnc_lane_gather": ((_P, _P, _P, _P, _I, _I, _LL, _P), _I),
     "cnc_segment_pool": ((_P, _P, _P, _P, _LL, _I, _P), _I),
     "cnc_segment_pool_backward": ((_P, _P, _P, _P, _LL, _I, _P), _I),
     "cnc_segment_mean_scratch": ((_LL, _I), _LL),

@@ -25,15 +25,27 @@ def _scatter_add_plain(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torc
 
 
 def _scatter_add_cuda(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
+    """One launch (csrc/scatter_add.cu): a thread a row, its values added by
+    float4, float2 or single-float atomics as `scatter_add_width` says."""
     kernels.require_cuda("scatter_add", vals, idx)
     if vals.dtype != torch.float32 or idx.dtype != torch.int32:
         raise ValueError("scatter_add: the kernel takes float32 values and int32 indices")
     n, f = vals.shape
     out = torch.zeros(size, f, dtype=torch.float32, device=vals.device)
+    if n == 0 or f == 0:
+        return out
     kernels.call("cnc_scatter_add", kernels.ptr(vals), kernels.ptr(idx), kernels.ptr(out), n, f,
                  size)
     kernels.launches["scatter_add"] += 1
     return out
+
+
+def scatter_add_width(vals: torch.Tensor, out: torch.Tensor) -> int:
+    """The vector width (4, 2 or 1 floats) of the kernel's atomics for these
+    CUDA tensors: 4 where F % 4 == 0 and both start 16-byte aligned, else 2
+    where F is even and both start 8-byte aligned."""
+    return kernels.lib().cnc_scatter_add_width(kernels.ptr(vals), kernels.ptr(out),
+                                               vals.shape[1])
 
 
 def scatter_add(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -64,14 +76,22 @@ def _lane_gather_plain(tbl_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _lane_gather_cuda(tbl_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The transpose into a [groups, T, 4 or 8] scratch, then the gather
+    (csrc/probe.cu); one count a call."""
     kernels.require_cuda("lane_gather", tbl_t, idx)
     if tbl_t.dtype != torch.float32 or idx.dtype != torch.int32:
         raise ValueError("lane_gather: the kernel takes a float32 table and int32 indices")
     rows, t_cols = tbl_t.shape
     n = idx.shape[0]
     out = torch.empty(rows, n, dtype=torch.float32, device=tbl_t.device)
-    kernels.call("cnc_lane_gather", kernels.ptr(tbl_t), kernels.ptr(idx), kernels.ptr(out), rows,
-                 t_cols, n)
+    if n == 0 or rows == 0:
+        return out
+    if t_cols == 0:
+        raise ValueError("lane_gather: indices into a table with no columns")
+    scratch = torch.empty(kernels.lib().cnc_lane_gather_scratch(rows, t_cols),
+                          dtype=torch.float32, device=tbl_t.device)
+    kernels.call("cnc_lane_gather", kernels.ptr(tbl_t), kernels.ptr(idx), kernels.ptr(out),
+                 kernels.ptr(scratch), rows, t_cols, n)
     kernels.launches["lane_gather"] += 1
     return out
 

@@ -626,29 +626,88 @@ def test_composite_backward_with_absent_output_gradients(dev):
         torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
 
 
-@pytest.mark.parametrize("f,dtype", [(1, torch.int32), (4, torch.int64), (8, torch.int32)])
+# the atomics' width the kernel takes for a row of F floats at aligned starts
+_SCATTER_WIDTH = {1: 1, 2: 2, 3: 1, 4: 4, 8: 4}
+SCATTER_REL_TOL = 1e-5      # chip_smoke.py's: max |kernel - twin| over max |twin|
+
+
+@pytest.mark.parametrize("f,dtype", [(1, torch.int32), (2, torch.int32), (3, torch.int64),
+                                     (4, torch.int64), (8, torch.int32)])
 def test_scatter_add_kernel(dev, f, dtype):
     g = torch.Generator(device=dev).manual_seed(f)
     size, n = 1000, 200_000
     idx = torch.randint(-50, size + 300, (n,), generator=g, device=dev).to(dtype)
     vals = torch.randn(n, f, generator=g, device=dev)
+    kernels.reset_launches()
     got = scatter_ops.scatter_add(vals, idx, size)
+    assert kernels.launches["scatter_add"] == 1
+    assert scatter_ops.scatter_add_width(vals, got) == _SCATTER_WIDTH[f]
     want = scatter_ops._scatter_add_plain(vals, idx, size)
-    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    torch.testing.assert_close(got, want, atol=SCATTER_REL_TOL * float(want.abs().max()), rtol=0)
     # every row out of range: nothing is added
     far = torch.full((n,), size, dtype=dtype, device=dev)
     assert not scatter_ops.scatter_add(vals, far, size).any()
+    assert not scatter_ops.scatter_add(vals, far - size - 1, size).any()
+    kernels.reset_launches()
     assert scatter_ops.scatter_add(vals[:0], idx[:0], size).shape == (size, f)
+    assert kernels.launches["scatter_add"] == 0
 
 
-def test_lane_gather_kernel(dev):
-    g = torch.Generator(device=dev).manual_seed(0)
-    tbl_t = torch.randn(8, 5000, generator=g, device=dev)
-    idx = torch.randint(0, 5000, (100_003,), generator=g, device=dev, dtype=torch.int32)
-    assert torch.equal(scatter_ops.lane_gather(tbl_t, idx), tbl_t[:, idx.long()])
-    idx[:10] = torch.tensor([-3, 5000, 7000, -1, 0, 4999, 1, 2, 3, 4], device=dev)
-    assert torch.equal(scatter_ops.lane_gather(tbl_t, idx),
-                       scatter_ops._lane_gather_plain(tbl_t, idx))
+@pytest.mark.parametrize("f,offset,width", [(4, 1, 1), (4, 2, 2), (8, 2, 2), (8, 3, 1),
+                                            (2, 1, 1), (8, 4, 4)])
+def test_scatter_add_kernel_on_an_offset_view(dev, f, offset, width):
+    """vals a contiguous view `offset` floats into its storage: the atomics
+    narrow to what the view's start allows (4 floats at offset 4 = 16 bytes)."""
+    g = torch.Generator(device=dev).manual_seed(10 * f + offset)
+    size, n = 777, 50_001
+    base = torch.randn(n * f + offset, generator=g, device=dev)
+    vals = base[offset:].view(n, f)
+    assert vals.is_contiguous() and vals.storage_offset() == offset
+    idx = torch.randint(-3, size + 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    got = scatter_ops.scatter_add(vals, idx, size)
+    assert scatter_ops.scatter_add_width(vals, got) == width
+    want = scatter_ops._scatter_add_plain(vals.double(), idx, size)
+    assert float((got.double() - want).abs().max()) <= SCATTER_REL_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("f", [1, 3, 4, 8])
+@pytest.mark.parametrize("hit", [1, 4])
+def test_scatter_add_kernel_under_full_contention(dev, f, hit):
+    """Every row on one index (or on 4): all atomics on the same row(s),
+    against the sums in float64.  Positive values, so the float32 sums'
+    rounding stays far under the tolerance."""
+    g = torch.Generator(device=dev).manual_seed(f + hit)
+    size, n = 64, 8192
+    vals = torch.rand(n, f, generator=g, device=dev)
+    idx = (torch.arange(n, device=dev, dtype=torch.int32) % hit) + 17
+    got = scatter_ops.scatter_add(vals, idx, size)
+    want = scatter_ops._scatter_add_plain(vals.double(), idx, size)
+    assert float((got.double() - want).abs().max()) <= SCATTER_REL_TOL * float(want.abs().max())
+    assert not got[:17].any() and not got[17 + hit:].any()
+
+
+@pytest.mark.parametrize("rows,t_cols", [(1, 5003), (3, 5001), (3, 1), (8, 5000), (12, 4097),
+                                         (16, 4099)])
+@pytest.mark.parametrize("n", [0, 1, 100_003])
+def test_lane_gather_kernel(dev, rows, t_cols, n):
+    """rows 1 and 3 take one 4-wide group, 8 one 8-wide, 12 and 16 two (12's
+    second padded); T not a multiple of 4; indices outside the table on both
+    sides are clamped.  Equal to the twin bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    tbl_t = torch.randn(rows, t_cols, generator=g, device=dev)
+    idx = torch.randint(0, t_cols, (n,), generator=g, device=dev, dtype=torch.int32)
+    if n > 10:
+        idx[:10] = torch.tensor([-3, t_cols, t_cols + 7000, -1, 0, t_cols - 1, 1, 2, 3, 4],
+                                device=dev)
+    elif n == 1:
+        idx[0] = -5
+    kernels.reset_launches()
+    got = scatter_ops.lane_gather(tbl_t, idx)
+    assert kernels.launches["lane_gather"] == (1 if n else 0)
+    assert got.shape == (rows, n)
+    assert torch.equal(got, scatter_ops._lane_gather_plain(tbl_t, idx))
+    if n > 10:
+        assert torch.equal(got[:, 10:], tbl_t[:, idx[10:].long()])
 
 
 def test_trainer_steps_on_the_card(dev):

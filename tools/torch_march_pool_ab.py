@@ -50,7 +50,7 @@ overlap (then the difference is not resolved by the runs).
 
 `jumps` runs chip_smoke.py's lambda = 0 training phase (full width, the
 `blocks` scene, 1,000 steps, the test views read five times 50 steps apart)
-once per seed in each of the forms named (all four by default): `as_is`;
+once per seed in each of the forms named (all of them by default): `as_is`;
 `visible_frac`, with `render.visible_frac` = JUMP_VISIBLE_FRAC, which masks
 the rays a truncated march cut out of the loss; `pinned_bucket`, with
 `train.max_ray_bucket` = JUMP_PINNED_BUCKET, so the march (about 25 samples
@@ -61,8 +61,12 @@ changes nothing else: the ray count still follows the marched count.  The
 first run of that form (the H100, 2026-10) marched up to 551,561 samples a
 step and still overflowed in 267-335 of 1,000 steps, so `no_truncation`
 sizes the buffer at JUMP_NO_TRUNCATION_SLACK (589,824 slots, 1.8x), above
-that, and changes nothing else either.  Per run it prints one JSON
-line: the test PSNR readings and the dips among them (readings JUMP_DB or
+that, and changes nothing else either.  `no_truncation_eps` and
+`no_truncation_half_lr` are `no_truncation` with one optimizer setting
+changed: `adam_eps` JUMP_EPS (torch's and optax's default, against the
+reference's 1e-15) or `lr` JUMP_HALF_LR (half the reference's 6e-3).  Per
+run it prints one JSON line, with the run's `adam_eps` and `lr`: the test
+PSNR readings and the dips among them (readings JUMP_DB or
 more under the run's best), and how often and how far the march overflowed
 its buffer; each run's per-step history goes to chiprun_out/jumps/.  It
 uses this tree's cnc_torch.
@@ -92,7 +96,10 @@ JUMP_VISIBLE_FRAC = 0.75     # the pruned buffer holds the ~60% of samples that 
 JUMP_PINNED_BUCKET = 8192    # 8,192 rays x ~25 samples fit 327,680 slots
 JUMP_ROOMY_SLACK = 1.625     # 262,144 x 1.625 = 425,984 slots, 1.3x the default 327,680
 JUMP_NO_TRUNCATION_SLACK = 2.25   # 589,824 slots, above the 551,561 marched at most
-JUMP_FORMS = ("as_is", "visible_frac", "pinned_bucket", "roomy_buffer", "no_truncation")
+JUMP_EPS = 1e-8              # `no_truncation_eps`: torch's and optax's default Adam eps
+JUMP_HALF_LR = 3e-3          # `no_truncation_half_lr`: half the reference's 6e-3
+JUMP_FORMS = ("as_is", "visible_frac", "pinned_bucket", "roomy_buffer", "no_truncation",
+              "no_truncation_eps", "no_truncation_half_lr")
 JUMP_DB = 5.0                # a reading this far under the run's best is a dip
 SPIKE_DB, SPIKE_WINDOW, SPIKE_FROM = 5.0, 20, 300   # `spikes`: a batch this far under the
                                                     # median of the window before it
@@ -437,10 +444,16 @@ def jumps(seeds, forms=JUMP_FORMS) -> None:
             elif form == "pinned_bucket":
                 cfg = dataclasses.replace(cfg, train=dataclasses.replace(
                     cfg.train, max_ray_bucket=JUMP_PINNED_BUCKET))
-            elif form in ("roomy_buffer", "no_truncation"):
+            elif form == "roomy_buffer" or form.startswith("no_truncation"):
                 slack = JUMP_ROOMY_SLACK if form == "roomy_buffer" else JUMP_NO_TRUNCATION_SLACK
                 cfg = dataclasses.replace(cfg, render=dataclasses.replace(
                     cfg.render, sample_budget_slack=slack))
+            if form == "no_truncation_eps":
+                cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                    cfg.train, adam_eps=JUMP_EPS))
+            elif form == "no_truncation_half_lr":
+                cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                    cfg.train, lr=JUMP_HALF_LR))
             tr = Trainer(cfg, train_set)
             hist = []
 
@@ -459,8 +472,9 @@ def jumps(seeds, forms=JUMP_FORMS) -> None:
             over = [h[1] / cap for h in hist if h[1] > cap]
             (out_dir / f"seed{seed}_{form}.json").write_text(json.dumps(
                 {"columns": ["mse", "n_marched", "n_visible", "num_rays"], "capacity": cap,
-                 "steps": hist}))
-            print(json.dumps({"seed": seed, "form": form, "capacity": cap, "dips": dips,
+                 "adam_eps": cfg.train.adam_eps, "lr": cfg.train.lr, "steps": hist}))
+            print(json.dumps({"seed": seed, "form": form, "capacity": cap,
+                              "adam_eps": cfg.train.adam_eps, "lr": cfg.train.lr, "dips": dips,
                               "psnr_readings": readings, "psnr_median": scores["psnr"],
                               "overflow_steps": len(over), "steps": len(hist),
                               "overflow_mean": statistics.mean(over) if over else 0.0,
@@ -473,7 +487,9 @@ def jumps(seeds, forms=JUMP_FORMS) -> None:
 def spikes(dirname: Path) -> None:
     import numpy as np
     from cnc_torch.config import RenderConfig
-    slack = {"roomy_buffer": JUMP_ROOMY_SLACK, "no_truncation": JUMP_NO_TRUNCATION_SLACK}
+    slack = {"roomy_buffer": JUMP_ROOMY_SLACK, "no_truncation": JUMP_NO_TRUNCATION_SLACK,
+             "no_truncation_eps": JUMP_NO_TRUNCATION_SLACK,
+             "no_truncation_half_lr": JUMP_NO_TRUNCATION_SLACK}
     for path in sorted(dirname.glob("seed*_*.json")):
         seed, form = path.stem[4:].split("_", 1)
         rec = json.loads(path.read_text())
@@ -485,6 +501,7 @@ def spikes(dirname: Path) -> None:
         found = [i for i in range(max(SPIKE_FROM, SPIKE_WINDOW), len(psnr))
                  if psnr[i] <= np.median(psnr[i - SPIKE_WINDOW:i]) - SPIKE_DB]
         print(json.dumps({"seed": int(seed), "form": form, "capacity": cap,
+                          "adam_eps": rec.get("adam_eps"), "lr": rec.get("lr"),
                           "spikes": len(found), "spikes_on_overflow": int(over[found].sum()),
                           "spike_steps": found, "overflow_steps": int(over.sum()),
                           "marched_max": int(marched.max()),
