@@ -2681,14 +2681,25 @@ def check_pn_part(torch, cops, table, fine_offset, pn_ax, pn_res, sample_cap, ge
     plane (torch.equal); K7pb against the plain backward in float64
     (rel_err within K7B_REL_TOL; the same ranks).  Rank 0's share timed:
     ms, device ms, index_add_ of its indicator rows, and the bound; the
-    plain share's ms once, at W = 2, from the call held to the kernel."""
+    plain share's ms once, at W = 2, from the call held to the kernel.  A
+    share of no rows (size 0) timed the same way: the launch's fixed part,
+    the divisors and the partial's zeros, equal to the twin."""
     eidx, bounds, n = pn_ax["entry_idx"], pn_ax["bounds"], pn_ax["n"]
     args = (table, fine_offset, eidx, bounds, n, pn_res)
     bins, f = (pn_res - 2) ** 2, table.shape[1]
-    sites, bwd_sites, worst_bwd, worst_abs = {}, {}, 0.0, 0.0
+    sites, bwd_sites, size0, worst_bwd, worst_abs = {}, {}, {}, 0.0, 0.0
     for mode, cap in (("sampled", sample_cap), ("unsampled", None)):
         whole = cops._pn_frac_plane_cuda(*args, cap)
         rows = cops.pn_row_count(eidx, cap)
+        part, den = cops._pn_part_cuda(*args, cap, 0, 0)
+        want, want_den = cops._pn_part_plain(table, fine_offset, eidx, bounds, n, cap, 0, 0)
+        if not (torch.equal(part, want) and torch.equal(den, want_den)):
+            raise AssertionError(f"[K7p] {mode} size 0: the partial differs from the twin's")
+        b, by = bound_ms((bins + 1) * 4 + 4 + bins * 4 * f + bins * 4, bins * f)
+        size0[mode] = dict(ms=time_ms(lambda cap=cap: cops.pn_hist_part(*args, cap, 0, 0)),
+                           device_ms=device_ms(lambda cap=cap: cops._pn_part_cuda(*args, cap, 0,
+                                                                                  0)),
+                           bound_ms=b, bound_by=by)
         for w in DP_WORLD_SIZES:
             chunk = -(-rows // w)
             total = plain_ms = None
@@ -2785,13 +2796,16 @@ def check_pn_part(torch, cops, table, fine_offset, pn_ax, pn_res, sample_cap, ge
                     f" device_ms={s['device_ms']:.4f} plain_ms={s['plain_ms']}"
                     f" library_ms={s['library_ms']:.4f} bound_ms={s['bound_ms']:.5f}"
                     f" ({s['bound_by']})" for k, s in sites.items()))
+    log("[K7p pn_hist_part] a share of no rows (size 0), equal to the twin: " + "; ".join(
+        f"{k}: ms={s['ms']:.4f} device_ms={s['device_ms']:.4f} bound_ms={s['bound_ms']:.5f}"
+        f" ({s['bound_by']})" for k, s in size0.items()))
     log("[K7pb pn_hist_part_bwd] within " + f"{K7B_REL_TOL} of the float64 twin"
         f" (worst {worst_bwd:.3g}); rank 0's share by W: "
         + "; ".join(f"{k}: ms={s['ms']:.4f} device_ms={s['device_ms']:.4f} kernel_device_ms="
                     f"{s['kernel_device_ms']:.4f} plain_ms={s['plain_ms']} library_ms="
                     f"{s['library_ms']:.4f} bound_ms={s['bound_ms']:.5f} ({s['bound_by']})"
                     f" kernel_bound_ms={s['kernel_bound_ms']:.5f}" for k, s in bwd_sites.items()))
-    return {"pn_hist_part": dict(head, max_abs_err=0.0, sites=sites),
+    return {"pn_hist_part": dict(head, max_abs_err=0.0, sites=sites, size0=size0),
             "pn_hist_part_bwd": dict(bhead, max_abs_err=worst_abs, sites=bwd_sites,
                                      kernel_device_ms=bhead["kernel_device_ms"],
                                      kernel_bound_ms=bhead["kernel_bound_ms"])}
@@ -3668,7 +3682,8 @@ def main() -> int:
                                              "pulls_per_pool", "longest", "level_peak_gib",
                                              "kernel_device_ms", "kernel_bound_ms",
                                              "fill_device_ms", "device_ops",
-                                             "dp_w1_ms_per_step", "dp_w2_ms_per_step")
+                                             "dp_w1_ms_per_step", "dp_w2_ms_per_step",
+                                             "size0")
                            if k in r},
                         rate_launches_per_step=rate_per_step.get(name),
                         pipeline_launches=pipeline_launches.get(name, 0)))

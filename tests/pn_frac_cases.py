@@ -9,9 +9,10 @@ row's finest-level entry), the rest parked past the last bin with entry 0;
 table whose finest level holds +-1 and values at the 0.9 threshold, and the
 stride-sampling cap.  numpy only, seeded.
 
-`run_walk` mirrors the walk csrc/pn_hist.cu's three kernels share (K7, K7i,
-K7b): tiles, a warp's run of bins, lanes on consecutive rows and each
-lane's bin by stepping; `bin_scale` is K7b's per-bin scale.
+`run_walk` mirrors the walk csrc/pn_hist.cu's kernels share (K7, K7i,
+K7b, and K7p/K7pb over a range of rows): tiles, a warp's run of bins, lanes
+on consecutive rows and each lane's bin by stepping; `bin_scale` is K7b's
+per-bin scale.
 """
 
 import numpy as np
@@ -114,16 +115,21 @@ def walk_map(bounds: np.ndarray, n: int, cap: int, sample_cap) -> tuple:
     return np.clip(np.asarray(bounds, np.int64), 0, cap), m
 
 
-def run_walk(bounds: np.ndarray, n: int, cap: int, sample_cap, pn_res: int) -> tuple:
+def run_walk(bounds: np.ndarray, n: int, cap: int, sample_cap, pn_res: int, lo: int = 0,
+             hi=None) -> tuple:
     """The rows the kernels' walk visits and the bin each lane gives its
     row: (rows, bins), int64 arrays in visiting order.  A block a tile of
     TILE_X x-columns by TILE_Y y, a warp a column's run of bins; the warp
     steps over the run's rows [map[0], map[ny]) ROWS_AHEAD * 32 at a time,
     lane l of group u on row jb + 32 u + l; a lane's bin is stepped up from
     the bin of the previous group's lane 31 while the next boundary is at or
-    below its row; lanes past the run or at or past take visit nothing."""
+    below its row; lanes past the run or at or past take visit nothing.
+    With `hi`, the map is clamped to the rows [lo, hi) first, as K7p and
+    K7pb clamp each run's boundaries (`clamp_map`)."""
     scale = pn_res - 2
     bmap, take = walk_map(bounds, n, cap, sample_cap)
+    if hi is not None:
+        bmap = np.clip(bmap, lo, hi)
     lanes = np.arange(32)
     rows, bins = [], []
     for x0 in range(0, scale, TILE_X):

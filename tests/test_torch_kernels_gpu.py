@@ -53,7 +53,10 @@ plane and with no context level, two runs equal, and its fault word on
 entries that decrease inside a warp, between warps, batches and blocks,
 across a block with no kept row, or leave their range; the wrappers'
 refusals (the frac planes': dtype, alignment, F, the shapes of bounds and
-of the gradient); and a tiny encode on the card whose
+of the gradient); K7p and K7pb, a data-parallel rank's share of a plane,
+over W = 2, 3 and 8 splits and tests/pn_part_cases.py's row ranges (a bin's
+edge and inside one bin, size 0, past the row space, an uneven W = 3
+split, one bin of more rows than a warp's group); and a tiny encode on the card whose
 streams equal the same encode through the twins on the CPU, decoded back on
 the card.  For the
 per-ray march (every field equal to the twin's, the per-ray hit counts and
@@ -117,6 +120,7 @@ import vertex_sort_cases as vc
 from compact_pack_cases import COMPACT_CASES, PACK_CASES, compact_case, pack_case
 from pn_frac_cases import CASES as PN_CASES
 from pn_frac_cases import pn_case
+from pn_part_cases import PART_MODES, part_case, part_ranges
 from volrend_buffers import BROKEN, DT, LAYOUTS, broken_buffer, segment_buffer
 
 pytestmark = pytest.mark.gpu
@@ -1805,6 +1809,49 @@ def test_pn_hist_part_kernel(dev, f, name):
             torch.testing.assert_close(leaf.grad.double(), leaf64.grad, rtol=0,
                                        atol=1e-5 * max(float(leaf64.grad.abs().max()), 1e-30))
         assert torch.equal(cops.pn_frac_finish(total, den, res), whole), w
+
+
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("name,mode", PART_MODES)
+def test_pn_hist_part_at_the_walk_edges(dev, f, name, mode):
+    """K7p and K7pb on tests/pn_part_cases.py's row ranges (a bin's edge and
+    inside one bin, size 0, past the row space, an uneven W = 3 split), in
+    each case's modes and on one bin of more rows than a warp's group: K7p
+    torch.equal to `_pn_part_plain`, one launch; K7pb within 1e-5 of the
+    largest entry of the twin's gradient in float64, one launch; at W = 2,
+    3 and 8 every rank's partial summed and finished equal to K7's plane."""
+    case = part_case(name, f)
+    table = torch.from_numpy(case["table"]).to(dev)
+    eidx, bounds = (torch.from_numpy(case[k]).to(dev) for k in ("entry_idx", "bounds"))
+    n = torch.tensor(case["n"], dtype=torch.int32, device=dev)
+    res, off = case["pn_res"], case["fine_offset"]
+    cap = case["sample_cap"] if mode == "sampled" else None
+    args = (off, eidx, bounds, n, res, cap)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    for rname, (lo, size) in part_ranges(case["bounds"], case["n"], eidx.shape[0],
+                                         cap).items():
+        leaf = table.clone().requires_grad_()
+        kernels.reset_launches()
+        part, den = cops.pn_hist_part(leaf, *args, lo, size)
+        assert kernels.launches["pn_hist_part"] == 1 and sum(kernels.launches.values()) == 1
+        want, want_den = cops._pn_part_plain(table, off, eidx, bounds, n, cap, lo, size)
+        assert torch.equal(part, want) and torch.equal(den, want_den), rname
+        cot = torch.randn(part.shape, generator=gen, device=dev)
+        part.backward(cot)
+        assert kernels.launches["pn_hist_part_bwd"] == 1, rname
+        leaf64 = table.double().requires_grad_()
+        cops._pn_part_plain(leaf64, off, eidx, bounds, n, cap, lo, size)[0].backward(
+            cot.double())
+        torch.testing.assert_close(leaf.grad.double(), leaf64.grad, rtol=0,
+                                   atol=1e-5 * max(float(leaf64.grad.abs().max()), 1e-30),
+                                   msg=rname)
+    whole = cops.pn_frac_plane(table, *args)
+    rows = cops.pn_row_count(eidx, cap)
+    for w in (2, 3, 8):
+        chunk = -(-rows // w)
+        parts = [cops._pn_part_cuda(table, *args, r * chunk, chunk) for r in range(w)]
+        total = sum(p for p, _ in parts)
+        assert torch.equal(cops.pn_frac_finish(total, parts[0][1], res), whole), w
 
 
 def test_pn_hist_part_refuses_what_the_kernel_does_not_take(dev):

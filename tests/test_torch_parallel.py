@@ -39,7 +39,7 @@ from cnc_torch.train import driver as tdriver
 from cnc_torch.train import trainer as ttrainer
 
 import test_torch_parallel_ranks as dp_ranks
-from pn_frac_cases import CASES, pn_case, walk_map
+from pn_frac_cases import CASES, pn_case, run_walk, walk_map
 from test_torch_context_tables import (KW2, KW3, asymmetric_occupancy, make_pair,
                                        random_sign_tables, starts_from_key)
 from test_torch_train import _sphere_rays
@@ -102,43 +102,13 @@ def test_partials_sum_to_the_whole_plane(name):
                 (name, f, w)
 
 
-def _range_walk(bmap, take, pn_res, lo, hi):
-    """K7p's walk (pn_frac_cases.run_walk with each run's boundaries clamped
-    to [lo, hi), as csrc/pn_hist.cu's clamp_map does): the rows it visits
-    and each row's bin, in visiting order."""
-    scale = pn_res - 2
-    lanes = np.arange(32)
-    rows, bins = [], []
-    for x0 in range(0, scale, 8):
-        for y0 in range(0, scale, 8):
-            nx, ny = min(8, scale - x0), min(8, scale - y0)
-            for w in range(nx):
-                base = (x0 + w) * scale + y0
-                run = np.clip(bmap[base:base + ny + 1], lo, hi)
-                j1, b_first = int(run[ny]), 0
-                for jb in range(int(run[0]), j1, 32 * 4):
-                    for u in range(4):
-                        j = jb + 32 * u + lanes
-                        b = np.full(32, b_first)
-                        while True:
-                            step = (b + 1 < ny) & (run[np.minimum(b + 1, ny)] <= j)
-                            if not step.any():
-                                break
-                            b = b + step
-                        ok = (j < j1) & (j < take)
-                        rows.append(j[ok])
-                        bins.append(base + b[ok])
-                        b_first = int(b[31])
-    cat = lambda xs: np.concatenate(xs).astype(np.int64) if xs else np.zeros(0, np.int64)
-    return cat(rows), cat(bins)
-
-
 @pytest.mark.parametrize("name", ["n1", "overflowed", "take_not_dividing", "empty_end_bins",
                                   "unsampled", "empty_bins", "masked_tail"])
 def test_range_walk_visits_each_row_of_the_range_once_in_its_bin(name):
-    """K7p's index math, mirrored: with each run's boundaries clamped to the
-    rank's rows, the walk visits every valid row of the range exactly once,
-    in the bin the whole map gives it, and no row outside the range."""
+    """K7p's index math, mirrored (pn_frac_cases.run_walk with each run's
+    boundaries clamped to the rank's rows, as csrc/pn_hist.cu's clamp_map
+    does): the walk visits every valid row of the range exactly once, in the
+    bin the whole map gives it, and no row outside the range."""
     c = pn_case(name, 2)
     bmap, take = walk_map(c["bounds"], c["n"], c["entry_idx"].shape[0], c["sample_cap"])
     bmap = np.asarray(bmap, np.int64)
@@ -149,7 +119,8 @@ def test_range_walk_visits_each_row_of_the_range_once_in_its_bin(name):
         seen = []
         for r in range(w):
             lo, hi = r * chunk, (r + 1) * chunk
-            got_rows, got_bins = _range_walk(bmap, take, c["pn_res"], lo, hi)
+            got_rows, got_bins = run_walk(c["bounds"], c["n"], c["entry_idx"].shape[0],
+                                          c["sample_cap"], c["pn_res"], lo, hi)
             assert np.all((got_rows >= lo) & (got_rows < hi))
             np.testing.assert_array_equal(got_bins, bin_of[got_rows])
             seen.append(got_rows)
