@@ -156,14 +156,18 @@ Phases (any failure raises and the script exits non-zero):
      seconds and MB); a fresh python3 process (`chip_smoke.py
      --pipeline-resume DIR`) builds the Trainer, which resumes from the file
      at step 100 with the field equal to it, and runs
-     `driver.run_with_trainer` to step 299 (evaluation, encode, decode,
+     `driver.run_with_trainer`'s two halves (`fit`, then `finish_pipeline`)
+     to step 299 (evaluation, encode, decode,
      evaluation, MLP quantization) and `append_result_row`, with the counts
      set to 0 before the entropy model's build and read after; the row must
      have runs_20k's 23 columns, psnr_codec lie within PIPE_CODEC_DB of psnr,
      the coded MB within 15% of the analytic, and every kernel of the path
      have launched; then `python3 -m cnc_torch.cli nerf_synthetic
      --decode_only` in a third process must read the row's psnr_codec within
-     PIPE_CLI_DB; the order-fault words clear in both processes;
+     PIPE_CLI_DB; the order-fault words clear in both processes; after the
+     counts are read, the resumed process prints one `[pipeline census]`
+     line (tools/torch_basin_census.py on the state of step 299: the
+     entry-features clipped low, high and against their symbol; no check);
  14. print the kernels line (each kernel's `pipeline_launches` from the
      resumed process; K7p's and K7pb's `launches` from [dp]'s two-rank run
      and its pn_frac_grad steps; also written to chiprun_out/kernels.json,
@@ -2117,6 +2121,7 @@ def pipeline_resume(out_dir: str) -> int:
     import numpy as np
     import torch
     from cnc_torch import kernels
+    from cnc_torch.models import radiance_field as rf
     from cnc_torch.ops import context_ops as cops
     from cnc_torch.render import volrend
     from cnc_torch.train import driver
@@ -2146,10 +2151,17 @@ def pipeline_resume(out_dir: str) -> int:
                    lr=tr.optimizer.param_groups[0]["lr"], num_rays=tr.num_rays)
     if not (tr.step == saved_step == PIPE_CKPT_EVERY and equal):
         raise AssertionError(f"[pipeline] the resumed trainer is not the file's: {resumed}")
-    logs = []
-    res = driver.run_with_trainer(tr, test_set, PIPE_SCENE, out_root=str(out),
-                                  max_steps=PIPE_END, max_eval_images=PIPE_EVAL_IMAGES,
-                                  log_fn=logs.append, log_every=100)
+    logs = ["training..."]
+    # run_with_trainer's two halves, with the state of the last step kept
+    # between them for the census, which runs after the counts are read
+    elapsed = tr.fit(max_steps=PIPE_END, log_fn=logs.append, log_every=100)
+    with torch.no_grad():
+        last = dict(step=tr.step - 1, ent_params=copy.deepcopy(tr.ent_params),
+                    binaries=tr.occ_state.binaries.clone(),
+                    tables={k: v.detach().clone()
+                            for k, v in rf.quantized_tables(tr.field, cfg.model).items()})
+    res = driver.finish_pipeline(tr, test_set, PIPE_SCENE, elapsed, out_root=str(out),
+                                 max_eval_images=PIPE_EVAL_IMAGES, log_fn=logs.append)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     row = driver.append_result_row(res, PIPE_SCENE, "Procedural", str(out))
@@ -2161,6 +2173,13 @@ def pipeline_resume(out_dir: str) -> int:
         f" {res.total_size_MB():.4f} MB, {res.compression_x():.2f}x; train"
         f" {res.elapsed_train_s:.2f} s, encode {res.encode_s:.2f} s, decode {res.decode_s:.2f} s;"
         f" entropy model and resumed trainer {ready_s:.2f} s")
+    census_mod = basin_census()
+    t0 = time.time()
+    c = census_mod.census(tr.entropy, last["ent_params"], last["tables"], last["binaries"])
+    t = c["totals"]
+    log(f"[pipeline census] step {last['step']} ({time.time() - t0:.2f} s): {t['n']}"
+        f" entry-features, {t['n_lo']} clipped low, {t['n_hi']} clipped high, {t['n_against']}"
+        f" against their symbol; {census_mod.summary_line(c)}")
     print(json.dumps({"resumed": resumed, "ready_s": ready_s, "steps": tr.step,
                       "result": dataclasses.asdict(res), "total_MB": res.total_size_MB(),
                       "compression_x": res.compression_x(), "row": row, "launches": launches,
@@ -2281,6 +2300,16 @@ def run_pipeline_phase(torch, kernels, volrend, cops, dev) -> dict:
     # the checkpoint (a few hundred MB) stays out of what the run brings back
     ck.unlink()
     return launches
+
+
+def basin_census():
+    """tools/torch_basin_census.py, imported from this checkout."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / "torch_basin_census.py"
+    spec = importlib.util.spec_from_file_location("torch_basin_census", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def tanks_view():

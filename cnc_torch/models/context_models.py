@@ -425,6 +425,25 @@ class ContextModels:
         return ContextParams({k: linear(*s) for k, s in ctx3d.items()},
                              {k: linear(*s) for k, s in ctx2d.items()})
 
+    def cnc_tpu_initial_params(self, key) -> Dict:
+        """cnc_tpu's `ContextModels.init_params(key)` as numpy float32
+        arrays, drawn with the port's threefry from the key's two words (no
+        JAX): the key split 3 + (2D levels) ways, ctx3d's layers on the first
+        three, each 2D level's Linear on the next; each layer's key split for
+        W and b, both U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the bound in
+        float64.  `ent_params_from_jax` loads the tree."""
+        ctx3d, ctx2d = self._param_shapes()
+        keys = threefry.split(key, 3 + len(ctx2d))
+
+        def linear(k, fan_in, fan_out):
+            kw, kb = threefry.split(k)
+            bound = 1.0 / np.sqrt(fan_in)
+            return {"w": threefry.uniform(kw, (fan_in, fan_out), -bound, bound),
+                    "b": threefry.uniform(kb, (fan_out,), -bound, bound)}
+
+        return {"ctx3d": {n: linear(keys[i], *ctx3d[n]) for i, n in enumerate(("l0", "l1", "l2"))},
+                "ctx2d": {n: linear(keys[3 + i], *s) for i, (n, s) in enumerate(ctx2d.items())}}
+
     def ent_params_from_jax(self, np_params: Mapping) -> ContextParams:
         """The context MLPs holding cnc_tpu's `init_params` pytree (as numpy
         arrays): `ctx3d/l0..l2` and `ctx2d/<level>`, each {"w": [in, out],

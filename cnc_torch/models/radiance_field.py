@@ -29,6 +29,7 @@ from ..config import ModelConfig
 from ..ops import encoding as enc
 from ..ops import sh as sh_ops
 from ..ops import ste as ste_ops
+from ..utils import threefry
 from ..utils.device import resolve_device
 
 TABLES = ("xyz", "xy", "xz", "yz")
@@ -71,6 +72,33 @@ def mlp_dims(cfg: ModelConfig) -> Tuple[int, int]:
     base_in = cfg.grid_3d.output_dim + 3 * cfg.grid_2d.output_dim + pe_dim
     head_in = cfg.sh_degree ** 2 + cfg.geo_feat_dim
     return base_in, head_in
+
+
+def cnc_tpu_initial_params(cfg: ModelConfig, key) -> Dict:
+    """cnc_tpu's `init_radiance_field(key, cfg)` as numpy float32 arrays,
+    drawn with the port's threefry from the key's two words (no JAX): the
+    key split ten ways, the tables U(-1e-4, 1e-4), each layer's key split
+    for W and b, both U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with the bound in
+    float32 (`1.0 / jnp.sqrt(fan_in)`).  `params_from_jax` loads the tree."""
+    keys = threefry.split(key, 10)
+    std = 1e-4
+
+    def linear(k, fan_in, fan_out):
+        kw, kb = threefry.split(k)
+        bound = np.float32(1.0) / np.sqrt(np.float32(fan_in))
+        return {"w": threefry.uniform(kw, (fan_in, fan_out), -bound, bound),
+                "b": threefry.uniform(kb, (fan_out,), -bound, bound)}
+
+    g3, g2 = cfg.grid_3d, cfg.grid_2d
+    base_in, head_in = mlp_dims(cfg)
+    n = cfg.n_neurons
+    params = {k: threefry.uniform(keys[i], (spec.total_entries, spec.n_features), -std, std)
+              for i, (k, spec) in enumerate((("xyz", g3), ("xy", g2), ("xz", g2), ("yz", g2)))}
+    params["mlp_base"] = {"l0": linear(keys[4], base_in, n),
+                          "l1": linear(keys[5], n, 1 + cfg.geo_feat_dim)}
+    params["mlp_head"] = {"l0": linear(keys[6], head_in, n), "l1": linear(keys[7], n, n),
+                          "l2": linear(keys[8], n, 3)}
+    return params
 
 
 class RadianceField(nn.Module):

@@ -42,6 +42,7 @@ from ..parallel import sharding
 from ..render import renderer
 from ..utils import checkpoint as ckpt
 from ..utils import metrics as M
+from ..utils import threefry
 from ..utils.device import resolve_device, same_device
 from . import optim
 
@@ -55,6 +56,19 @@ def _next_bucket(n: int, lo: int, hi: int, multiple: int = 1) -> int:
         b *= 2
     b = min(b, hi)
     return max(b // multiple, 1) * multiple
+
+
+def cnc_tpu_initial_state(cfg: CNCConfig, seed: int, entropy=None):
+    """cnc_tpu `Trainer.__init__`'s `params` and `ent_params` at `seed`, as
+    numpy trees, drawn with the port's threefry (no JAX): `PRNGKey(seed)`
+    split three ways, the field from the second key, the context MLPs from
+    the third (`{}` without an entropy model).  `rf.params_from_jax` and
+    `ContextModels.ent_params_from_jax` load them; `Trainer.
+    start_from_cnc_tpu` does both."""
+    _, k_field, k_ent = threefry.split(threefry.prng_key(seed), 3)
+    params = rf.cnc_tpu_initial_params(cfg.model, k_field)
+    ent = entropy.cnc_tpu_initial_params(k_ent) if entropy is not None else {}
+    return params, ent
 
 
 class Trainer:
@@ -137,6 +151,23 @@ class Trainer:
                                            device=self.device)
         self.num_rays = cfg.train.init_batch_size
         self.step = 0
+
+    def start_from_cnc_tpu(self) -> None:
+        """Replace the fresh field and context MLPs with cnc_tpu's initial
+        ones at this trainer's seed (`cnc_tpu_initial_state`), in place, so
+        the optimizers keep their parameters.  Only before the first step;
+        the generator and everything else stay the port's."""
+        if self.step != 0:
+            raise ValueError(f"start_from_cnc_tpu at step {self.step}: only before the first")
+        params, ent = cnc_tpu_initial_state(self.cfg, self.seed, self.entropy)
+        pairs = [(self.field, rf.params_from_jax(params, self.cfg.model, device="cpu"))]
+        if self.entropy is not None:
+            pairs.append((self.ent_params, self.entropy.ent_params_from_jax(ent)))
+        with torch.no_grad():
+            for dst, src in pairs:
+                src = src.state_dict()
+                for name, p in dst.state_dict().items():
+                    p.copy_(src[name])
 
     # ------------------------------------------------------------------ occ
     def _occ_eval_fn(self, x: torch.Tensor) -> torch.Tensor:

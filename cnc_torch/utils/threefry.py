@@ -1,4 +1,5 @@
-"""The port's own copy of the threefry draws behind the entry permutations.
+"""The port's own copy of the threefry draws behind the entry permutations
+and cnc_tpu's initial weights.
 
 cnc_tpu shuffles the entry order of its dense context levels with
 `jax.random.permutation(jax.random.PRNGKey(seed), n)`.  The codec codes
@@ -8,9 +9,12 @@ uint32 arithmetic: the Threefry-2x32 block cipher (Salmon et al., SC 2011,
 20 rounds), JAX's partitionable key split and 32-bit random bits (a 64-bit
 counter per element, hi and lo words as the cipher's two inputs, the two
 output words XORed), and its sort-based shuffle (`ceil(3 ln n / ln(2^32-1))`
-rounds, each a stable sort by fresh 32-bit keys).
+rounds, each a stable sort by fresh 32-bit keys).  `uniform` is
+`jax.random.uniform`'s float32 draw, which cnc_tpu's initial field and
+context MLPs come from (`train.trainer.cnc_tpu_initial_state`).
 
-It runs once when the context tables are built, on the host.
+It runs on the host: once when the context tables are built, and where a
+run starts from cnc_tpu's initial state.
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ def threefry2x32(key, x0: np.ndarray, x1: np.ndarray):
 
 
 def prng_key(seed: int):
-    """`jax.random.PRNGKey(seed)`'s two words for a seed in [0, 2^63)."""
-    return np.uint32((seed >> 32) & 0xFFFFFFFF), np.uint32(seed & 0xFFFFFFFF)
+    """`jax.random.PRNGKey(seed)`'s two words with JAX's 64-bit types off,
+    its default and cnc_tpu's: the seed wraps to 32 bits, so the high word
+    is 0 and the low word is the seed modulo 2^32."""
+    return np.uint32(0), np.uint32(seed & 0xFFFFFFFF)
 
 
 def _counters(n: int):
@@ -52,16 +58,46 @@ def _counters(n: int):
     return (i >> np.uint64(32)).astype(np.uint32), (i & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
-def split(key):
-    """`jax.random.split(key)` (two keys) under the partitionable scheme."""
-    b0, b1 = threefry2x32(key, *_counters(2))
-    return (b0[0], b1[0]), (b0[1], b1[1])
+def split(key, n: int = 2):
+    """`jax.random.split(key, n)` under the partitionable scheme: n keys,
+    key i the cipher of counter i."""
+    b0, b1 = threefry2x32(key, *_counters(n))
+    return tuple((b0[i], b1[i]) for i in range(n))
 
 
 def random_bits32(key, n: int) -> np.ndarray:
     """`jax.random.bits(key, (n,), uint32)` under the partitionable scheme."""
     b0, b1 = threefry2x32(key, *_counters(n))
     return b0 ^ b1
+
+
+def _fma32(a: np.ndarray, b: np.float32, c: np.float32) -> np.ndarray:
+    """a * b + c rounded once to float32, as XLA's CPU backend contracts it.
+
+    The product of two floats is exact in float64; the float64 sum s and its
+    error e (s + e = a * b + c exactly) then decide the one case where
+    rounding s to float32 would round twice: s on a float32 midpoint."""
+    p = a.astype(np.float64) * np.float64(b)
+    s = p + np.float64(c)
+    t = s - p
+    e = (p - (s - t)) + (np.float64(c) - t)
+    r = s.astype(np.float32)
+    d = s - r.astype(np.float64)                  # exact
+    other = np.nextafter(r, np.where(d > 0, np.float32(np.inf), np.float32(-np.inf)))
+    tie = (d != 0) & (np.abs(d) * 2 == np.abs(other.astype(np.float64) - r.astype(np.float64)))
+    return np.where(tie & (np.sign(e) == np.sign(d)), other, r)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)` as XLA's CPU
+    backend computes it: the top 23 of each element's 32 random bits as the
+    mantissa of a float in [1, 2), less 1, times (maxval - minval) plus
+    minval in one fused multiply-add, held at or above minval."""
+    shape = tuple(int(d) for d in shape)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    bits = random_bits32(key, int(np.prod(shape, dtype=np.int64)))
+    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    return np.maximum(lo, _fma32(floats, hi - lo, lo)).reshape(shape)
 
 
 def permutation(seed: int, n: int) -> np.ndarray:

@@ -80,6 +80,13 @@ def test_one_rate_train_step_matches_cnc_tpu():
         jax.tree.map(np.array, jtr.params), tcfg.model, device="cpu").state_dict())
     ttr.ent_params.load_state_dict(ttr.entropy.ent_params_from_jax(
         jax.tree.map(np.array, jtr.ent_params)).state_dict())
+    one_step_against_cnc_tpu(jtr, jctx, ttr, tcfg)
+
+
+def one_step_against_cnc_tpu(jtr, jctx, ttr, tcfg):
+    """One whole rate step of both trainers from their current (equal)
+    states, held to the tolerances stated in
+    `test_one_rate_train_step_matches_cnc_tpu`."""
     binaries = tscenes.occupancy_from_scene(tscenes.make_scene("sphere"), 16, 0.02, device="cpu")
     binaries[:4] = False                           # asymmetric along x
     ttr.occ_state = ttr.occ_state._replace(binaries=binaries)

@@ -14,6 +14,14 @@ train and 8 test views at 256x256, one test view evaluated.
     python3 tools/torch_pipeline_run.py --max_steps 2000 --seed 0 \
         --out_root runs_torch
 
+With --init cnc_tpu the field and context MLPs start from cnc_tpu's own
+initial draws at the seed (`Trainer.start_from_cnc_tpu`, drawn in numpy
+without JAX) instead of the port's; nothing else changes.  The estimated
+rate is traced every --trace_every steps (at rate steps), and with
+--census_at S1,S2,... the census of tools/torch_basin_census.py is taken
+after those steps' updates (one JSON file a step under <out_root>/census/,
+its totals in the summary line).
+
 The run checkpoints every --checkpoint_every steps to
 <ckpt_dir>/ckpt_<tag>.npz (about 250 MB at full width).  With --deadline_s
 it stops at the first checkpoint after which the time left (from process
@@ -21,8 +29,9 @@ start) falls below --margin_s, and exits 0; running the same command again
 resumes from that file.  As in cnc_tpu, a checkpoint written after step s's
 update records step s, so the resumed run takes step s again.  When the
 point completes, a line with the keys of runs_20k/summary.jsonl (plus the
-seed, the card, the TSV row and the estimated rate every 500 steps) is
-appended to <out_root>/summary.jsonl and the checkpoint is deleted.
+seed, the init, the card, the TSV row, the estimated rate trace and the
+census totals) is appended to <out_root>/summary.jsonl and the checkpoint
+is deleted.  The census's seconds are left out of train_s and step_s.
 """
 
 import argparse
@@ -66,6 +75,12 @@ def main():
                     help="per-step sample budget and target (0 = the default 2^18)")
     ap.add_argument("--v_ctx_cap", type=int, default=1 << 20, help="0 = the default 2^21")
     ap.add_argument("--max_steps", type=int, default=2000)
+    ap.add_argument("--init", choices=("port", "cnc_tpu"), default="port",
+                    help="the initial field and context MLPs: the port's draws or cnc_tpu's")
+    ap.add_argument("--trace_every", type=int, default=500,
+                    help="record the estimated rate every N steps (at rate steps)")
+    ap.add_argument("--census_at", type=str, default="",
+                    help="steps after which to take the rate census, e.g. 0,250,500,1000")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--checkpoint_every", type=int, default=1000)
     ap.add_argument("--out_root", type=str, default="runs_torch")
@@ -83,11 +98,14 @@ def main():
     from cnc_torch.train import driver
     from cnc_torch.train.trainer import Trainer
     from cnc_torch.utils.device import resolve_device
+    from torch_basin_census import census_of_trainer, summary_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device()
-    tag = f"l{args.lmbda:g}_k{args.interval}_s{args.seed}"
+    tag = f"l{args.lmbda:g}_k{args.interval}_s{args.seed}" + (
+        "_cnc_tpu_init" if args.init == "cnc_tpu" else "")
+    census_at = {int(x) for x in args.census_at.split(",") if x}
     ckpt_dir = args.ckpt_dir or args.out_root
     ck = os.path.join(ckpt_dir, f"ckpt_{tag}.npz")
     side = ck[:-len(".npz")] + ".json"   # train seconds and steps of earlier runs
@@ -117,7 +135,13 @@ def main():
     t0 = time.time()
     entropy = driver.build_entropy(cfg, device=dev) if args.lmbda > 0 else None
     trainer = Trainer(cfg, train_ds, entropy=entropy, device=dev)
-    prior = {"train_s": 0.0, "steps_run": 0, "runs": 0, "rate_trace": []}
+    init_s = None
+    if args.init == "cnc_tpu" and trainer.step == 0:
+        t_init = time.time()
+        trainer.start_from_cnc_tpu()
+        init_s = time.time() - t_init
+        log(f"cnc_tpu's initial state drawn and loaded in {init_s:.2f} s")
+    prior = {"train_s": 0.0, "steps_run": 0, "runs": 0, "rate_trace": [], "census": {}}
     if os.path.exists(side) and trainer.step > 0:
         with open(side) as fh:
             prior = json.load(fh)
@@ -126,18 +150,30 @@ def main():
                              if trainer.step else ""))
 
     trace = prior["rate_trace"]
+    censuses = prior.setdefault("census", {})
     steps_here = [0]
+    census_s = [0.0]
     t_fit = time.time()
 
     def record():
-        return {"train_s": prior["train_s"] + time.time() - t_fit,
+        return {"train_s": prior["train_s"] + time.time() - t_fit - census_s[0],
                 "steps_run": prior["steps_run"] + steps_here[0], "runs": prior["runs"] + 1,
-                "rate_trace": trace}
+                "rate_trace": trace, "census": censuses}
 
     def on_step(s, aux):
         steps_here[0] += 1
-        if s % 500 == 0 and "embed_MB" in aux:
+        if s % args.trace_every == 0 and "embed_MB" in aux:
             trace.append([s, float(aux["embed_MB"]), float(aux["bits_per_param"])])
+        if s in census_at and args.lmbda > 0:
+            t_c = time.time()
+            c = census_of_trainer(trainer)
+            c["step"], c["census_s"] = s, round(time.time() - t_c, 2)
+            census_s[0] += time.time() - t_c
+            os.makedirs(os.path.join(args.out_root, "census"), exist_ok=True)
+            with open(os.path.join(args.out_root, "census", f"{tag}_{s}.json"), "w") as fh:
+                json.dump(c, fh)
+            censuses[str(s)] = {**c["totals"], "census_s": c["census_s"]}
+            log(f"census at step {s} ({c['census_s']} s): {summary_line(c)}")
         if s > 0 and s % args.checkpoint_every == 0:      # fit saved step s just now
             with open(side, "w") as fh:
                 json.dump(record(), fh)
@@ -172,8 +208,9 @@ def main():
         "decode_s": round(res.decode_s, 1),
         "step_s": round(totals["train_s"] / max(totals["steps_run"], 1), 5),
         "wall_s": round(totals["train_s"] + time.time() - t_tail, 1),
-        "seed": args.seed, "steps_run": totals["steps_run"], "runs": totals["runs"],
-        "card": card_line, "rate_trace": trace, "tsv_row": row}
+        "seed": args.seed, "init": args.init, "init_draw_s": init_s,
+        "steps_run": totals["steps_run"], "runs": totals["runs"],
+        "card": card_line, "rate_trace": trace, "census": censuses, "tsv_row": row}
     os.makedirs(args.out_root, exist_ok=True)
     with open(os.path.join(args.out_root, "summary.jsonl"), "a") as fh:
         fh.write(json.dumps(rec) + "\n")
