@@ -56,7 +56,7 @@ from ..ops import entropy as ent_ops
 from ..ops import hash_ops
 from ..ops import scatter_ops
 from ..parallel import sharding
-from ..utils import threefry
+from ..utils import profiling, threefry
 from ..utils.device import resolve_device
 from .radiance_field import Linear
 
@@ -673,8 +673,9 @@ class ContextModels:
         as cnc_tpu rounds its own uniform draws."""
         keys3 = list(self.ctx_levels_3d)
         keys2 = [(ai, l) for ai in range(3) for l in self.ctx_levels_2d]
-        u = torch.rand(len(keys3) + len(keys2), generator=generator,
-                       device=generator.device).cpu().numpy().astype(np.float32)
+        u = torch.rand(len(keys3) + len(keys2), generator=generator, device=generator.device)
+        with profiling.span("sync/draw_starts"):
+            u = u.cpu().numpy().astype(np.float32)
         starts = {"3d": {}, "2d": {}}
         for i, l in enumerate(keys3):
             starts["3d"][l] = self.start_from_uniform(self.tables3d[l], u[i])
@@ -730,18 +731,22 @@ class ContextModels:
             tbl2 = tables[ax]
             if cfg.use_dimension_wise:
                 src = fine_table if cfg.pn_frac_grad else fine_table.detach()
-                frac_plane = self.pn_frac_plane(src, cache["pn"][ax],
-                                                sample_cap=cfg.pn_frac_sample_cap, group=group)
+                with profiling.span("rate/frac_plane"):
+                    frac_plane = self.pn_frac_plane(src, cache["pn"][ax],
+                                                    sample_cap=cfg.pn_frac_sample_cap,
+                                                    group=group)
             else:
                 frac_plane = None
             # split, not sliced: its backward is one concatenation, where a
             # slice's backward fills a whole table of zeros per level
             for l, level_slice in enumerate(tbl2.split(list(self.spec2.level_sizes))):
-                pg_n, bits_n, _ = ent_ops.global_pg_bits(level_slice)
+                with profiling.span("rate/pg_bits"):
+                    pg_n, bits_n, _ = ent_ops.global_pg_bits(level_slice)
                 if l in self.ctx_levels_2d:
-                    bits_n = self._bits_2d_level(ent_params, tbl2, l, pg_n, frac_plane,
-                                                 cache["bin2d"][ai], cache["mask2d"][ai],
-                                                 starts[(ai, l)], cache["mask2d_bits"][ai])
+                    with profiling.span("rate/window_2d", {"axis": ax, "level": l}):
+                        bits_n = self._bits_2d_level(ent_params, tbl2, l, pg_n, frac_plane,
+                                                     cache["bin2d"][ai], cache["mask2d"][ai],
+                                                     starts[(ai, l)], cache["mask2d_bits"][ai])
                 ttl_bits = ttl_bits + bits_n
         return ttl_bits
 
@@ -754,11 +759,13 @@ class ContextModels:
         ttl_bits = 0.0
         pg_by_level = {}
         for l, level_slice in enumerate(tbl3.split(list(self.spec3.level_sizes))):
-            pg_n, bits_n, _ = ent_ops.global_pg_bits(level_slice)
+            with profiling.span("rate/pg_bits"):
+                pg_n, bits_n, _ = ent_ops.global_pg_bits(level_slice)
             pg_by_level[l] = pg_n
             if l in self.cfg.skip_levels_3d or l >= self.pg_level:
                 ttl_bits = ttl_bits + bits_n
-        sampled, util = self._bits_3d_sampled(ent_params, tbl3, pg_by_level, cache, starts)
+        with profiling.span("rate/sampled_3d"):
+            sampled, util = self._bits_3d_sampled(ent_params, tbl3, pg_by_level, cache, starts)
         ttl_bits = ttl_bits + sampled
         return (ttl_bits, util) if with_util else ttl_bits
 
@@ -1098,7 +1105,9 @@ class ContextModels:
 
         clev = levels[src]
         cpos = pos[src]
-        res_arr = torch.tensor(self.spec3.resolutions, dtype=torch.int64, device=dev)[clev.long()]
+        with profiling.span("sync/level_resolutions"):    # a copy from the host
+            res_arr = torch.tensor(self.spec3.resolutions, dtype=torch.int64, device=dev)
+        res_arr = res_arr[clev.long()]
         xyz = torch.stack([cpos // (res_arr * res_arr), (cpos // res_arr) % res_arr,
                            cpos % res_arr], dim=-1)
         pts = (xyz.float() - 0.5) / (res_arr.float() - 2.0)[:, None]

@@ -29,7 +29,7 @@ from ..config import ModelConfig
 from ..ops import encoding as enc
 from ..ops import sh as sh_ops
 from ..ops import ste as ste_ops
-from ..utils import threefry
+from ..utils import profiling, threefry
 from ..utils.device import resolve_device
 
 TABLES = ("xyz", "xy", "xz", "yz")
@@ -188,6 +188,13 @@ def quantized_tables(field: RadianceField, cfg: ModelConfig) -> Dict[str, torch.
     return {k: ste_ops.quantize_embedding(field.tables[k], mode, cfg.Q) for k in TABLES}
 
 
+def _plane(x01: torch.Tensor, dims) -> torch.Tensor:
+    """The points' coordinates on one plane.  The list index is copied
+    from the host, and on the card that copy waits for the stream."""
+    with profiling.span("sync/plane_index"):
+        return x01[:, dims]
+
+
 def encode_position(field: RadianceField, cfg: ModelConfig, x01: torch.Tensor,
                     tables: Optional[Dict] = None) -> torch.Tensor:
     """Grid + plane + sine features for normalized positions in [0,1]^3
@@ -196,9 +203,9 @@ def encode_position(field: RadianceField, cfg: ModelConfig, x01: torch.Tensor,
     g3, g2 = cfg.grid_3d, cfg.grid_2d
     return torch.cat([
         enc.grid_encode(x01, t["xyz"], g3),
-        enc.grid_encode(x01[:, [0, 1]], t["xy"], g2),
-        enc.grid_encode(x01[:, [0, 2]], t["xz"], g2),
-        enc.grid_encode(x01[:, [1, 2]], t["yz"], g2),
+        enc.grid_encode(_plane(x01, [0, 1]), t["xy"], g2),
+        enc.grid_encode(_plane(x01, [0, 2]), t["xz"], g2),
+        enc.grid_encode(_plane(x01, [1, 2]), t["yz"], g2),
         sh_ops.sine_embed(x01, cfg.pe_num_freqs),
     ], dim=-1)
 
@@ -238,9 +245,10 @@ def forward(field: RadianceField, cfg: ModelConfig, aabb: torch.Tensor,
             positions: torch.Tensor, directions: torch.Tensor,
             tables: Optional[Dict] = None):
     """rgb, sigma at sample positions (ngp.py:554-566)."""
-    density, geo = query_density(field, cfg, aabb, positions, return_feat=True,
-                                 tables=tables)
-    return query_rgb(field, cfg, directions, geo), density
+    with profiling.span("render/field"):
+        density, geo = query_density(field, cfg, aabb, positions, return_feat=True,
+                                     tables=tables)
+        return query_rgb(field, cfg, directions, geo), density
 
 
 def replace_tables(field: RadianceField, new_tables: Mapping[str, torch.Tensor]) -> None:

@@ -39,6 +39,7 @@ from typing import Any, Dict, Iterable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
 from ..utils.device import normalize_device, resolve_device
 
 MAX_TIMEOUT_S = 120         # every group's collective and store timeout, at most
@@ -156,14 +157,22 @@ def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group.process_group)
 
 
+def _on_device(x, dev) -> torch.Tensor:
+    """x as a tensor on `dev`; a Python number is copied from the host, and
+    on the card that copy waits for the stream."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, device=dev)
+    with profiling.span("sync/host_scalar"):
+        return torch.as_tensor(x, device=dev)
+
+
 def reduce_stats(values: Sequence[torch.Tensor], group: Optional[Group],
                  op=dist.ReduceOp.SUM):
     """Gradient-free reduction of a few scalars in one collective, float64
     (with no group, the values themselves: the step of one process)."""
     dev = group.device if group is not None else next(
         x.device for x in values if isinstance(x, torch.Tensor))
-    v = torch.stack([torch.as_tensor(x, device=dev).detach().to(torch.float64).reshape(())
-                     for x in values])
+    v = torch.stack([_on_device(x, dev).detach().to(torch.float64).reshape(()) for x in values])
     if group is not None:
         dist.all_reduce(v, op=op, group=group.process_group)
     return v

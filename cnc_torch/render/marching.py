@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from .. import kernels
 from ..config import RenderConfig
 from ..ops import scatter_ops
+from ..utils import profiling
 
 
 class RaySamples(NamedTuple):
@@ -298,14 +299,15 @@ def march_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, binaries: torch.Tenso
       RaySamples in (ray, t) order, with each ray's kept hit count and last
       kept t_mid (`ray_hits`, `ray_last_t`).
     """
-    if mip is None:
-        mip = build_march_mip(binaries)
-    if rays_o.is_cuda:
-        c = lambda t: None if t is None else t.contiguous()
-        return _march_cuda(c(rays_o), c(rays_d), c(binaries), c(aabb), cfg, capacity,
-                           c(ray_mask), c(t_start), max_steps, c(mip), c(jitter))
-    return _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start,
-                        max_steps, mip, jitter)
+    with profiling.span("render/march"):
+        if mip is None:
+            mip = build_march_mip(binaries)
+        if rays_o.is_cuda:
+            c = lambda t: None if t is None else t.contiguous()
+            return _march_cuda(c(rays_o), c(rays_d), c(binaries), c(aabb), cfg, capacity,
+                               c(ray_mask), c(t_start), max_steps, c(mip), c(jitter))
+        return _march_plain(rays_o, rays_d, binaries, aabb, cfg, capacity, ray_mask, t_start,
+                            max_steps, mip, jitter)
 
 
 def sample_positions(samples: RaySamples, rays_o: torch.Tensor,

@@ -25,6 +25,7 @@ import torch
 from ..config import ModelConfig, RenderConfig
 from ..models import radiance_field as rf
 from ..ops import scatter_ops
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import marching, volrend
 
@@ -129,32 +130,36 @@ def render_rays_eval(field: rf.RadianceField, mcfg: ModelConfig, rcfg: RenderCon
     cursor = torch.full((r,), float(np.float32(rcfg.near_plane)), device=dev)
     alive = torch.ones(r, dtype=torch.bool, device=dev)
     ray_index = torch.arange(r, device=dev)
-    for _ in range(max_rounds):
-        if not bool(alive.any()):          # the one host sync per round
-            break
-        samples = marching.march_rays(rays_o, rays_d, binaries, aabb, rcfg, round_capacity,
-                                      ray_mask=alive, t_start=cursor, mip=mip)
-        pos, dirs = marching.sample_positions(samples, rays_o, rays_d)
-        rgbs, sigmas = rf.forward(field, mcfg, aabb, pos, dirs, tables=tables)
-        out = volrend.composite(rgbs, sigmas, samples, r, render_bkgd=None,
-                                early_stop_eps=rcfg.early_stop_eps,
-                                prefix_trans=1.0 - opacity[:, 0],
-                                alpha_thre=rcfg.alpha_thre)
-        if stats is not None:
-            stats["rounds"] = stats.get("rounds", 0) + 1
-            stats["samples"] = stats.get("samples", 0) + samples.valid.sum()
-        rgb = rgb + out.rgb
-        opacity = opacity + out.opacity
-        depth = depth + out.depth
+    for k in range(max_rounds):
+        with profiling.span("serve/round", {"round": k}):
+            with profiling.span("sync/alive"):
+                more = bool(alive.any())       # the one host sync per round
+            if not more:
+                break
+            samples = marching.march_rays(rays_o, rays_d, binaries, aabb, rcfg,
+                                          round_capacity, ray_mask=alive, t_start=cursor,
+                                          mip=mip)
+            pos, dirs = marching.sample_positions(samples, rays_o, rays_d)
+            rgbs, sigmas = rf.forward(field, mcfg, aabb, pos, dirs, tables=tables)
+            out = volrend.composite(rgbs, sigmas, samples, r, render_bkgd=None,
+                                    early_stop_eps=rcfg.early_stop_eps,
+                                    prefix_trans=1.0 - opacity[:, 0],
+                                    alpha_thre=rcfg.alpha_thre)
+            if stats is not None:
+                stats["rounds"] = stats.get("rounds", 0) + 1
+                stats["samples"] = stats.get("samples", 0) + samples.valid.sum()
+            rgb = rgb + out.rgb
+            opacity = opacity + out.opacity
+            depth = depth + out.depth
 
-        # advance cursors: rays whose hits all fit are done this round;
-        # the first possibly-incomplete ray resumes after its last sample
-        # (the march returns each ray's kept hits and last kept t_mid)
-        ray_done = ray_index < samples.resume_ray
-        cursor = torch.where(samples.ray_hits > 0,
-                             torch.maximum(cursor, samples.ray_last_t + samples.dt * 0.5),
-                             cursor)
-        alive = alive & ~ray_done & (opacity[:, 0] <= opc_thre)
+            # advance cursors: rays whose hits all fit are done this round;
+            # the first possibly-incomplete ray resumes after its last sample
+            # (the march returns each ray's kept hits and last kept t_mid)
+            ray_done = ray_index < samples.resume_ray
+            cursor = torch.where(samples.ray_hits > 0,
+                                 torch.maximum(cursor, samples.ray_last_t + samples.dt * 0.5),
+                                 cursor)
+            alive = alive & ~ray_done & (opacity[:, 0] <= opc_thre)
     rgb = rgb + render_bkgd * (1.0 - opacity)
     depth = depth / torch.clamp(opacity, min=1e-10)
     return rgb, opacity, depth
@@ -173,32 +178,37 @@ def render_image(field: rf.RadianceField, mcfg: ModelConfig, rcfg: RenderConfig,
     total), when given, is called every 8 chunks and after the last, once
     the latest chunk has finished on the device.
     """
-    dev = resolve_device(device)
-    field_dev = next(field.parameters()).device
-    if field_dev.type != dev.type:
-        raise ValueError(f"render_image: the field is on {field_dev}, not {dev}")
-    to = lambda t: (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t))).to(dev)
-    aabb, binaries = to(aabb).float(), to(binaries).bool()
-    render_bkgd = to(render_bkgd).float()
-    h, w = rays_o.shape[:2]
-    n = h * w
-    chunk = chunk or rcfg.eval_chunk_rays
-    o = to(rays_o).reshape(-1, 3).float()
-    d = to(rays_d).reshape(-1, 3).float()
-    pad = (-n) % chunk
-    if pad:
-        o = torch.cat([o, o[-1:].expand(pad, 3)])
-        d = torch.cat([d, d[-1:].expand(pad, 3)])
-    total = o.shape[0] // chunk
-    outs = []
-    for i in range(0, o.shape[0], chunk):
-        outs.append(render_rays_eval(field, mcfg, rcfg, aabb, binaries, o[i:i + chunk].contiguous(),
-                                     d[i:i + chunk].contiguous(), render_bkgd, stats=stats))
-        if progress_fn is not None and (len(outs) % 8 == 0 or len(outs) == total):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            progress_fn(len(outs), total)
-    rgb = torch.cat([x[0] for x in outs])[:n].reshape(h, w, 3)
-    opacity = torch.cat([x[1] for x in outs])[:n].reshape(h, w, 1)
-    depth = torch.cat([x[2] for x in outs])[:n].reshape(h, w, 1)
-    return rgb, opacity, depth
+    with profiling.span("serve/view"):
+        dev = resolve_device(device)
+        field_dev = next(field.parameters()).device
+        if field_dev.type != dev.type:
+            raise ValueError(f"render_image: the field is on {field_dev}, not {dev}")
+        to = lambda t: (t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t))).to(dev)
+        aabb, binaries = to(aabb).float(), to(binaries).bool()
+        render_bkgd = to(render_bkgd).float()
+        h, w = rays_o.shape[:2]
+        n = h * w
+        chunk = chunk or rcfg.eval_chunk_rays
+        o = to(rays_o).reshape(-1, 3).float()
+        d = to(rays_d).reshape(-1, 3).float()
+        pad = (-n) % chunk
+        if pad:
+            o = torch.cat([o, o[-1:].expand(pad, 3)])
+            d = torch.cat([d, d[-1:].expand(pad, 3)])
+        total = o.shape[0] // chunk
+        outs = []
+        for i in range(0, o.shape[0], chunk):
+            with profiling.span("serve/chunk", {"chunk": len(outs)}):
+                outs.append(render_rays_eval(field, mcfg, rcfg, aabb, binaries,
+                                             o[i:i + chunk].contiguous(),
+                                             d[i:i + chunk].contiguous(), render_bkgd,
+                                             stats=stats))
+            if progress_fn is not None and (len(outs) % 8 == 0 or len(outs) == total):
+                if dev.type == "cuda":
+                    with profiling.span("sync/progress"):
+                        torch.cuda.synchronize(dev)
+                progress_fn(len(outs), total)
+        rgb = torch.cat([x[0] for x in outs])[:n].reshape(h, w, 3)
+        opacity = torch.cat([x[1] for x in outs])[:n].reshape(h, w, 1)
+        depth = torch.cat([x[2] for x in outs])[:n].reshape(h, w, 1)
+        return rgb, opacity, depth

@@ -27,6 +27,7 @@ import torch
 
 from .. import kernels
 from ..ops import scan as scan_ops
+from ..utils import profiling
 from .marching import RaySamples
 
 
@@ -255,15 +256,17 @@ def composite(rgbs: torch.Tensor, sigmas: torch.Tensor, samples: RaySamples, n_r
     """
     if prefix_trans is not None and prefix_trans.requires_grad:
         raise ValueError("composite: prefix_trans gets no gradient; pass it detached")
-    if sigmas.is_cuda:
-        c = lambda t: None if t is None else t.contiguous().float()
-        rgb, opacity, depth, n_vis = _CompositeCuda.apply(
-            c(rgbs), c(sigmas), samples, n_rays, early_stop_eps, c(prefix_trans), alpha_thre)
-    else:
-        rgb, opacity, depth, n_vis = _composite_plain(
-            rgbs, sigmas, samples, n_rays, early_stop_eps, prefix_trans, alpha_thre)
-    opacity, depth = opacity[:, None], depth[:, None]
-    if render_bkgd is not None:
-        rgb = rgb + render_bkgd * (1.0 - opacity)
+    with profiling.span("render/composite"):
+        if sigmas.is_cuda:
+            c = lambda t: None if t is None else t.contiguous().float()
+            rgb, opacity, depth, n_vis = _CompositeCuda.apply(
+                c(rgbs), c(sigmas), samples, n_rays, early_stop_eps, c(prefix_trans),
+                alpha_thre)
+        else:
+            rgb, opacity, depth, n_vis = _composite_plain(
+                rgbs, sigmas, samples, n_rays, early_stop_eps, prefix_trans, alpha_thre)
+        opacity, depth = opacity[:, None], depth[:, None]
+        if render_bkgd is not None:
+            rgb = rgb + render_bkgd * (1.0 - opacity)
     return RenderedRays(rgb=rgb, opacity=opacity, depth=depth, n_rendering_samples=n_vis,
                         n_marched_samples=samples.num_samples)

@@ -42,6 +42,7 @@ from ..parallel import sharding
 from ..render import renderer
 from ..utils import checkpoint as ckpt
 from ..utils import metrics as M
+from ..utils import profiling
 from ..utils import threefry
 from ..utils.device import resolve_device, same_device
 from . import optim
@@ -275,18 +276,21 @@ class Trainer:
         if group is not None:
             rays_o, rays_d, pixels = sharding.shard_rays(group, rays_o, rays_d, pixels)
             if jitter is None or (use_entropy and starts is None):
-                gen = sharding.rank_generator(self.device, sharding.draw_rank_seed(gen),
-                                              group.rank)
+                with profiling.span("sync/rank_seed"):
+                    seed = sharding.draw_rank_seed(gen)
+                gen = sharding.rank_generator(self.device, seed, group.rank)
         if use_entropy and starts is None:
             # drawn (one small device read) before the step's work is queued
             starts = self.entropy.draw_starts(gen)
         self._zero_grads(use_entropy)
-        sq, n_px, out = self._render_terms(rays_o, rays_d, pixels, bkgd, jitter, gen,
-                                           self.rank_capacity(w))
+        with profiling.span("train/render"):
+            sq, n_px, out = self._render_terms(rays_o, rays_d, pixels, bkgd, jitter, gen,
+                                               self.rank_capacity(w))
         stats = [sq, n_px, out.n_rendering_samples, out.n_marched_samples]
         if use_entropy:
-            tables = rf.quantized_tables(self.field, cfg.model)
-            ttl_bits, ctx_util = self._rate_terms(tables, starts, ent_cache, group)
+            with profiling.span("train/rate"):
+                tables = rf.quantized_tables(self.field, cfg.model)
+                ttl_bits, ctx_util = self._rate_terms(tables, starts, ent_cache, group)
             stats += [ttl_bits, ctx_util]
         tot = sharding.reduce_stats(stats, group)
         max_depth = sharding.reduce_stats([out.depth.detach().max()], group,
@@ -299,14 +303,29 @@ class Trainer:
             loss = loss + self._rate_scale() * ttl_bits / w
             aux.update(self._rate_aux((tot[4] / w).to(torch.float32),
                                       (tot[5] / w).to(torch.float32)))
-        loss.backward()
-        if group is not None:
-            params = list(self.field.parameters())
-            if use_entropy:
-                params += list(self.ent_params.parameters())
-            sharding.all_reduce_grads(params, group)
-        self._apply_update(use_entropy)
+        with profiling.span("train/backward"):
+            loss.backward()
+            if group is not None:
+                params = list(self.field.parameters())
+                if use_entropy:
+                    params += list(self.ent_params.parameters())
+                sharding.all_reduce_grads(params, group)
+        with profiling.span("train/update"):
+            self._apply_update(use_entropy)
         return aux
+
+    @staticmethod
+    def _log_line(aux: Dict, step: int, bucket: int, tic: float) -> str:
+        mse = float(aux["mse"])
+        msg = (f"elapsed_time={time.time() - tic:.2f}s | step={step} | mse={mse:.5f} | "
+               f"psnr={-10 * math.log10(max(mse, 1e-10)):.2f} | "
+               f"n_rendering_samples={aux['n_samples']} | num_rays={bucket} | "
+               f"max_depth={float(aux['max_depth']):.3f}")
+        if "bits_per_param" in aux:
+            msg += (f" | bits_per_param={float(aux['bits_per_param']):.3f}"
+                    f" | embed_MB={float(aux['embed_MB']):.3f}"
+                    f" | ctx_util={float(aux['ctx_util']):.2f}")
+        return msg
 
     # ------------------------------------------------------------------ fit
     def fit(self, max_steps: Optional[int] = None, log_every: int = 200, log_fn=print,
@@ -336,51 +355,50 @@ class Trainer:
         local = 0
         while self.step <= max_steps:
             s = self.step
-            if s % cfg.render.occ_update_interval == 0 or local == 0:
-                # local == 0: a run that continues refreshes the grid first
-                self.occ_state = occ.update_occ_grid(
-                    self.occ_state, self.generator, self._occ_eval_fn,
-                    s < cfg.render.occ_warmup_steps, cfg.render)
-                if self.entropy is not None:
-                    ent_cache = self.entropy.refresh_cache(self.occ_state.binaries)
+            with profiling.span("train/step", {"step": s}):
+                if s % cfg.render.occ_update_interval == 0 or local == 0:
+                    # local == 0: a run that continues refreshes the grid first
+                    with profiling.span("train/occupancy"):
+                        self.occ_state = occ.update_occ_grid(
+                            self.occ_state, self.generator, self._occ_eval_fn,
+                            s < cfg.render.occ_warmup_steps, cfg.render)
+                    if self.entropy is not None:
+                        with profiling.span("train/cache"):
+                            ent_cache = self.entropy.refresh_cache(self.occ_state.binaries)
 
-            bucket = _next_bucket(self.num_rays, cfg.train.min_ray_bucket,
-                                  cfg.train.max_ray_bucket, self.world_size)
-            rays, pixels = self.dataset.fetch_rays(self.generator, bucket)
-            aux = self._train_step(rays.origins, rays.viewdirs, pixels, bkgd,
-                                   ent_cache=ent_cache)
+                with profiling.span("train/fetch"):
+                    bucket = _next_bucket(self.num_rays, cfg.train.min_ray_bucket,
+                                          cfg.train.max_ray_bucket, self.world_size)
+                    rays, pixels = self.dataset.fetch_rays(self.generator, bucket)
+                aux = self._train_step(rays.origins, rays.viewdirs, pixels, bkgd,
+                                       ent_cache=ent_cache)
 
-            # dynamic ray batching (train_CNC_nerf_synthetic.py:340-344), driven
-            # by the true pre-truncation hit count so a saturated buffer
-            # shrinks the batch; this read is the step's one host sync
-            n_samples, n_marched = (int(v) for v in torch.stack(
-                [aux["n_samples"].to(torch.int64), aux["n_marched"].to(torch.int64)]).tolist())
-            aux["n_samples"], aux["n_marched"], aux["num_rays"] = n_samples, n_marched, bucket
-            if cfg.train.target_sample_batch_size > 0 and n_marched > 0:
-                self.num_rays = int(bucket * (cfg.train.target_sample_batch_size
-                                              / float(n_marched)))
-            # saved before the step counter moves on, as cnc_tpu does: a file
-            # written after step s's update records s, and a run resumed
-            # from it takes step s again
-            cp = cfg.train.checkpoint_path
-            if (cp and cfg.train.checkpoint_every > 0 and s > 0 and self.rank == 0
-                    and s % cfg.train.checkpoint_every == 0):
-                ckpt.save_checkpoint(cp, self)
-            if log_every and s % log_every == 0:
-                mse = float(aux["mse"])
-                msg = (f"elapsed_time={time.time() - tic:.2f}s | step={s} | mse={mse:.5f} | "
-                       f"psnr={-10 * math.log10(max(mse, 1e-10)):.2f} | "
-                       f"n_rendering_samples={n_samples} | num_rays={bucket} | "
-                       f"max_depth={float(aux['max_depth']):.3f}")
-                if "bits_per_param" in aux:
-                    msg += (f" | bits_per_param={float(aux['bits_per_param']):.3f}"
-                            f" | embed_MB={float(aux['embed_MB']):.3f}"
-                            f" | ctx_util={float(aux['ctx_util']):.2f}")
-                log_fn(msg)
-            self.step += 1
-            local += 1
-            if step_callback is not None:
-                step_callback(s, aux)
+                # dynamic ray batching (train_CNC_nerf_synthetic.py:340-344),
+                # driven by the true pre-truncation hit count so a saturated
+                # buffer shrinks the batch; this read waits for the step's work
+                with profiling.span("sync/step_end"):
+                    n_samples, n_marched = (int(v) for v in torch.stack(
+                        [aux["n_samples"].to(torch.int64),
+                         aux["n_marched"].to(torch.int64)]).tolist())
+                aux["n_samples"], aux["n_marched"], aux["num_rays"] = n_samples, n_marched, bucket
+                if cfg.train.target_sample_batch_size > 0 and n_marched > 0:
+                    self.num_rays = int(bucket * (cfg.train.target_sample_batch_size
+                                                  / float(n_marched)))
+                # saved before the step counter moves on, as cnc_tpu does: a
+                # file written after step s's update records s, and a run
+                # resumed from it takes step s again
+                cp = cfg.train.checkpoint_path
+                if (cp and cfg.train.checkpoint_every > 0 and s > 0 and self.rank == 0
+                        and s % cfg.train.checkpoint_every == 0):
+                    with profiling.span("sync/checkpoint"):
+                        ckpt.save_checkpoint(cp, self)
+                if log_every and s % log_every == 0:
+                    with profiling.span("sync/log"):
+                        log_fn(self._log_line(aux, s, bucket, tic))
+                self.step += 1
+                local += 1
+                if step_callback is not None:
+                    step_callback(s, aux)
         self._last_ent_cache = ent_cache
         if self.group is not None:
             sharding.check_replicated(self.group, sharding.trainer_state(self),
