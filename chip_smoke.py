@@ -433,6 +433,75 @@ def check_grid_encode(torch, enc, spec, table, pts, label, perturb=True, name="K
     return rec
 
 
+FIELD_SINE_TOL = 2e-7   # K1f's sine columns against torch.sin / torch.cos (a last bit)
+
+
+def check_field_input(torch, enc, rf, mcfg, tables, x01, label):
+    """K1f (`enc.field_input`) against the composition it replaces, on the
+    main path's points (128 of them moved onto the border and partly
+    outside [0,1], one a NaN) and against its plain twin: the grid columns
+    bit-equal (a NaN point's zeros where the twin has NaN), the sine
+    columns within FIELD_SINE_TOL.  Plain ms: the composition through the plain
+    twins on the card; library ms: the composition as the card runs it
+    (four K1 launches, the plane indices, sine_embed, torch.cat), the
+    yardstick K1f replaces.  Returns the kernel record fields."""
+    from cnc_torch.ops import sh as sh_ops
+    tables = {k: v.detach() for k, v in tables.items()}
+    x01 = x01.clone()
+    x01[:64] = torch.round(x01[:64])
+    x01[64:128] = x01[64:128] * 1.4 - 0.2
+    x01[128, 0] = float("nan")
+    g3, g2, nf = mcfg.grid_3d, mcfg.grid_2d, mcfg.pe_num_freqs
+    ts = [tables[k] for k in rf.TABLES]
+    kernel = lambda: enc.field_input(x01, ts, g3, g2, nf)
+    composed = lambda: rf.composed_position(mcfg, x01, tables)
+    planes = [x01, x01[:, [0, 1]].contiguous(), x01[:, [0, 2]].contiguous(),
+              x01[:, [1, 2]].contiguous()]
+    specs = [g3, g2, g2, g2]
+    plain = lambda: torch.cat([enc._encode_plain(p, t, s.resolutions, s.offsets)
+                               for p, t, s in zip(planes, ts, specs)]
+                              + [sh_ops.sine_embed(x01, nf)], dim=-1)
+    got, want, twin = kernel(), composed(), plain()
+    torch.cuda.synchronize()
+    n_grid = g3.output_dim + 3 * g2.output_dim
+    if not torch.equal(got[:, :n_grid], want[:, :n_grid]):
+        raise AssertionError(f"K1f {label}: the grid columns differ from the four K1 calls")
+    # against the plain twin: the grid columns bit-equal, but for K1's rule
+    # that a point with a NaN coordinate reads as outside (zeros) where the
+    # twin carries the NaN into the plane's columns
+    nan_rows = twin[:, :n_grid].isnan().any(dim=1)
+    if bool((nan_rows & ~x01.isnan().any(dim=1)).any()):
+        raise AssertionError(f"K1f {label}: the plain twin has a NaN feature of a finite point")
+    if not torch.equal(got[:, :n_grid], twin[:, :n_grid].nan_to_num(nan=0.0)):
+        raise AssertionError(f"K1f {label}: the grid columns differ from the plain twin's")
+    err = (got[:, n_grid:] - twin[:, n_grid:]).nan_to_num(0.0).abs().max().item()
+    if not (err <= FIELD_SINE_TOL and torch.equal(got[:, n_grid:].isnan(),
+                                                  twin[:, n_grid:].isnan())):
+        raise AssertionError(f"K1f {label}: sine columns {err} from sine_embed's")
+    del want, twin
+    # bytes: the points and the row once, each distinct table row read once
+    n = x01.shape[0]
+    n_rows = 0
+    for p, s in zip(planes, specs):
+        gs, ws = enc._corner_sets(p, s.resolutions, s.offsets)
+        n_rows += torch.unique(torch.cat([g[w > 0] for g, w in zip(gs, ws)])).numel()
+        del gs, ws
+    f = g3.n_features
+    n_bytes = x01.numel() * 4 + got.numel() * 4 + n_rows * f * 4
+    n_flops = n * (g3.n_levels * 8 * (3 + 2 * f + 1) + 3 * g2.n_levels * 4 * (2 + 2 * f + 1)
+                   + 6 * nf * 20)
+    b, by = bound_ms(n_bytes, n_flops)
+    rec = dict(max_abs_err=err, ms=time_ms(kernel), device_ms=device_ms(kernel),
+               plain_ms=time_ms(plain, iters=5, warmup=1), bound_ms=b, bound_by=by,
+               library_ms=time_ms(composed), library_device_ms=device_ms(composed))
+    log(f"[K1f field_input {label}] N={n} width={got.shape[1]} distinct_rows={n_rows}"
+        f" grid columns bit-equal to the four K1 calls and the plain twin, sine err={err:.3g}"
+        f" (limit {FIELD_SINE_TOL}) ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f}"
+        f" plain_ms={rec['plain_ms']:.4f} bound_ms={b:.4f}; the composition ms="
+        f"{rec['library_ms']:.4f} device_ms={rec['library_device_ms']:.4f}")
+    return rec
+
+
 def sat_work(torch, kw, n_bytes, n_flops, pts, res, offs, enc):
     """K1s/K2s's share of the bound.  On given sources (`sat_src`, what the
     kernel alone reads): each word of the coarse levels' bits that a corner
@@ -2105,9 +2174,9 @@ def pipeline_datasets(dev):
 # training step's, the rate's, the table build's and the codec's.  Its
 # ctx_grad is off, so the context lookups are constants of the rate graph and
 # K1v's backward (K2v) is not on the path.
-PIPE_KERNELS = ("grid_encode", "grid_encode_bwd", "march", "volrend", "volrend_bwd", "compact",
-                "grid_encode_v", "segment_pool", "segment_pool_bwd", "segment_mean",
-                "segment_mean_bwd", "pn_frac_plane", "footprint", "pack_mask_bits",
+PIPE_KERNELS = ("grid_encode", "field_input", "grid_encode_bwd", "march", "volrend",
+                "volrend_bwd", "compact", "grid_encode_v", "segment_pool", "segment_pool_bwd",
+                "segment_mean", "segment_mean_bwd", "pn_frac_plane", "footprint", "pack_mask_bits",
                 "vertex_tables", "int_ctx_pool", "int_pq", "pn_hist_int")
 
 
@@ -2373,7 +2442,7 @@ def check_bundles(torch, kernels, volrend, dev) -> None:
         if not all(decode_launches.get(k, 0) > 0 for k in ("int_ctx_pool", "int_pq")):
             raise AssertionError(f"[{tag}] the decode did not go through the codec kernels:"
                                  f" {decode_launches}")
-        if not all(render_launches.get(k, 0) > 0 for k in ("grid_encode", "march", "volrend")):
+        if not all(render_launches.get(k, 0) > 0 for k in ("field_input", "march", "volrend")):
             raise AssertionError(f"[{tag}] the render did not go through the kernels:"
                                  f" {render_launches}")
         if not abs(diff) <= BUNDLE_DB:
@@ -3243,6 +3312,9 @@ def main() -> int:
         records["grid_encode"] = dict(k1_xyz, max_abs_err=max(k1_xyz["max_abs_err"],
                                                                k1_xy["max_abs_err"]),
                                       sites={"xyz view": k1_xyz, "xy view": k1_xy})
+        # K1f, the field's whole input row, at the same points
+        records["field_input"] = check_field_input(torch, enc, rf, mcfg, tables, x01,
+                                                   "view, first round")
 
         # K5 on the first round's buffer (full, truncated) and the late
         # round's (mostly padding)
@@ -3258,7 +3330,7 @@ def main() -> int:
     mark("kernel checks")
     # ---- 4. the main path: one full 800x800 view through render_image,
     # timed on its second render (the first warms cuBLAS and the allocator)
-    serving = ("grid_encode", "march", "volrend")
+    serving = ("field_input", "march", "volrend")
     render_with = lambda fld, grid, **kw: renderer.render_image(
         fld, mcfg, rcfg, aabb, grid, rays.origins, rays.viewdirs, bkgd, device=dev, **kw)
     render_view = lambda **kw: render_with(field, binaries, **kw)
@@ -3643,7 +3715,11 @@ def main() -> int:
     # pn_frac_grad steps, the codec path: int cache, encode and decode, or
     # the SAT-masked encode's drive in [breadth])
     meta = {
-        "grid_encode": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:104", "view"),
+        # K1: the training render's encodes (a view's queries take K1f)
+        "grid_encode": ("grid_encode.cu", "cnc_tpu/ops/encoding.py:104", "train"),
+        # K1f: the field's input row, the four encodes and the sine columns in
+        # one launch; a view's field queries take it in place of K1
+        "field_input": ("grid_encode.cu", "cnc_tpu/models/radiance_field.py:105", "view"),
         "grid_encode_bwd": ("grid_encode.cu", "cnc_tpu/ops/scatter_ops.py:104", "train"),
         "compact": ("compact.cu", "cnc_tpu/ops/scatter_ops.py:146", "rate"),
         "march": ("march.cu", "cnc_tpu/render/marching.py:112", "view"),

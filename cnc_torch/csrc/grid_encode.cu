@@ -124,6 +124,41 @@
 // backward evaluates no table.  Exact either way, so the forward stays
 // bit-equal to its twin.
 
+// K1f, the radiance field's input row (`cnc_field_input`), replaces
+// (cnc_tpu, what XLA fuses into the base MLP's first product)
+//   models/radiance_field.py encode_position (105-118): the 3D encode, the
+//                    three plane encodes on x01[:, dims] and their concatenation
+//   ops/sh.py        sine_embed (58-71): x, sin and cos of x * 2^i, concatenated
+// Plain twin: the composition itself, cnc_torch/models/radiance_field.py
+// `encode_position` on a CPU tensor (four K1 calls, sine_embed, torch.cat on
+// the card, where the training render's gradient needs it).
+//
+// For each point of x01 [N, 3] it writes one row: the n3 3D levels, then the
+// n2 levels of the xy, xz and yz planes (each plane's two coordinates read
+// from the point itself, inside or outside [0,1] by those two alone), then
+// the 3 + 6*n_freqs sine columns in sine_embed's order; 159 columns at the
+// published widths.  The grid columns come from K1's own per-level code
+// (`encode_level`), so they equal the four K1 calls bit for bit; the sine
+// columns are sinf/cosf of the exact power-of-two product (float32 as
+// torch.sin takes it), within a last bit of torch.sin and torch.cos.
+//
+// Bound on the H100: bytes.  Per point, 12 bytes of position and a 636-byte
+// row, plus the distinct table rows: about 340 MB at a view round's 524,288
+// points, 0.10 ms at 3.35 TB/s.  The composition it replaces wrote the four
+// encodes, read them back into the concatenation, and made 21 [N, 3] pieces
+// and a [N, 63] copy for the sine columns, and each plane's index copied
+// from the host waited for the stream.
+//
+// Design.  One launch, no host sync.  K1's tiling: 8 warps a block, `wpt`
+// warps share 32 points and split the 24 levels (3 a warp at the published
+// widths, so 8 warps gather a point's levels at once, and a warp's level,
+// plane and table are uniform across its lanes).  The row is
+// staged in shared memory at an odd stride of 159 floats (a lane a point:
+// no bank conflicts), the sine columns are filled by every thread of the
+// block once the levels are done, and the tile's span of 32 rows (20,352
+// bytes, 16-byte aligned) is stored 16 bytes a thread with the streaming
+// hint (the row is read once, by the product that follows).
+
 // The mask packing (`cnc_pack_mask_bits`) replaces no XLA composition:
 // cnc_tpu's encode reads the bool masks (ops/encoding.py 90-94) and the port
 // packs them once per cache refresh so that the encodes read a bit a corner.
@@ -428,6 +463,43 @@ __device__ __forceinline__ bool inside_unit(const float* x, int d) {
   return inside;
 }
 
+// One (point, level) of the forward: every surviving corner's row loaded at
+// once, the rows summed by weight in corner order 0..2^D-1, over the
+// surviving weight (1e-9 when none survive); zeros outside [0,1].  K1 and
+// K1f share it, so their columns are equal bit for bit.
+template <int D, int F, bool Sat>
+__device__ __forceinline__ void encode_level(const float* x, bool inside,
+                                             const float* __restrict__ table, const Levels& lv,
+                                             int l, const uint32_t* __restrict__ bits,
+                                             const SatSrc& src, float* acc) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.f;
+  if (!inside) return;
+  Corners<D> c;
+  level_corners<D, Sat>(x, lv, l, bits, src, c);
+  float v[1 << D][F];
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+    if (c.live[k]) {
+      load_row<F>(table, c.row[k], v[k]);
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[k][f] = 0.f;
+    }
+  }
+  float wsum = 0.f;
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+    if (!c.live[k]) continue;
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] += c.w[k] * v[k][f];
+    wsum += c.w[k];
+  }
+  const float wn = wsum == 0.f ? 1e-9f : wsum;
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = acc[f] / wn;
+}
+
 template <int D, int F, bool Sat>
 __global__ void __launch_bounds__(kThreads)
 grid_encode_forward_kernel(const float* __restrict__ points, const float* __restrict__ table,
@@ -451,41 +523,84 @@ grid_encode_forward_kernel(const float* __restrict__ points, const float* __rest
     const bool inside = inside_unit(x, D);
     for (int j = warp % wpt; j < n_out; j += wpt) {
       float* o = s.rows + (lp * n_out + j) * F;
+      const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
       float acc[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] = 0.f;
-      if (inside) {
-        const int l = min_ids ? min(max(s.ids[lp] + j, 0), n_levels - 1) : j;
-        Corners<D> c;
-        level_corners<D, Sat>(x, lv, l, bits, src, c);
-        float v[1 << D][F];
-#pragma unroll
-        for (int k = 0; k < (1 << D); ++k) {
-          if (c.live[k]) {
-            load_row<F>(table, c.row[k], v[k]);
-          } else {
-#pragma unroll
-            for (int f = 0; f < F; ++f) v[k][f] = 0.f;
-          }
-        }
-        float wsum = 0.f;
-#pragma unroll
-        for (int k = 0; k < (1 << D); ++k) {
-          if (!c.live[k]) continue;
-#pragma unroll
-          for (int f = 0; f < F; ++f) acc[f] += c.w[k] * v[k][f];
-          wsum += c.w[k];
-        }
-        const float wn = wsum == 0.f ? 1e-9f : wsum;
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = acc[f] / wn;
-      }
+      encode_level<D, F, Sat>(x, inside, table, lv, l, bits, src, acc);
 #pragma unroll
       for (int f = 0; f < F; ++f) o[f] = acc[f];
     }
   }
   __syncthreads();
   copy_rows<F>(out + p0 * n_out * F, s.rows, n_pts * n_out * F);
+}
+
+// K1f: the radiance field's whole input row (see the header).  Tasks are the
+// n3 3D levels, then the n2 levels of the xy, xz and yz planes; `wpt` warps
+// share 32 points and split the tasks as K1's warps split levels, each
+// warp's task uniform across its lanes.  The row is staged in shared memory
+// (`width` floats a point), the sine columns are written by every thread of
+// the block after the tasks, and the tile's span goes out as float4s.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+grid_encode_forward_kernel_field(const float* __restrict__ x01, const float* __restrict__ t3,
+                                 const float* __restrict__ t_xy, const float* __restrict__ t_xz,
+                                 const float* __restrict__ t_yz, float* __restrict__ out, int n,
+                                 Levels l3, int n3, Levels l2, int n2, int n_freqs, int width,
+                                 int wpt) {
+  extern __shared__ float4 smem4[];
+  const int tile = kThreads / wpt;
+  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
+  const int n_pts = static_cast<int>(min(static_cast<long long>(tile), n - p0));
+  float* rows = reinterpret_cast<float*>(smem4);
+  float* pts = rows + tile * width;
+  for (int i = threadIdx.x; i < n_pts * 3; i += kThreads) pts[i] = x01[p0 * 3 + i];
+  __syncthreads();
+
+  const SatSrc none{nullptr, 0, 0};
+  const int warp = threadIdx.x >> 5;
+  const int lp = (warp / wpt) * 32 + (threadIdx.x & 31);
+  if (lp < n_pts) {
+    const float x[3] = {pts[lp * 3], pts[lp * 3 + 1], pts[lp * 3 + 2]};
+    const bool inside = inside_unit(x, 3);
+    float* row = rows + lp * width;
+    for (int j = warp % wpt; j < n3 + 3 * n2; j += wpt) {
+      float acc[F];
+      if (j < n3) {
+        encode_level<3, F, false>(x, inside, t3, l3, j, nullptr, none, acc);
+      } else {
+        // the plane's two coordinates, as x01[:, dims] gives them: the
+        // point is inside or outside [0,1] by those two alone
+        const int p = (j - n3) / n2;
+        const float xp[2] = {x[p == 2 ? 1 : 0], x[p == 0 ? 1 : 2]};
+        encode_level<2, F, false>(xp, inside_unit(xp, 2), p == 0 ? t_xy : p == 1 ? t_xz : t_yz,
+                                  l2, (j - n3) % n2, nullptr, none, acc);
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) row[j * F + f] = acc[f];
+    }
+  }
+  // the sine embedding: x, then sin(x * 2^i) and cos(x * 2^i) for i < n_freqs
+  const int n_sine = 3 + 6 * n_freqs, col0 = (n3 + 3 * n2) * F;
+  for (int i = threadIdx.x; i < n_pts * n_sine; i += kThreads) {
+    const int p = i / n_sine, c = i % n_sine;
+    float v;
+    if (c < 3) {
+      v = pts[p * 3 + c];
+    } else {
+      const int k = c - 3, r = k % 6;
+      const float a = __fmul_rn(pts[p * 3 + r % 3], static_cast<float>(1u << (k / 6)));
+      v = r < 3 ? sinf(a) : cosf(a);
+    }
+    rows[p * width + col0 + c] = v;
+  }
+  __syncthreads();
+  // the tile's rows are one contiguous span of the output, 16-byte aligned
+  // (p0 * width floats, p0 a multiple of 32)
+  const int total = n_pts * width;
+  float4* dst = reinterpret_cast<float4*>(out + p0 * width);
+  for (int i = threadIdx.x; i < total / 4; i += kThreads) __stcs(dst + i, smem4[i]);
+  for (int i = total / 4 * 4 + threadIdx.x; i < total; i += kThreads)
+    out[p0 * width + i] = rows[i];
 }
 
 // One table row of d_table += v, as one vector atomic (each element is added
@@ -781,6 +896,41 @@ CNC_EXPORT int cnc_grid_encode_backward(const float* points, const float* grad, 
                                         const unsigned long long* rows, void* stream) {
   return encode<true>(points, grad, d_table, n, d, f, n_out, n_levels, res, offsets, sizes, bits,
                       mask_offs, min_ids, rb, rows, stream);
+}
+
+// K1f.  x01 [n, 3] f32; t3 (the 3D table) and t_xy, t_xz, t_yz (the planes')
+// [rows, f] f32, 4*f-byte aligned; out [n, (n3 + 3*n2)*f + 3 + 6*n_freqs]
+// f32, 16-byte aligned; all contiguous on the device.  res/off/size are host
+// arrays of each grid's levels; the wrapper has checked that they lie inside
+// the tables.  One launch.
+CNC_EXPORT int cnc_field_input(const float* x01, const float* t3, const float* t_xy,
+                               const float* t_xz, const float* t_yz, float* out, int n, int f,
+                               int n3, const int* res3, const int* off3, const int* size3, int n2,
+                               const int* res2, const int* off2, const int* size2, int n_freqs,
+                               void* stream) {
+  static const long long no_mask[kMaxLevels] = {};
+  Levels l3, l2;
+  if (!fill_levels(&l3, 3, n3, n3, res3, off3, size3, no_mask) ||
+      !fill_levels(&l2, 2, n2, n2, res2, off2, size2, no_mask) || (f != 2 && f != 4) ||
+      n_freqs < 0 || n_freqs > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const int width = (n3 + 3 * n2) * f + 3 + 6 * n_freqs;
+  const int wpt = warps_per_point(n3 + 3 * n2);
+  const int tile = kThreads / wpt;
+  const size_t smem = static_cast<size_t>(tile) * (width + 3) * sizeof(float);
+  const auto go = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<cnc_blocks(n, tile), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        x01, t3, t_xy, t_xz, t_yz, out, n, l3, n3, l2, n2, n_freqs, width, wpt);
+    return cnc_last_error();
+  };
+  return f == 4 ? go(grid_encode_forward_kernel_field<4>)
+                : go(grid_encode_forward_kernel_field<2>);
 }
 
 // K1s/K2s's mask sources of the table sat (int32 [rb+1]^d on the device):

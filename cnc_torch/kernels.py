@@ -55,7 +55,9 @@ SOURCE_FLAGS = {"march.cu": ("-fmad=false",), "grid_encode.cu": ("-fmad=false",)
 # and the forward of segment_gather; segment_mean / segment_mean_bwd: one call
 # site's pooled mean (both csrc/segment_pool.cu); volrend / volrend_bwd: two
 # per composite, forward or backward (the walk table, then the scan;
-# csrc/volrend.cu)
+# csrc/volrend.cu); field_input: K1f, the radiance field's whole input row in
+# one launch (csrc/grid_encode.cu), one a field query on the card that no
+# gradient reaches, which then makes no grid_encode launch
 launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "volrend": 0,
             "volrend_bwd": 0, "scatter_add": 0, "lane_gather": 0, "grid_encode_v": 0,
             "grid_encode_v_bwd": 0, "grid_encode_s": 0, "grid_encode_s_bwd": 0, "sat_mask_sources": 0,
@@ -63,7 +65,7 @@ launches = {"grid_encode": 0, "grid_encode_bwd": 0, "compact": 0, "march": 0, "v
             "pn_frac_plane": 0, "pn_hist_bwd": 0, "pn_hist_part": 0, "pn_hist_part_bwd": 0,
             "footprint": 0, "vertex_tables": 0,
             "int_ctx_pool": 0, "int_pq": 0, "pn_hist_int": 0,
-            "pack_mask_bits": 0, "segment_mean": 0, "segment_mean_bwd": 0}
+            "pack_mask_bits": 0, "segment_mean": 0, "segment_mean_bwd": 0, "field_input": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # host int arrays
@@ -73,6 +75,7 @@ _SIGNATURES = {
     "cnc_cuda_error_string": ((_I,), ctypes.c_char_p),
     "cnc_grid_encode_forward": (_ENCODE, _I),
     "cnc_grid_encode_backward": (_ENCODE, _I),
+    "cnc_field_input": ((_P,) * 6 + (_I, _I) + (_I, _IP, _IP, _IP) * 2 + (_I, _P), _I),
     "cnc_pack_mask_bits": ((_P, _LL, _LL, _P, _P), _I),
     "cnc_sat_mask_sources": ((_P, _I, _I, _I, _IP, _LP, _P, _P, _P), _I),
     "cnc_compact_scratch": ((), _LL),

@@ -195,12 +195,34 @@ def _plane(x01: torch.Tensor, dims) -> torch.Tensor:
         return x01[:, dims]
 
 
+def uses_field_input(x01: torch.Tensor, tables: Mapping[str, torch.Tensor]) -> bool:
+    """Whether `encode_position` builds the row in one K1f launch
+    (`encoding.field_input`): on the card, when no gradient is to reach the
+    tables or the positions (grad mode off, or none of them requires grad).
+    Otherwise the composition runs: the training render under autograd, and
+    the plain twin on the CPU."""
+    return x01.is_cuda and not (torch.is_grad_enabled() and (
+        x01.requires_grad or any(tables[k].requires_grad for k in TABLES)))
+
+
 def encode_position(field: RadianceField, cfg: ModelConfig, x01: torch.Tensor,
                     tables: Optional[Dict] = None) -> torch.Tensor:
     """Grid + plane + sine features for normalized positions in [0,1]^3
     (compose_3D_2D_embed, ngp.py:620-645)."""
     t = tables if tables is not None else quantized_tables(field, cfg)
-    g3, g2 = cfg.grid_3d, cfg.grid_2d
+    if uses_field_input(x01, t):
+        return enc.field_input(x01.contiguous(), [t[k].contiguous() for k in TABLES],
+                               cfg.grid_3d, cfg.grid_2d, cfg.pe_num_freqs)
+    return composed_position(cfg, x01, t)
+
+
+def composed_position(cfg: ModelConfig, x01: torch.Tensor,
+                      tables: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """`encode_position`'s row as a composition: four encodes (K1 on the
+    card), three plane indices, `sine_embed` and one concatenation.  The
+    training render's path under autograd, the plain twin on the CPU, and
+    K1f's yardstick on the card."""
+    t, g3, g2 = tables, cfg.grid_3d, cfg.grid_2d
     return torch.cat([
         enc.grid_encode(x01, t["xyz"], g3),
         enc.grid_encode(_plane(x01, [0, 1]), t["xy"], g2),

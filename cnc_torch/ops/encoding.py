@@ -42,6 +42,11 @@ corner bits of the coarse levels and the occupancy itself, one bit a cell,
 for the fine ones (R - 2 > Rb), whose corners share one window of it
 (csrc/grid_encode.cu).  The backward reuses the forward's sources.
 `occ_mask` wins when both forms are given, as in cnc_tpu.
+
+`field_input` is K1f, the radiance field's whole input row in one launch
+(the four encodes of `radiance_field.encode_position` and its sine columns;
+csrc/grid_encode.cu), for field queries on the card that no gradient
+reaches.
 """
 
 from __future__ import annotations
@@ -536,6 +541,45 @@ def _encode(points, table, resolutions, offsets, occ_mask=None, mask_offsets=Non
                                      occ_bits, ids, n_levels_calc, occ_sat)
     return _encode_plain(points.detach(), table, resolutions, offsets, occ_mask, moffs,
                          min_level_ids, n_levels_calc, occ_sat=occ_sat)
+
+
+def field_input(x01: torch.Tensor, tables: Sequence[torch.Tensor], spec3: GridSpec,
+                spec2: GridSpec, num_freqs: int) -> torch.Tensor:
+    """K1f: the radiance field's whole input row in one launch on the card,
+    [N, L3*F + 3*L2*F + 3 + 6*num_freqs] float32: `spec3`'s levels of
+    x01 [N, 3] against tables[0], then `spec2`'s levels of the xy, xz and yz
+    planes against tables[1:4], then `sh.sine_embed(x01, num_freqs)`.  The
+    grid columns equal `grid_encode`'s (K1's) bit for bit.  A forward only:
+    no gradient reaches the tables or the points.  CUDA tensors only; its
+    plain twin is the composition in `radiance_field.encode_position`."""
+    name = "field_input"
+    kernels.require_cuda(name, x01, *tables)
+    f = spec3.n_features
+    if (x01.dtype != torch.float32 or x01.dim() != 2 or x01.shape[1] != 3 or len(tables) != 4
+            or spec2.n_features != f or spec3.num_dim != 3 or spec2.num_dim != 2
+            or not 0 <= num_freqs <= 31):
+        raise ValueError(f"{name}: takes float32 points [N, 3], a 3D and a 2D grid of one F,"
+                         " four tables and 0..31 frequencies")
+    levels = []
+    for spec, tabs in ((spec3, tables[:1]), (spec2, tables[1:])):
+        _, n_levels, res, offs, sizes, _, _ = _levels(name, spec.num_dim, f,
+                                                      tuple(spec.resolutions),
+                                                      tuple(spec.offsets), None, None)
+        for t in tabs:
+            if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != f:
+                raise ValueError(f"{name}: tables must be float32 [rows, {f}]")
+            if t.data_ptr() % (4 * f):
+                raise ValueError(f"{name}: table rows must be {4 * f}-byte aligned")
+            if spec.offsets[n_levels] > t.shape[0]:
+                raise ValueError(f"{name}: level offsets run past the table")
+        levels += [n_levels, res, offs, sizes]
+    n = x01.shape[0]
+    out = torch.empty(n, spec3.output_dim + 3 * spec2.output_dim + 3 + 6 * num_freqs,
+                      dtype=torch.float32, device=x01.device)
+    kernels.call("cnc_field_input", kernels.ptr(x01), *(kernels.ptr(t) for t in tables),
+                 kernels.ptr(out), n, f, *levels, num_freqs)
+    kernels.launches[name] += 1
+    return out
 
 
 def encode_explicit(points: torch.Tensor, table: torch.Tensor,

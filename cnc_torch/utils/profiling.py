@@ -38,7 +38,9 @@ sets, so a trace says what the host was doing while the card sat idle.
     sync/level_resolutions        the 3D levels' resolutions copied to the card (once)
     sync/host_scalar              the render's pixel count copied to the card (once)
     sync/step_end                 the step's sample counts (once a step)
-    sync/plane_index              each plane's list index, copied (3 a field query)
+    sync/plane_index              each plane's list index, copied (3 a field query
+                                  that composes its row: under autograd, or on the
+                                  CPU; K1f's queries make none)
     sync/rank_seed                a data-parallel rank's seed draw
     sync/log, sync/checkpoint     `fit`'s log line and checkpoint
     sync/alive                    the eval loop's alive test (once a round)
